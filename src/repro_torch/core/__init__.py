@@ -1,5 +1,7 @@
 """The scheduling core of the port: instances, US metric, GUS, scenarios,
-congestion, policies and the Monte-Carlo fleet, in PyTorch."""
+the streaming arrival engine, QoS-class aggregation, congestion, policies
+and the Monte-Carlo fleet, in PyTorch."""
+from .aggregation import QuantizationConfig, aggregate_instance, aggregate_requests
 from .gus import GUS_BACKENDS, Assignment, gus_schedule, gus_schedule_batch, gus_schedule_np
 from .instance import (
     FlatInstance,
@@ -16,8 +18,10 @@ from .queueing import CongestionConfig, PolicyCarry, committed_loads, fleet_poli
 from .satisfaction import hard_feasible, mean_us, satisfied_mask, us_tensor
 from .scenarios import Scenario, get_scenario, list_scenarios, register_scenario
 from .simulator import ClusterSpec, FleetResult, SimConfig, demo_cluster_spec, simulate_fleet
+from .streaming import ArrivalStream, max_frame_arrivals, stream_trace, stream_trace_columns
 
 __all__ = [
+    "ArrivalStream",
     "Assignment",
     "ClusterSpec",
     "CongestionConfig",
@@ -28,8 +32,11 @@ __all__ = [
     "GeneratorConfig",
     "Policy",
     "PolicyCarry",
+    "QuantizationConfig",
     "Scenario",
     "SimConfig",
+    "aggregate_instance",
+    "aggregate_requests",
     "committed_loads",
     "demo_cluster_spec",
     "fleet_policy_carry",
@@ -43,6 +50,7 @@ __all__ = [
     "hard_feasible",
     "list_policies",
     "list_scenarios",
+    "max_frame_arrivals",
     "mean_us",
     "pad_instance",
     "register_policy",
@@ -53,5 +61,7 @@ __all__ = [
     "satisfied_mask",
     "simulate_fleet",
     "stack_instances",
+    "stream_trace",
+    "stream_trace_columns",
     "us_tensor",
 ]

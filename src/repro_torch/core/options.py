@@ -24,9 +24,9 @@ dispatch (:func:`resolve_backend`).  With no explicit or environment
 choice the backend follows the device: ``"cuda"`` (the kernel) for CUDA
 tensors, ``"torch"`` (the plain loop) for CPU tensors.
 
-This slice runs the dense fleet only; ``simulate_fleet`` raises
-``NotImplementedError`` for the fields it does not honour yet
-(:func:`check_ported`).  The reference's ``rep_group`` is a JAX device-mesh
+``simulate_fleet`` runs the dense and the hierarchical fleet, streamed or
+materialized; it raises ``NotImplementedError`` for the fields it does not
+honour yet (:func:`check_ported`).  The reference's ``rep_group`` is a JAX device-mesh
 setting and has no counterpart here.
 """
 from __future__ import annotations
@@ -66,8 +66,9 @@ class EngineOptions:
     scenario default exists; :func:`resolve_options` fills those in.
     """
 
-    #: GUS implementation (``"torch"`` | ``"cuda"``); ``None`` defers to
-    #: ``REPRO_TORCH_GUS_BACKEND`` at dispatch, else follows the device.
+    #: GUS (or, hierarchical, class allocator) implementation (``"torch"``
+    #: | ``"cuda"``); ``None`` defers to ``REPRO_TORCH_GUS_BACKEND`` at
+    #: dispatch, else follows the device.
     backend: Optional[str] = None
     #: arrival-RNG draw discipline (``"paper-default"`` | ``"vectorized"``);
     #: ``None`` defers to ``REPRO_RNG_MODE``, then the scenario default.
@@ -181,20 +182,11 @@ def check_ported(opts: EngineOptions) -> None:
     if opts.devices not in (None, 1):
         raise NotImplementedError(
             f"devices={opts.devices}: the replication axis over several CUDA "
-            "devices is not ported yet (ROADMAP.md §1, still to port: devices>1)"
-        )
-    if opts.scheduler == "hierarchical":
-        raise NotImplementedError(
-            "scheduler='hierarchical' is not ported yet (ROADMAP.md §1, still "
-            "to port: hierarchical scheduler + kernel 2)"
+            "devices is not ported yet (ROADMAP.md §1 item 9, still to port: "
+            "devices>1)"
         )
     if opts.metrics:
         raise NotImplementedError(
             "metrics=True: the telemetry metric stream is not ported yet "
-            "(ROADMAP.md §1, still to port: telemetry)"
-        )
-    if opts.streaming:
-        raise NotImplementedError(
-            "streaming arrivals are not ported yet (ROADMAP.md §1, still to "
-            "port: streaming)"
+            "(ROADMAP.md §1 item 5, still to port: telemetry)"
         )

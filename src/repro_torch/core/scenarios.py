@@ -25,9 +25,10 @@ call):
   gaps at a time per edge): the same process in a different draw order,
   columnar (:class:`RequestColumns`) end to end.
 
-The registered scenarios are the reference's non-streaming ones.  The
-streaming scenarios (``sustained-overload``, ``diurnal-week``,
-``mega-city``) wait for the streaming engine (ROADMAP.md §1).
+The registry is the reference's whole registry, the three streaming
+scenarios (``sustained-overload``, ``diurnal-week``, ``mega-city``)
+included; their bounded-memory arrival engine is
+:mod:`repro_torch.core.streaming`.
 """
 from __future__ import annotations
 
@@ -46,8 +47,11 @@ __all__ = [
     "FlashCrowdScenario",
     "MobilityScenario",
     "HeteroTiersScenario",
+    "SustainedOverloadScenario",
+    "DiurnalWeekScenario",
     "OutageScenario",
     "FlashCrowdOutageScenario",
+    "MegaCityScenario",
     "SCENARIOS",
     "RNG_MODES",
     "VEC_CHUNK",
@@ -201,8 +205,10 @@ class Scenario:
     #: ``None`` defers to ``SimConfig.move_prob``.
     move_prob: Optional[float] = None
     #: when True the simulator defaults to the bounded-memory streaming
-    #: arrival engine instead of materializing the full trace (not ported
-    #: yet: the port's ``simulate_fleet`` raises for it).
+    #: arrival engine (:mod:`repro_torch.core.streaming`) instead of
+    #: materializing the full trace — the mode for long-horizon /
+    #: nonstationary workloads.  ``EngineOptions(streaming=...)`` overrides
+    #: per run.
     streaming: bool = False
     #: default arrival-RNG mode (:data:`RNG_MODES`): ``"paper-default"`` is
     #: the frozen per-request draw order, ``"vectorized"`` the batched
@@ -507,7 +513,9 @@ def bucket_arrivals(
 
     This is the fleet runner's frame-synchronous layout: frame ``t`` holds
     every arrival in ``[t * frame_ms, (t + 1) * frame_ms)``, and anything at
-    or past the last boundary clamps into the final frame.
+    or past the last boundary clamps into the final frame — the same
+    bucketing the windowed streaming path reproduces by pulling an
+    :class:`~repro_torch.core.streaming.ArrivalStream` one frame at a time.
     """
     buckets: List[List[Request]] = [[] for _ in range(n_frames)]
     for r in reqs:
@@ -714,6 +722,44 @@ class HeteroTiersScenario(Scenario):
 
 @register_scenario
 @dataclasses.dataclass(frozen=True)
+class SustainedOverloadScenario(Scenario):
+    """Arrivals sustained at ``rate_mult`` x the base rate for the whole
+    horizon — demand permanently exceeds cluster capacity, so carried
+    backlog grows without bound once congestion is enabled.  Streams by
+    default: the long-horizon congestion workload."""
+
+    name: str = "sustained-overload"
+    description: str = "constant overload at rate_mult x base; streaming by default"
+    streaming: bool = True
+    rate_mult: float = 3.0
+
+    def rate(self, edge, t_ms, cfg):
+        return cfg.arrival_rate_per_s * self.rate_mult
+
+    def rate_batch(self, edge, t_ms, cfg):
+        return np.full(
+            np.asarray(t_ms, np.float64).shape, cfg.arrival_rate_per_s * self.rate_mult
+        )
+
+    def rate_bound(self, edge, cfg):
+        return cfg.arrival_rate_per_s * self.rate_mult
+
+
+@register_scenario
+@dataclasses.dataclass(frozen=True)
+class DiurnalWeekScenario(DiurnalScenario):
+    """Seven full diurnal cycles over the horizon — the long-horizon
+    nonstationary workload (the streaming engine keeps memory bounded
+    whatever the horizon)."""
+
+    name: str = "diurnal-week"
+    description: str = "seven day/night cycles over the horizon; streaming by default"
+    streaming: bool = True
+    period_frac: float = 1.0 / 7.0
+
+
+@register_scenario
+@dataclasses.dataclass(frozen=True)
 class OutageScenario(Scenario):
     """Mid-run server outage: the per-frame (gamma, eta) budgets of
     ``down_servers`` are masked to zero inside the outage window.  A dead
@@ -800,3 +846,78 @@ def _outage_scale_batch(scn, frame_starts_ms, cfg, n_servers):
     if down:
         out[np.ix_(in_outage, down)] = 0.0
     return out
+
+
+@register_scenario
+@dataclasses.dataclass(frozen=True)
+class MegaCityScenario(Scenario):
+    """City-scale load: a diurnal swing *multiplied* by a mid-run flash
+    crowd on the hot edges, at rates sized for 10^5+ arrivals per frame on
+    a ~20-edge cluster (``rate_per_edge_per_s * frame_s * n_edge``).  QoS
+    requirements are drawn from *discrete* tiers (accuracy floor x deadline
+    multiplier), so the distinct-QoS space stays tiny however many users
+    arrive — the workload the hierarchical class-aggregate scheduler
+    (:mod:`repro_torch.core.aggregation`) is built for.  Streams and
+    generates columnar (``vectorized``) by default.
+    """
+
+    name: str = "mega-city"
+    description: str = "10^5+ users/frame: diurnal x flash crowd, discrete QoS tiers"
+    streaming: bool = True
+    rng_mode: str = "vectorized"
+    dense_sweep: bool = False
+    rate_per_edge_per_s: float = 2400.0
+    amplitude: float = 0.5
+    period_frac: float = 1.0
+    burst_mult: float = 3.0
+    burst_start_frac: float = 0.4
+    burst_end_frac: float = 0.6
+    hot_edge_stride: int = 2
+    acc_tiers: Tuple[float, ...] = (45.0, 55.0, 65.0)
+    deadline_mults: Tuple[float, ...] = (0.75, 1.0, 1.5)
+
+    def _hot(self, edge: int) -> bool:
+        return edge % self.hot_edge_stride == 0
+
+    def rate(self, edge, t_ms, cfg):
+        period = max(cfg.horizon_ms * self.period_frac, 1e-9)
+        r = self.rate_per_edge_per_s * (
+            1.0 + self.amplitude * math.sin(2.0 * math.pi * t_ms / period)
+        )
+        in_burst = (
+            self.burst_start_frac * cfg.horizon_ms
+            <= t_ms
+            < self.burst_end_frac * cfg.horizon_ms
+        )
+        return r * self.burst_mult if (self._hot(edge) and in_burst) else r
+
+    def rate_batch(self, edge, t_ms, cfg):
+        t = np.asarray(t_ms, np.float64)
+        period = max(cfg.horizon_ms * self.period_frac, 1e-9)
+        r = self.rate_per_edge_per_s * (
+            1.0 + self.amplitude * np.sin(2.0 * np.pi * t / period)
+        )
+        if not self._hot(edge):
+            return r
+        in_burst = (self.burst_start_frac * cfg.horizon_ms <= t) & (
+            t < self.burst_end_frac * cfg.horizon_ms
+        )
+        return np.where(in_burst, r * self.burst_mult, r)
+
+    def rate_bound(self, edge, cfg):
+        peak = self.rate_per_edge_per_s * (1.0 + self.amplitude)
+        return peak * (self.burst_mult if self._hot(edge) else 1.0)
+
+    def draw_qos(self, rng, cfg):
+        a = self.acc_tiers[int(rng.integers(0, len(self.acc_tiers)))]
+        m = self.deadline_mults[int(rng.integers(0, len(self.deadline_mults)))]
+        return float(a), float(cfg.delay_req_ms * m)
+
+    def draw_qos_batch(self, rng, cfg, n):
+        a = np.asarray(self.acc_tiers, np.float64)[
+            rng.integers(0, len(self.acc_tiers), n)
+        ]
+        c = cfg.delay_req_ms * np.asarray(self.deadline_mults, np.float64)[
+            rng.integers(0, len(self.deadline_mults), n)
+        ]
+        return a, c

@@ -1,11 +1,14 @@
 """Monte-Carlo fleet simulator — the paper's numerical testbed on the card.
 
-The PyTorch counterpart of the dense path of
-``repro.core.simulator.simulate_fleet``: R independent replications of a
-scenario, each a sequence of T frame-synchronous decisions.
+The PyTorch counterpart of ``repro.core.simulator.simulate_fleet``: R
+independent replications of a scenario, each a sequence of T
+frame-synchronous decisions, in one of two scheduling layouts.
+
+**Dense** (the default):
 
 1. Each replication's arrivals are drawn on the host in numpy
-   (:class:`_RepFrameSource`, the reference's RNG order, both ``rng_mode``s).
+   (:class:`_RepFrameSource`, the reference's RNG order, both ``rng_mode``s,
+   materialized or streamed).
 2. Every (replication, frame) pair becomes one padded ``FlatInstance``: the
    (N requests x M servers x L variants) candidate grid, built on the host
    for a whole window of frames at once (:func:`_build_frame_batch`) and
@@ -18,16 +21,26 @@ scenario, each a sequence of T frame-synchronous decisions.
 4. Satisfaction and mean US are scored on the card per frame and only the
    per-frame counts come back to the host.
 
+**Hierarchical** (``EngineOptions(scheduler="hierarchical")``, the
+city-scale path, :func:`_simulate_fleet_hier`): each frame's requests are
+bucketed into QoS classes on the host, the class representatives become one
+padded ``(Cp, M, L)`` class grid per frame, utility and feasibility are
+computed on the card, the class allocator
+(:func:`repro_torch.kernels.hier.hier_cells`) places whole chunks of each
+class, and the members are accounted one by one on the host, one window
+behind the card.
+
 ``window=`` bounds memory (frames are built and scheduled ``window`` at a
-time, the carry threaded between windows) and ``prefetch=`` overlaps the
-host build of window k+1 with the card's work on window k in one producer
-thread.  All host RNG lives in the build, which runs the same work in the
-same order inline or on the producer, so results are identical either way.
+time, the carry threaded between windows; on a streaming scenario the
+arrivals themselves are drawn a window at a time) and ``prefetch=``
+overlaps the host build of window k+1 with the card's work on window k in
+one producer thread.  All host RNG lives in the build, which runs the same
+work in the same order inline or on the producer, so results are identical
+either way.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): the sequential ``simulate``, streaming arrivals,
-impairments and admission control, the metric stream, the hierarchical
-scheduler and ``devices>1``.
+ROADMAP.md item): the sequential ``simulate``, impairments and admission
+control, the metric stream and ``devices>1``.
 """
 from __future__ import annotations
 
@@ -43,6 +56,9 @@ import torch
 
 from repro_torch.obs.trace import Stopwatch
 
+from repro_torch.kernels.hier import hier_cells
+
+from .aggregation import QuantizationConfig, aggregate_requests
 from .impairments import AdmissionConfig, ImpairmentConfig
 from .instance import FlatInstance, resolve_device
 from .options import EngineOptions, check_ported, resolve_options
@@ -58,7 +74,7 @@ from .queueing import (
     fleet_policy_carry,
     step_backlog,
 )
-from .satisfaction import mean_us, satisfied_mask
+from .satisfaction import hard_feasible, mean_us, satisfied_mask, us_tensor
 from .scenarios import (
     RequestColumns,
     Scenario,
@@ -66,6 +82,7 @@ from .scenarios import (
     bucket_columns,
     get_scenario,
 )
+from .streaming import ArrivalStream, max_frame_arrivals, stream_trace, stream_trace_columns
 
 __all__ = [
     "ClusterSpec",
@@ -177,6 +194,15 @@ class FleetResult:
 def _pad_bucket(n: int) -> int:
     """Round a frame's queue length up to a power-of-two bucket (min 4)."""
     return max(4, 1 << max(n - 1, 0).bit_length())
+
+
+def _pad_bucket_fine(n: int) -> int:
+    """Bucket schedule for the hierarchical class axis: powers of two up to
+    4096, multiples of 1024 above (at most ~5% dead class rows past 4096,
+    where a power of two would pad 19k classes to 32768)."""
+    if n <= 4096:
+        return max(4, 1 << max(n - 1, 0).bit_length())
+    return ((n + 1023) // 1024) * 1024
 
 
 def _frame_arrays(
@@ -327,28 +353,50 @@ def _frame_budgets_batch(
 
 
 class _RepFrameSource:
-    """One replication's per-frame request buckets, materialized up front.
+    """One replication's per-frame request buckets, materialized or lazy.
 
-    One ``default_rng(rep_seed)`` draws the trace (Request objects in
-    ``"paper-default"`` mode, :class:`RequestColumns` in ``"vectorized"``)
-    and then the per-frame mobility draws, in the reference's order.
+    *Materialized*: one ``default_rng(rep_seed)`` draws the trace (Request
+    objects in ``"paper-default"`` mode, :class:`RequestColumns` in
+    ``"vectorized"``) — or the trace comes from the streaming engine's
+    one-shot drain when ``use_stream`` — and then the per-frame mobility
+    draws, in the reference's order.  *Lazy* holds an
+    :class:`~repro_torch.core.streaming.ArrivalStream` and draws each
+    frame's bucket on demand, so a windowed fleet never holds more than one
+    window of requests; the stream's chunking invariance makes the buckets
+    (and the mobility draw order) the same either way.
     """
 
-    def __init__(self, scn, rep_seed, n_edge, n_services, cfg, T, rng_mode):
+    def __init__(
+        self, scn, rep_seed, n_edge, n_services, cfg, T, use_stream, lazy, rng_mode
+    ):
         self.cfg = cfg
         self.n_edge = n_edge
         self.move_prob = cfg.move_prob if scn.move_prob is None else scn.move_prob
         self.rng = np.random.default_rng(rep_seed)
-        if rng_mode == "vectorized":
-            cols = scn.generate_arrivals_columns(self.rng, n_edge, n_services, cfg)
+        self.stream: Optional[ArrivalStream] = None
+        self.buckets = None
+        if lazy:
+            self.stream = ArrivalStream(
+                scn, rep_seed, n_edge, n_services, cfg, rng_mode=rng_mode
+            )
+        elif rng_mode == "vectorized":
+            if use_stream:
+                cols = stream_trace_columns(scn, rep_seed, n_edge, n_services, cfg)
+            else:
+                cols = scn.generate_arrivals_columns(self.rng, n_edge, n_services, cfg)
             self.buckets = bucket_columns(cols, cfg.frame_ms, T)
         else:
-            reqs = scn.generate_arrivals(self.rng, n_edge, n_services, cfg, rng_mode=rng_mode)
+            if use_stream:
+                # rng_mode=None defers to the scenario, as in the reference
+                reqs = stream_trace(scn, rep_seed, n_edge, n_services, cfg)
+            else:
+                reqs = scn.generate_arrivals(self.rng, n_edge, n_services, cfg, rng_mode=rng_mode)
             self.buckets = bucket_arrivals(reqs, cfg.frame_ms, T)
         self._next = 0
 
     @property
     def max_bucket(self) -> int:
+        """Largest per-frame bucket (materialized sources only)."""
         return max((len(b) for b in self.buckets), default=0)
 
     def take(self, upto_frame: int) -> List:
@@ -356,7 +404,10 @@ class _RepFrameSource:
         frame order."""
         out = []
         for tf in range(self._next, upto_frame):
-            b = self.buckets[tf]
+            if self.buckets is not None:
+                b = self.buckets[tf]
+            else:
+                b = self.stream.take_until((tf + 1) * self.cfg.frame_ms)
             _apply_mobility_inplace(b, self.n_edge, self.move_prob, self.rng)
             out.append(b)
         self._next = upto_frame
@@ -424,7 +475,78 @@ def _not_ported(cfg: SimConfig) -> None:
     if cfg.impairments.enabled or cfg.admission.enabled:
         raise NotImplementedError(
             "impairments and admission control are not ported yet "
-            "(ROADMAP.md §1, still to port: resilience)"
+            "(ROADMAP.md §1 item 3, still to port: resilience)"
+        )
+
+
+class _WindowPipeline:
+    """Windows built in order: inline, or up to ``prefetch`` ahead on one
+    producer thread with a bounded queue.
+
+    An exception raised while building a window reaches the consumer's
+    :meth:`next`; :meth:`close` (always called) unblocks, drains and joins
+    the producer, so an early exit or an error never leaves a thread
+    behind.
+    """
+
+    def __init__(self, build, window_starts, prefetch: int, name: str):
+        self.build = build
+        self.thread = None
+        if prefetch <= 0 or not window_starts:
+            return
+        self.queue: queue_mod.Queue = queue_mod.Queue(maxsize=prefetch)
+        self.stop = threading.Event()
+
+        def offer(item) -> bool:
+            while not self.stop.is_set():
+                try:
+                    self.queue.put(item, timeout=0.05)
+                    return True
+                except queue_mod.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for t0 in window_starts:
+                    if not offer(build(t0)):
+                        return
+            except BaseException as e:  # delivered to the consumer's next()
+                offer(e)
+
+        self.thread = threading.Thread(target=produce, name=name, daemon=True)
+        self.thread.start()
+
+    def next(self, t0: int):
+        if self.thread is None:
+            return self.build(t0)
+        item = self.queue.get()
+        if isinstance(item, BaseException):
+            raise item
+        return item
+
+    def close(self) -> None:
+        if self.thread is None:
+            return
+        self.stop.set()
+        while self.thread.is_alive():
+            try:
+                self.queue.get_nowait()
+            except queue_mod.Empty:
+                pass
+            self.thread.join(timeout=0.05)
+        self.thread.join()
+
+
+def _fold_hier_scheduler(policy) -> None:
+    """The hierarchical layout *is* the reference's ``gus-hier`` policy, so
+    it composes only with ``"gus"`` or ``"gus-hier"``; any other policy is
+    an error, not a silent override."""
+    name = policy.name if isinstance(policy, Policy) else policy
+    if name not in ("gus", "gus-hier"):
+        raise ValueError(
+            "EngineOptions(scheduler='hierarchical') maps to the 'gus-hier' "
+            f"policy; it does not compose with policy {name!r}"
         )
 
 
@@ -441,48 +563,78 @@ def simulate_fleet(
 ) -> FleetResult:
     """Monte-Carlo fleet: ``n_rep`` independent replications on ``device``.
 
-    Replication ``r`` draws its arrivals from ``default_rng(seed + r)``, as
-    in the reference, and every frame is padded to one power-of-two bucket
-    (the largest frame over all replications), so the integer results equal
-    the reference's ``simulate_fleet`` for the same arguments and
+    Replication ``r`` draws its arrivals from ``default_rng(seed + r)`` (or
+    streams them from ``SeedSequence(seed + r)``), as in the reference.  On
+    the dense layout every frame is padded to one power-of-two bucket (the
+    largest frame over all replications; a count-only pre-pass finds it
+    when the arrivals stream lazily), so the integer results equal the
+    reference's ``simulate_fleet`` for the same arguments and
     ``mean_us_per_rep`` agrees to float32 summation order.
+    ``EngineOptions(scheduler="hierarchical")`` runs the class-aggregate
+    fleet instead (:func:`_simulate_fleet_hier`).
 
     ``device=None`` means ``"cuda"`` (raises without a CUDA device);
     ``options`` takes the fields :func:`~repro_torch.core.options.
     resolve_options` resolves.  ``options.backend`` picks the GUS
-    implementation and composes only with the ``"gus"`` policy.
+    implementation (dense; composes only with the ``"gus"`` policy) or the
+    class allocator's (hierarchical).
     """
     dev = resolve_device(device)
     scn = get_scenario(scenario)
     opts = resolve_options(options, scenario=scn)
     check_ported(opts)
     _not_ported(cfg)
-    pol = get_policy(policy)
-    fn = pol.bind(spec.n_edge, spec.n_servers)
-    if opts.backend is not None:
-        if pol.name != "gus":
-            raise ValueError(
-                f"backend={opts.backend!r} selects the GUS implementation; "
-                f"policy {pol.name!r} does not take it"
-            )
-        fn = functools.partial(fn, backend=opts.backend)
+    hier = opts.scheduler == "hierarchical"
+    if hier:
+        _fold_hier_scheduler(policy)
+    else:
+        pol = get_policy(policy)
+        fn = pol.bind(spec.n_edge, spec.n_servers)
+        if opts.backend is not None:
+            if pol.name != "gus":
+                raise ValueError(
+                    f"backend={opts.backend!r} selects the GUS implementation; "
+                    f"policy {pol.name!r} does not take it"
+                )
+            fn = functools.partial(fn, backend=opts.backend)
     ccfg = cfg.congestion
     T = max(1, int(np.ceil(cfg.horizon_ms / cfg.frame_ms)))
     K = spec.proc_ms.shape[1]
     M = spec.n_servers
     W = T if opts.window is None else max(1, min(int(opts.window), T))
-    prefetch = opts.prefetch
+    # a streamed trace is drawn a window at a time when windows are shorter
+    # than the horizon, and materialized in one drain otherwise
+    lazy = opts.streaming and W < T
     pin = dev.type == "cuda"
 
     sw = Stopwatch()
     t_run0 = time.perf_counter()
     with sw.span("fleet/generate_traces"):
         sources = [
-            _RepFrameSource(scn, seed + rep, spec.n_edge, K, cfg, T, opts.rng_mode)
+            _RepFrameSource(
+                scn, seed + rep, spec.n_edge, K, cfg, T, opts.streaming, lazy, opts.rng_mode
+            )
             for rep in range(n_rep)
         ]
-        n_pad = _pad_bucket(max(src.max_bucket for src in sources))
+        if hier:
+            n_pad = 0  # the class-aggregate path never pads a request grid
+        elif lazy:
+            # count-only pre-pass: the global largest frame in bounded
+            # memory — one padding bucket, the materialized run's
+            n_pad = _pad_bucket(max(
+                max_frame_arrivals(
+                    scn, seed + rep, spec.n_edge, K, cfg, T, rng_mode=opts.rng_mode
+                )
+                for rep in range(n_rep)
+            ))
+        else:
+            n_pad = _pad_bucket(max(src.max_bucket for src in sources))
     gen_s = sw.total("fleet/generate_traces")
+    if hier:
+        return _simulate_fleet_hier(
+            spec, cfg, scn, sources, n_rep=n_rep, T=T, W=W, opts=opts, dev=dev,
+            gen_s=gen_s, sw=sw, t_run0=t_run0,
+        )
     carry = fleet_policy_carry(n_rep, M, bandwidth_init=spec.bandwidth_true, device=dev)
 
     sat_frames = np.zeros((n_rep, T), np.int64)
@@ -495,45 +647,11 @@ def simulate_fleet(
         return _build_window(sources, spec, cfg, scn, t0, min(t0 + W, T), n_pad, sw, pin)
 
     window_starts = list(range(0, T, W))
-    prod_thread = None
-    if prefetch > 0:
-        work_q: queue_mod.Queue = queue_mod.Queue(maxsize=prefetch)
-        stop_producer = threading.Event()
-
-        def _offer(item) -> bool:
-            while not stop_producer.is_set():
-                try:
-                    work_q.put(item, timeout=0.05)
-                    return True
-                except queue_mod.Full:
-                    continue
-            return False
-
-        def _produce():
-            try:
-                for t0 in window_starts:
-                    if not _offer(build_window(t0)):
-                        return
-            except BaseException as e:  # delivered to the consumer's get()
-                _offer(e)
-
-        prod_thread = threading.Thread(
-            target=_produce, name="fleet-window-producer", daemon=True
-        )
-        prod_thread.start()
-
-    def next_window(t0: int):
-        if prod_thread is None:
-            return build_window(t0)
-        item = work_q.get()
-        if isinstance(item, BaseException):
-            raise item
-        return item
-
+    pipe = _WindowPipeline(build_window, window_starts, opts.prefetch, "fleet-window-producer")
     try:
-        for wi, wi_t0 in enumerate(window_starts):
+        for wi_t0 in window_starts:
             with sw.span("fleet/window_wait"):
-                host, n_real = next_window(wi_t0)
+                host, n_real = pipe.next(wi_t0)
             t0, t1 = wi_t0, min(wi_t0 + W, T)
             Tc = t1 - t0
             with sw.span("fleet/dispatch"):
@@ -585,16 +703,7 @@ def simulate_fleet(
                 us_frames[:, t0:t1] = per_rep(us.cpu().numpy())
                 n_real_frames[:, t0:t1] = per_rep(n_real)
     finally:
-        if prod_thread is not None:
-            # early exit or error: unblock the producer, drain, join
-            stop_producer.set()
-            while prod_thread.is_alive():
-                try:
-                    work_q.get_nowait()
-                except queue_mod.Empty:
-                    pass
-                prod_thread.join(timeout=0.05)
-            prod_thread.join()
+        pipe.close()
 
     reqs_per_rep = n_real_frames.sum(1)
     sat_per_rep = sat_frames.sum(1)
@@ -618,7 +727,314 @@ def simulate_fleet(
         window=W,
         dispatch_s=sw.total("fleet/dispatch"),
         gen_s=gen_s,
-        prefetch=prefetch if prod_thread is not None else 0,
+        prefetch=opts.prefetch if pipe.thread is not None else 0,
+        timings=timings,
+        device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    )
+
+
+def _frame_columns(bucket):
+    """``(cover, service, A, C, size, arrival_ms)`` numpy columns of one
+    frame's requests, either layout."""
+    if isinstance(bucket, RequestColumns):
+        return (bucket.cover, bucket.service, bucket.A, bucket.C,
+                bucket.size_bytes, bucket.arrival_ms)
+    return (
+        np.array([r.cover for r in bucket], np.int64),
+        np.array([r.service for r in bucket], np.int64),
+        np.array([r.A for r in bucket], np.float64),
+        np.array([r.C for r in bucket], np.float64),
+        np.array([r.size_bytes for r in bucket], np.float64),
+        np.array([r.arrival_ms for r in bucket], np.float64),
+    )
+
+
+def _aggregate_frame(bucket, frame_end: float, quant: QuantizationConfig):
+    """One frame's QoS classes, sorted by first member (the order the
+    allocator walks them): the class-representative columns and the
+    member bookkeeping the accounting needs."""
+    cov, svc, A_r, C_r, size, arr_ms = _frame_columns(bucket)
+    tq = frame_end - np.asarray(arr_ms, np.float64)
+    count, first_idx, members, offsets, repc = aggregate_requests(
+        cov, svc, A_r, C_r, size, tq, quant
+    )
+    order = np.argsort(first_idx, kind="stable")
+    n_c = count.shape[0]
+    rank = np.empty(n_c, np.int64)
+    rank[order] = np.arange(n_c)
+    cls_of_member = np.repeat(np.arange(n_c), count)
+    members_s = members[np.argsort(rank[cls_of_member], kind="stable")]
+    count_s = count[order]
+    rep_cols = RequestColumns(
+        arrival_ms=frame_end - repc["tq"][order],
+        cover=repc["cover"][order],
+        service=repc["service"][order],
+        A=repc["A"][order],
+        C=repc["C"][order],
+        size_bytes=repc["size"][order],
+    )
+    info = dict(
+        members_s=members_s,
+        off_s=np.concatenate([[0], np.cumsum(count_s)]),
+        count_s=count_s,
+        cov=cov, svc=svc, A=A_r, C=C_r, size=size, tq=tq,
+    )
+    return rep_cols, info
+
+
+def _member_accounting(spec: ClusterSpec, cfg: SimConfig, info, ci, jj, ll, lens, st,
+                       pc_k=None, pe_k=None):
+    """Per-member satisfaction of one frame's allocated cells: ``(served,
+    satisfied, sum of US)``.
+
+    The allocated members of each cell are the class's members from its
+    ``start`` offset on, and every member's realized accuracy and
+    completion time are recomputed from its *own* size and queueing delay
+    with the reference's op sequence (its float32/float64 mixing included);
+    the class mean only steered the allocation.  ``pc_k``/``pe_k`` are the
+    frame's congestion inflation factors, or ``None``.
+    """
+    tot = int(lens.sum())
+    cellid = np.repeat(np.arange(ci.size), lens)
+    intra = np.arange(tot) - np.repeat(np.cumsum(lens) - lens, lens)
+    base = info["off_s"][ci] + st
+    midx = info["members_s"][base[cellid] + intra]
+    jm = jj[cellid].astype(np.int64)
+    lm = ll[cellid].astype(np.int64)
+    svc_m = info["svc"][midx]
+    cov_m = info["cov"][midx]
+    A_m = info["A"][midx].astype(np.float32)
+    C_m = info["C"][midx].astype(np.float32)
+    Tq_m = info["tq"][midx].astype(np.float32)
+    size_m = info["size"][midx].astype(np.float32)
+    acc_m = spec.acc[svc_m, lm]
+    proc_m = spec.proc_ms[jm, svc_m, lm]
+    local_m = jm == cov_m
+    transfer = size_m / spec.bandwidth_true
+    comm = transfer + np.where(jm >= spec.n_edge, spec.cloud_extra_delay, 0.0)
+    comm = np.where(local_m, 0.0, comm)
+    ct = ((Tq_m + proc_m) + comm).astype(np.float32)
+    if pc_k is not None:  # congested_ctime, per member
+        comm_f = ct - proc_m - Tq_m
+        ct = ct + proc_m * (pc_k[jm] - 1.0) + comm_f * (pe_k[cov_m] - 1.0)
+    sat_m = (acc_m >= A_m) & (ct <= C_m)
+    us_m = cfg.w_a * (acc_m - A_m) / cfg.max_as + cfg.w_c * (C_m - ct) / cfg.max_cs
+    return tot, int(sat_m.sum()), float(us_m.sum())
+
+
+def _build_hier_window(sources, spec, cfg, scn, t0: int, t1: int, quant, sw, pin: bool):
+    """Host build of frames ``[t0, t1)`` of every replication for the
+    class-aggregate fleet, frame-major (row ``k * n_rep + rep``): pull the
+    buckets, aggregate each frame into sorted QoS classes, assemble the
+    padded class grid with its member counts and stage it in host tensors
+    (pinned when ``pin``).  Returns ``(t0, Tc, host, infos, n_arr)``: the
+    leaves, the per-frame member bookkeeping (``None`` for an empty frame)
+    and the ``(n_rep, Tc)`` arrival counts.  Pure numpy and the sources' own
+    RNGs, so it runs the same inline or on a producer thread."""
+    n_rep = len(sources)
+    Tc = t1 - t0
+    with sw.span("fleet/hier_build"):
+        gb, eb = _frame_budgets_batch(spec, cfg, scn, (t0 + np.arange(Tc)) * cfg.frame_ms)
+    with sw.span("fleet/arrivals"):
+        per_rep = [src.take(t1) for src in sources]
+    frames_rc, frame_starts, infos = [], [], []
+    n_arr = np.zeros((n_rep, Tc), np.int32)
+    n_cls = np.zeros((n_rep, Tc), np.int32)
+    for k in range(Tc):
+        frame_start = (t0 + k) * cfg.frame_ms
+        for rep in range(n_rep):
+            bucket = per_rep[rep][k]
+            frame_starts.append(frame_start)
+            n_arr[rep, k] = len(bucket)
+            if not len(bucket):
+                z = np.zeros(0)
+                frames_rc.append(RequestColumns(
+                    arrival_ms=z, cover=np.zeros(0, np.int64),
+                    service=np.zeros(0, np.int64), A=z, C=z, size_bytes=z,
+                ))
+                infos.append(None)
+                continue
+            with sw.span("fleet/hier_aggregate"):
+                rep_cols, info = _aggregate_frame(bucket, frame_start + cfg.frame_ms, quant)
+            frames_rc.append(rep_cols)
+            infos.append(info)
+            n_cls[rep, k] = len(rep_cols)
+    Cp = _pad_bucket_fine(int(n_cls.max()))
+    with sw.span("fleet/grid_build"):
+        budgets = [(gb[k], eb[k]) for k in range(Tc) for _ in range(n_rep)]
+        arrays = _build_frame_batch(frames_rc, spec, cfg, frame_starts, budgets, Cp)
+        count = np.zeros((Tc * n_rep, Cp), np.int32)
+        for i, info in enumerate(infos):
+            if info is not None:
+                count[i, : info["count_s"].shape[0]] = info["count_s"]
+        arrays["count"] = count
+        host = {k: torch.from_numpy(x) for k, x in arrays.items()}
+    if pin:
+        with sw.span("fleet/pin"):
+            host = {k: x.pin_memory() for k, x in host.items()}
+    return t0, Tc, host, infos, n_arr
+
+
+def _hier_device_inputs(host, dev):
+    """A window's class grid on ``dev`` with its utility and feasibility:
+    ``(inst, us, feas, count)``."""
+    inst = FlatInstance(**{k: host[k].to(dev, non_blocking=True) for k in _FIELDS})
+    return inst, us_tensor(inst), hard_feasible(inst), host["count"].to(dev, non_blocking=True)
+
+
+def _simulate_fleet_hier(
+    spec: ClusterSpec,
+    cfg: SimConfig,
+    scn: Scenario,
+    sources: List[_RepFrameSource],
+    *,
+    n_rep: int,
+    T: int,
+    W: int,
+    opts: EngineOptions,
+    dev: torch.device,
+    gen_s: float,
+    sw: Stopwatch,
+    t_run0: float,
+) -> FleetResult:
+    """Class-aggregate fleet for ``EngineOptions(scheduler="hierarchical")``,
+    the reference's ``_simulate_fleet_hier`` (without admission control).
+
+    Per window, on the host (inline or on the producer thread): each
+    (replication, frame)'s arrivals are bucketed into QoS classes
+    (:func:`~repro_torch.core.aggregation.aggregate_requests`), sorted by
+    first member, and the count-weighted class representatives become one
+    padded ``(Cp, M, L)`` class grid per frame (:func:`_build_frame_batch`,
+    ``Cp`` from :func:`_pad_bucket_fine`), staged in pinned memory.  On the
+    card: the grid's utility and feasibility, then the class allocator
+    (:func:`~repro_torch.kernels.hier.hier_cells`) — one launch over all
+    R x W frames of the window with congestion off (no frame depends on
+    another), or a loop over the window's frames with congestion on, each
+    against the backlog-reduced budgets and followed by the backlog step.
+    Only the nonzero cells of ``take``/``start`` come back, one window
+    behind the card, and every allocated member is accounted on the host
+    (:func:`_member_accounting`) while the card runs the next window.
+    Rows are frame-major (row ``k * n_rep + rep``).
+    """
+    ccfg = cfg.congestion
+    M = spec.n_servers
+    quant = QuantizationConfig()
+    pin = dev.type == "cuda"
+    reqs_per_rep = np.zeros(n_rep, np.int64)
+    served_per_rep = np.zeros(n_rep, np.int64)
+    sat_per_rep = np.zeros(n_rep, np.int64)
+    us_sum_per_rep = np.zeros(n_rep, np.float64)
+    phi_sum = 0.0
+    phi_cnt = 0
+    bg = torch.zeros((n_rep, M), dtype=torch.float32, device=dev)
+    be = torch.zeros_like(bg)
+
+    def build_window(t0: int):
+        return _build_hier_window(sources, spec, cfg, scn, t0, min(t0 + W, T), quant, sw, pin)
+
+    def dispatch(host, Tc):
+        """Enqueue one window on the card; returns its device outputs."""
+        nonlocal bg, be
+        inst, us, feas, count = _hier_device_inputs(host, dev)
+        if not ccfg.enabled:
+            take, start = hier_cells(
+                us, feas, inst.v, inst.u, inst.cover, count, inst.gamma, inst.eta,
+                backend=opts.backend,
+            )
+            return take, start, None, None
+        takes, starts, pcs, pes = [], [], [], []
+        for k in range(Tc):
+            sl = slice(k * n_rep, (k + 1) * n_rep)
+            g, e = inst.gamma[sl], inst.eta[sl]
+            t_k, s_k, w, c_load = hier_cells(
+                us[sl], feas[sl], inst.v[sl], inst.u[sl], inst.cover[sl], count[sl],
+                effective_capacity(g, bg), effective_capacity(e, be),
+                backend=opts.backend, loads=True,
+            )
+            pcs.append(compute_inflation(bg + w, g, ccfg))
+            pes.append(comm_inflation(be + c_load, e, ccfg))
+            bg = step_backlog(bg, w, g, ccfg)
+            be = step_backlog(be, c_load, e, ccfg)
+            takes.append(t_k)
+            starts.append(s_k)
+        return torch.cat(takes), torch.cat(starts), torch.stack(pcs, 1), torch.stack(pes, 1)
+
+    def fetch(outs):
+        """The window's nonzero cells (row-major ``(frame, c, j, l)``) with
+        their take and start, and the inflation factors, on the host."""
+        take, start, pc, pe = outs
+        nz = torch.nonzero(take)
+        idx = nz.unbind(1)
+        return (
+            nz.cpu().numpy(), take[idx].cpu().numpy(), start[idx].cpu().numpy(),
+            None if pc is None else pc.cpu().numpy(),
+            None if pe is None else pe.cpu().numpy(),
+        )
+
+    def post(Tc, infos, n_arr, fetched):
+        nonlocal phi_sum, phi_cnt
+        nz, vals, starts, pc, pe = fetched
+        with sw.span("fleet/hier_post"):
+            if ccfg.enabled:  # pc: (n_rep, Tc, M), the reference's layout
+                phi_sum += float(pc.sum())
+                phi_cnt += pc.size
+            reqs_per_rep[:] += n_arr.sum(1)
+            bounds = np.searchsorted(nz[:, 0], np.arange(Tc * n_rep + 1))
+            for rep in range(n_rep):
+                for k in range(Tc):
+                    i = k * n_rep + rep
+                    lo, hi = bounds[i], bounds[i + 1]
+                    if infos[i] is None or lo == hi:
+                        continue
+                    tot, n_sat, us_sum = _member_accounting(
+                        spec, cfg, infos[i], nz[lo:hi, 1], nz[lo:hi, 2], nz[lo:hi, 3],
+                        vals[lo:hi], starts[lo:hi],
+                        None if pc is None else pc[rep, k], None if pe is None else pe[rep, k],
+                    )
+                    served_per_rep[rep] += tot
+                    sat_per_rep[rep] += n_sat
+                    us_sum_per_rep[rep] += us_sum
+
+    window_starts = list(range(0, T, W))
+    pipe = _WindowPipeline(build_window, window_starts, opts.prefetch, "fleet-hier-producer")
+    pending = None
+    try:
+        for wi_t0 in window_starts:
+            with sw.span("fleet/window_wait"):
+                t0, Tc, host, infos, n_arr = pipe.next(wi_t0)
+            with sw.span("fleet/dispatch"):
+                # the previous window's results first (this waits for the
+                # card), then the next window's work, so the card computes
+                # while the host accounts the previous window
+                fetched = fetch(pending[3]) if pending is not None else None
+                outs = dispatch(host, Tc)
+            if pending is not None:
+                post(*pending[:3], fetched)
+            pending = (Tc, infos, n_arr, outs)
+        if pending is not None:
+            with sw.span("fleet/dispatch"):
+                fetched = fetch(pending[3])
+            post(*pending[:3], fetched)
+    finally:
+        pipe.close()
+
+    gen_s += sw.total("fleet/window_wait")
+    timings = sw.as_dict()
+    timings["total_s"] = time.perf_counter() - t_run0
+    return FleetResult(
+        n_rep=n_rep,
+        n_frames=T,
+        n_requests=int(reqs_per_rep.sum()),
+        n_served=int(served_per_rep.sum()),
+        satisfied_per_rep=100.0 * sat_per_rep / np.maximum(reqs_per_rep, 1),
+        mean_us_per_rep=us_sum_per_rep / np.maximum(reqs_per_rep, 1),
+        final_backlog_per_rep=bg.cpu().numpy() if ccfg.enabled else None,
+        mean_compute_inflation=phi_sum / phi_cnt if ccfg.enabled and phi_cnt else 1.0,
+        n_devices=1,
+        window=W,
+        dispatch_s=sw.total("fleet/dispatch"),
+        gen_s=gen_s,
+        prefetch=opts.prefetch if pipe.thread is not None else 0,
         timings=timings,
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     )

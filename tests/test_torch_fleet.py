@@ -146,8 +146,12 @@ def test_arrival_traces_match_reference(scenario, rng_mode):
 
 
 def test_scenario_registry_is_the_non_streaming_set():
-    ref = {n for n in R.list_scenarios() if not R.get_scenario(n).streaming}
-    assert set(P.list_scenarios()) == ref == set(PORTED_SCENARIOS)
+    """The port registers the reference's whole registry: the non-streaming
+    scenarios of the first slice plus the streaming ones."""
+    streaming = {n for n in R.list_scenarios() if R.get_scenario(n).streaming}
+    assert set(P.list_scenarios()) == set(R.list_scenarios())
+    assert set(P.list_scenarios()) - streaming == set(PORTED_SCENARIOS)
+    assert all(P.get_scenario(n).streaming for n in streaming)
 
 
 def test_demo_cluster_spec_matches_reference():
@@ -157,28 +161,30 @@ def test_demo_cluster_spec_matches_reference():
             np.testing.assert_array_equal(getattr(got, f), getattr(ref, f), err_msg=f)
 
 
-@pytest.mark.parametrize("case", ["streaming", "devices", "metrics", "hierarchical",
-                                  "impairments", "admission"])
-def test_unported_options_raise(case):
+@pytest.mark.parametrize("case,item", [
+    ("devices", "item 9"), ("metrics", "item 5"), ("impairments", "item 3"),
+    ("admission", "item 3"), ("hier-admission", "item 3"),
+    ("hier-impairments", "item 3"), ("hier-metrics", "item 5"), ("hier-devices", "item 9"),
+])
+def test_unported_options_raise(case, item):
     """What this slice does not run raises NotImplementedError naming its
-    ROADMAP item, instead of running something else."""
+    ROADMAP item, instead of running something else — on the dense and on
+    the hierarchical layout."""
     spec = P.demo_cluster_spec()
     cfg = P.SimConfig(**BASE)
-    opts = P.EngineOptions()
-    if case == "streaming":
-        opts = P.EngineOptions(streaming=True)
-    elif case == "devices":
-        opts = P.EngineOptions(devices=2)
-    elif case == "metrics":
-        opts = P.EngineOptions(metrics=True)
-    elif case == "hierarchical":
-        opts = P.EngineOptions(scheduler="hierarchical")
-    elif case == "impairments":
+    hier = case.startswith("hier-")
+    what = case.removeprefix("hier-")
+    opts = dict(scheduler="hierarchical") if hier else {}
+    if what == "devices":
+        opts["devices"] = 2
+    elif what == "metrics":
+        opts["metrics"] = True
+    elif what == "impairments":
         cfg = dataclasses.replace(cfg, impairments=PI.ImpairmentConfig(enabled=True))
     else:
         cfg = dataclasses.replace(cfg, admission=PI.AdmissionConfig(enabled=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.simulate_fleet(spec, cfg, n_rep=2, options=opts, device="cpu")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
+        P.simulate_fleet(spec, cfg, n_rep=2, options=P.EngineOptions(**opts), device="cpu")
 
 
 def test_unknown_policy_and_backend_errors():
