@@ -34,10 +34,26 @@ any phase fails:
    the CPU; then the scenario's own defaults (streamed arrivals, 2400 req/s
    per edge, ~1.4e5 users per frame), 8 replications, ``window=1``,
    ``prefetch=2`` — the hierarchical main path, whose launches are counted;
-5. times each kernel with CUDA events at its main path's launch shape
-   beside its plain version and its bound (bytes over the card's memory
-   rate, or operations over its rate);
-6. prints one JSON line listing every ported kernel, then the contract line
+5. holds the attention kernels against their plain versions on the card
+   (ragged lengths, GQA rep 1/4/8, window None and 8, head_dim 64 and 128,
+   f32 and bf16, decode masks partly and wholly invalid, and both kernels'
+   serving-path launch shapes), then a small dense model (f32, GQA rep 4,
+   a 16-token window whose ring wraps) on the card against the same
+   weights on the CPU: prefill logits and 8 greedy tokens;
+6. serves yi-9b at full width and depth (48 layers, bf16, seeded random
+   weights on the card): ``ServingEngine.generate`` on batch 8 x a
+   1024-token prompt from ``make_batch(seed=0)``, 32 greedy tokens — the
+   serving main path, whose 48 ``flash_attention`` and 31 x 48
+   ``decode_attention`` launches are counted; greedy decoding is checked
+   against argmax decoding by one full re-forward (in f32, at full width
+   and 8 layers); ``torch.profiler`` splits one prefill's and four decode
+   steps' device time by kernel kind and gives the device's busy share;
+7. times each kernel with CUDA events at its main path's launch shape
+   beside its plain version, its bound (bytes over the card's memory
+   rate, or operations over its rate) and, for attention, one
+   ``scaled_dot_product_attention`` call as a library yardstick (never
+   called by the port);
+8. prints one JSON line listing every ported kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device,
@@ -57,10 +73,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM: HBM3 rate and float32 rate outside the tensor cores (NVIDIA's
-#: data sheet, dense, at the full 700 W power limit)
+#: H100 SXM: HBM3 rate, float32 rate outside the tensor cores and the bf16
+#: tensor-core rate (NVIDIA's data sheet, dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 #: float32 operations GUS does per candidate: 2 subtractions, 2 divisions,
 #: 2 multiplications, 1 addition (Eq. 1) and 6 comparisons (feasibility,
 #: budgets, argmax)
@@ -71,6 +88,12 @@ HIER_OPS_PER_CELL = 5
 #: the stated tolerance of ``mean_us_per_rep`` between devices: its row
 #: mean is a float32 reduction whose summation order differs
 US_RTOL, US_ATOL = 1e-5, 1e-6
+#: attention kernel vs plain version (tests/test_kernels.py's tolerances)
+ATTN_TOL = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+#: the model on the card vs on the CPU, f32 logits (tests/test_torch_model.py)
+MODEL_RTOL = MODEL_ATOL = 1e-3
+#: the serving main path: yi-9b at full width and depth
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "yi-9b", 8, 1024, 32
 
 
 class SmokeFailure(RuntimeError):
@@ -80,6 +103,378 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+                  gen=SERVE_GEN):
+    """Phases 5-6 and the attention half of phase 7: the attention kernels
+    against their plain versions, the small model on the card against the
+    CPU, the counted serving main path (``cfg_serve`` at its own width and
+    depth, ``batch`` x ``prompt`` tokens, ``gen`` greedy tokens) and both
+    kernels timed at its launch shapes.  Returns each kernel's entry of the
+    ``kernels`` line without its name, route, source and replaced kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.flash_attention import (
+        attention_mask,
+        flash_attention,
+        flash_attention_ref,
+    )
+    from repro_torch.kernels.gus import gus_assign
+    from repro_torch.kernels.hier import hier_cells
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model, params_to
+    from repro_torch.serving import ServingEngine
+    from repro_torch.training import make_batch
+
+    # -- 5. the attention kernels vs their plain versions, the small model
+    #       on the card vs the CPU --------------------------------------------
+    attn_err = {"flash_attention": 0.0, "decode_attention": 0.0}
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def randn(shape, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtypes[dtype])
+
+    def compare_attn(name, label, got, want, dtype):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        attn_err[name] = max(attn_err[name], err)
+        ok = torch.allclose(got.float(), want.float(), **ATTN_TOL[dtype])
+        print(f"compare {name} {label} {dtype}: max_abs_err={err} within {ATTN_TOL[dtype]}: {ok}")
+        check(ok, f"{name} kernel != plain version on {label} {dtype}")
+
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        for B, H, KV, S, hd, win in (
+            (2, 4, 4, 100, 64, None),     # rep 1, ragged S
+            (1, 8, 2, 200, 128, 8),       # rep 4, window 8
+            (2, 16, 2, 77, 128, None),    # rep 8, ragged
+            (1, 8, 1, 130, 64, 8),        # rep 8, window 8, ragged
+        ):
+            q = randn((B, S, H, hd), dtype, 1).transpose(1, 2)  # model-layout views
+            k = randn((B, S, KV, hd), dtype, 2).transpose(1, 2)
+            v = randn((B, S, KV, hd), dtype, 3).transpose(1, 2)
+            compare_attn(
+                "flash_attention", f"B={B} H={H} KV={KV} S={S} hd={hd} window={win}",
+                flash_attention(q, k, v, causal=True, window=win, backend="cuda"),
+                flash_attention_ref(q, k, v, causal=True, window=win), dtype,
+            )
+        for B, KV, rep, T, hd in ((2, 4, 1, 100, 64), (3, 2, 4, 257, 128), (2, 4, 8, 333, 128)):
+            q = randn((B, KV, rep, hd), dtype, 4)
+            k = randn((B, T, KV, hd), dtype, 5).transpose(1, 2)  # cache-layout views
+            v = randn((B, T, KV, hd), dtype, 6).transpose(1, 2)
+            g = torch.Generator(device=dev).manual_seed(7)
+            valid = torch.rand((B, T), generator=g, device=dev) < 0.6
+            valid[0] = False  # no valid position at all: zeros
+            got = decode_attention(q, k, v, valid, backend="cuda")
+            compare_attn("decode_attention", f"B={B} KV={KV} rep={rep} T={T} hd={hd}",
+                         got, decode_attention_ref(q, k, v, valid), dtype)
+            check(bool((got[0] == 0).all()), "an all-invalid decode row must be zeros")
+
+    # both kernels at the serving main path's launch shapes and dtype
+    mdt = cfg_serve.dtype
+    Bm, Hm, KVm, hdm = batch, cfg_serve.num_heads, cfg_serve.num_kv_heads, cfg_serve.head_dim
+    Sm, Tm = prompt, prompt + gen
+    fq = randn((Bm, Sm, Hm, hdm), mdt, 8).transpose(1, 2)
+    fk = randn((Bm, Sm, KVm, hdm), mdt, 9).transpose(1, 2)
+    fv = randn((Bm, Sm, KVm, hdm), mdt, 10).transpose(1, 2)
+    compare_attn("flash_attention", f"main-path launch B={Bm} H={Hm} KV={KVm} S={Sm} hd={hdm}",
+                 flash_attention(fq, fk, fv, backend="cuda"), flash_attention_ref(fq, fk, fv), mdt)
+    dq = randn((Bm, KVm, Hm // KVm, hdm), mdt, 11)
+    dcache = randn((2, Bm, Tm, KVm, hdm), mdt, 12)
+    dk, dv = dcache[0].transpose(1, 2), dcache[1].transpose(1, 2)
+    # the last decode step's mask: every position but one holds a token
+    dvalid = (torch.arange(Tm, device=dev) < Tm - 1)[None].expand(Bm, Tm)
+    compare_attn("decode_attention", f"main-path launch B={Bm} KV={KVm} rep={Hm // KVm} T={Tm}",
+                 decode_attention(dq, dk, dv, dvalid, backend="cuda"),
+                 decode_attention_ref(dq, dk, dv, dvalid), mdt)
+    print(f"attention kernel comparisons: {time.perf_counter() - t0:.3f} s")
+
+    # the same small model (f32, rep 4, 16-token window) on the card and the CPU
+    t0 = time.perf_counter()
+    small = dataclasses.replace(reduce_for_smoke(cfg_serve), num_kv_heads=1, sliding_window=16)
+    small_model = Model(small)
+    cpu_params = small_model.init(0, device="cpu")
+    card_params = params_to(cpu_params, dev)
+    sb = make_batch(small, 2, 24, np.random.default_rng(0), device="cpu")
+    sb_card = {k: t.to(dev) for k, t in sb.items()}
+    lc, _ = small_model.prefill(cpu_params, sb, small_model.init_cache(2, 32, device="cpu"))
+    lg, _ = small_model.prefill(card_params, sb_card, small_model.init_cache(2, 32, device=dev))
+    logit_err = float((lg.cpu() - lc).abs().max())
+    tok_card = ServingEngine(small_model, card_params, device=dev).generate(sb_card, 8).tokens
+    tok_cpu = ServingEngine(small_model, cpu_params, device="cpu").generate(sb, 8).tokens
+    print(
+        f"small model card vs cpu ({small.num_layers} layers, d={small.d_model}, "
+        f"H={small.num_heads} KV={small.num_kv_heads}, window={small.sliding_window}, 24-token "
+        f"prompt + 8): prefill logits max_abs_diff={logit_err}, tokens equal="
+        f"{np.array_equal(tok_card, tok_cpu)}, {time.perf_counter() - t0:.3f} s"
+    )
+    check(torch.allclose(lg.cpu(), lc, rtol=MODEL_RTOL, atol=MODEL_ATOL),
+          "the small model's prefill logits on the card != on the CPU")
+    check(np.array_equal(tok_card, tok_cpu), "the small model's greedy tokens differ")
+    serve(cfg_serve.arch_id, batch=2, prompt=24, gen=4)  # the serving command, reduced config, on the card
+
+    # -- 6. the serving main path: at full width and depth ------------------
+    serve_model = Model(cfg_serve)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # left by the earlier phases
+    t0 = time.perf_counter()
+    serve_params = serve_model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    param_bytes = nbytes(serve_params)
+    engine = ServingEngine(serve_model, serve_params, device=dev)
+    prompt_batch = make_batch(cfg_serve, batch, prompt, np.random.default_rng(0), device=dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    res = engine.generate(prompt_batch, max_new_tokens=gen)
+    n_flash, n_decode = flash_attention.launches, decode_attention.launches
+    check(gus_assign.launches == hier_cells.launches == 0,
+          "the serving main path launched a scheduler kernel")
+    peak = torch.cuda.max_memory_allocated() - base
+    W = serve_model.cache_window(prompt + gen)
+    cache_bytes = 2 * cfg_serve.num_layers * batch * W * cfg_serve.num_kv_heads * \
+        cfg_serve.head_dim * 2
+    gen_tokens = batch * gen
+    print(
+        f"serve main path {SERVE_ARCH} ({cfg_serve.num_layers} layers, d={cfg_serve.d_model}, "
+        f"H={cfg_serve.num_heads} KV={cfg_serve.num_kv_heads}, {cfg_serve.dtype}): "
+        f"batch={batch} prompt={prompt} gen={gen}: "
+        f"prefill_ms {res.prefill_ms:.3f} decode_ms_per_token {res.decode_ms_per_token:.3f} "
+        f"total_ms {res.total_ms:.3f} generated tokens/s {gen_tokens / res.total_ms * 1e3:.1f} "
+        f"decode tokens/s {batch / res.decode_ms_per_token * 1e3:.1f} "
+        f"init_s {init_s:.3f} params {param_bytes / 1e9:.3f} GB ({cfg_serve.n_params()} "
+        f"params) kv_cache {cache_bytes / 1e9:.3f} GB peak memory of the path {peak / 1e9:.3f} GB "
+        f"(max_memory_allocated less {base / 1e9:.3f} GB held by earlier phases) "
+        f"flash_attention launches={n_flash} decode_attention launches={n_decode}"
+    )
+    check(n_flash == cfg_serve.num_layers,
+          f"prefill must launch flash_attention once per layer, got {n_flash}")
+    check(n_decode == (gen - 1) * cfg_serve.num_layers,
+          f"decode must launch decode_attention once per layer and step, got {n_decode}")
+    toks = res.tokens
+    check(toks.shape == (batch, gen) and (toks >= 0).all()
+          and (toks < cfg_serve.vocab_size).all(), "serving main path tokens malformed")
+
+    def reforward_agreement(model, params, toks):
+        """Share of the generated tokens that argmax decoding by one full
+        teacher-forced re-forward of prompt + generated reproduces."""
+        full = torch.cat([prompt_batch["tokens"], torch.from_numpy(toks[:, :-1]).to(dev)], dim=1)
+        logits, _ = model.forward(params, {"tokens": full})
+        check(bool(torch.isfinite(logits).all()), "the re-forward's logits are not finite")
+        again = torch.argmax(logits[:, prompt - 1:], dim=-1).cpu().numpy()
+        return float((again == toks).mean())
+
+    # Reported, not held: this random-init network amplifies rounding.  The
+    # reference's init takes a 3-D leaf's fan-in from shape[-2], so w_q and
+    # w_k have stds of 1/sqrt(H) and 1/sqrt(KV) and the attention scores a
+    # std of hundreds: each softmax is nearly one-hot, a last-bit change in
+    # a key can move it to another position, and that change reaches every
+    # later position through the cache.  Decoding and the re-forward run
+    # products of other shapes, which cuBLAS rounds differently.
+    print(f"serve main path: generated == argmax of the bf16 re-forward on "
+          f"{reforward_agreement(serve_model, serve_params, toks):.4f} of tokens")
+    profile_serving(serve_model, serve_params, prompt_batch)
+    del engine, serve_params
+
+    # The check at full width: f32, depth cut to 8 layers.  First the
+    # amplification itself: the same forward over the prompt, once at batch
+    # 8 and once as two batches of 4 (only cuBLAS's rounding differs).  Then
+    # q, k and v projections rescaled to a fan-in of d_model (stds of
+    # 1/sqrt(d_model), scores of order 1): the split forward must agree, and
+    # greedy decoding must reproduce the re-forward.
+    cfg32 = dataclasses.replace(cfg_serve, num_layers=8, dtype="float32", param_dtype="float32")
+    model32 = Model(cfg32)
+    params32 = model32.init(1, device=dev)
+
+    def split_agreement():
+        whole = model32.forward(params32, prompt_batch)[0][:, -gen:].argmax(-1)
+        half = batch // 2
+        parts = torch.cat([
+            model32.forward(params32, {"tokens": prompt_batch["tokens"][i:i + half]})[0][
+                :, -gen:].argmax(-1)
+            for i in (0, half)
+        ])
+        return float((whole == parts).float().mean())
+
+    raw = split_agreement()
+    for lp in params32["layers"]:
+        for name, fan_in in (("w_q", cfg32.num_heads), ("w_k", cfg32.num_kv_heads),
+                             ("w_v", cfg32.num_kv_heads)):
+            lp["attn"][name].mul_(math.sqrt(fan_in / cfg32.d_model))
+    scaled = split_agreement()
+    toks32 = ServingEngine(model32, params32, device=dev).generate(prompt_batch, gen).tokens
+    agree32 = reforward_agreement(model32, params32, toks32)
+    print(
+        f"serve path f32, full width, 8 layers: argmax of forward(B={batch}) == forward(2 x "
+        f"B={batch // 2}) on the last {gen} prompt positions: {raw:.4f} with the reference's "
+        f"init, {scaled:.4f} with q/k/v at fan-in d_model; then generated == argmax of the "
+        f"re-forward on {agree32:.4f} of tokens"
+    )
+    check(scaled >= 0.95 and agree32 >= 0.95, "f32 greedy decoding disagrees with the re-forward")
+    del params32
+
+    def time_events(fn, reps, warmup=2):
+        """Mean ms of ``fn()`` over ``reps`` calls after ``warmup`` calls."""
+        for _ in range(warmup):
+            fn()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    def attn_bound(nbytes, ops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / (BF16_OPS_PER_S if mdt == "bfloat16" else F32_OPS_PER_S) * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def library_ms(fn, reps):
+        """One PyTorch call for the same function, timed as a yardstick only."""
+        try:
+            return time_events(fn, reps)
+        except RuntimeError as exc:  # a backend that refuses these inputs
+            print(f"library yardstick unavailable: {exc}")
+            return None
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    elt = dtypes[mdt].itemsize
+    # flash: q and out once, k and v once; the causal (row, col) pairs' two
+    # dot products of hd multiply-adds each
+    pairs = int(attention_mask(Sm, Sm, True, None, dev).sum())
+    fb_ms, fb_by = attn_bound(2 * Bm * Hm * Sm * hdm * elt + 2 * Bm * KVm * Sm * hdm * elt,
+                              4 * hdm * Bm * Hm * pairs)
+    flash_ms = time_events(lambda: flash_attention(fq, fk, fv, backend="cuda"), 10)
+    flash_plain_ms = time_events(lambda: flash_attention_ref(fq, fk, fv), 3, warmup=1)
+    flash_lib_ms = library_ms(lambda: sdpa(fq, fk, fv, is_causal=True, enable_gqa=True), 10)
+    print(
+        f"time flash_attention main-path launch B={Bm} H={Hm} KV={KVm} S={Sm} hd={hdm} {mdt} "
+        f"causal: kernel {flash_ms:.4f} ms, plain {flash_plain_ms:.4f} ms, bound {fb_ms:.4f} ms "
+        f"({fb_by}), kernel/bound {flash_ms / fb_ms:.2f}x, library "
+        f"scaled_dot_product_attention {flash_lib_ms} ms"
+    )
+    # decode: the valid positions' k and v once, q and out once, the mask;
+    # 6 caches of 17 MB in turn, so each launch finds its cache out of L2 as
+    # the serving path does (48 layers' weights stream between two launches)
+    n_valid = int(dvalid[0].sum())
+    db_ms, db_by = attn_bound(
+        2 * Bm * Hm * hdm * elt + 2 * Bm * KVm * n_valid * hdm * elt + Bm * Tm,
+        4 * hdm * Bm * Hm * n_valid,
+    )
+    caches = randn((6, 2, Bm, Tm, KVm, hdm), mdt, 13)
+    turn = [0]
+
+    def next_cache():
+        turn[0] = (turn[0] + 1) % caches.shape[0]
+        return caches[turn[0], 0].transpose(1, 2), caches[turn[0], 1].transpose(1, 2)
+
+    decode_ms = time_events(
+        lambda: decode_attention(dq, *next_cache(), dvalid, backend="cuda"), 60)
+    decode_plain_ms = time_events(lambda: decode_attention_ref(dq, *next_cache(), dvalid), 12)
+    dmask = dvalid[:, None, None, :]
+    decode_lib_ms = library_ms(
+        lambda: sdpa(dq.flatten(1, 2)[:, :, None], *next_cache(), attn_mask=dmask,
+                     enable_gqa=True), 60)
+    print(
+        f"time decode_attention main-path launch B={Bm} KV={KVm} rep={Hm // KVm} T={Tm} "
+        f"valid={n_valid} hd={hdm} {mdt}: kernel {decode_ms:.4f} ms, plain {decode_plain_ms:.4f} "
+        f"ms, bound {db_ms:.4f} ms ({db_by}), kernel/bound {decode_ms / db_ms:.2f}x, library "
+        f"scaled_dot_product_attention {decode_lib_ms} ms"
+    )
+    print(
+        f"serve main path attention share: flash {n_flash} x {flash_ms:.4f} ms of "
+        f"{res.prefill_ms:.3f} ms prefill, decode {n_decode} x {decode_ms:.4f} ms of "
+        f"{res.decode_ms_per_token * (gen - 1):.3f} ms decode (kernel times at the launch "
+        "shape, out of L2)"
+    )
+
+    return {
+        "flash_attention": {
+            "launches": n_flash, "max_abs_err": attn_err["flash_attention"], "ms": flash_ms,
+            "plain_ms": flash_plain_ms, "bound_ms": fb_ms, "bound_by": fb_by,
+            "library_ms": flash_lib_ms,
+        },
+        "decode_attention": {
+            "launches": n_decode, "max_abs_err": attn_err["decode_attention"], "ms": decode_ms,
+            "plain_ms": decode_plain_ms, "bound_ms": db_ms, "bound_by": db_by,
+            "library_ms": decode_lib_ms,
+        },
+    }
+
+
+def profile_serving(model, params, prompt_batch, steps=4):
+    """Device time of the serving path by kernel, from ``torch.profiler``:
+    one prefill, then ``steps`` decode steps, each its own window.  Prints
+    each window's host wall time, the device's busy share of it (the union
+    of the kernels' intervals), and the kernel time by kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import make_serve_step
+
+    B, S = prompt_batch["tokens"].shape
+    cache = model.init_cache(B, S + steps + 1, device=prompt_batch["tokens"].device)
+    step = make_serve_step(model)
+    kinds = (("flash_attention", "flash_attention_kernel"),
+             ("decode_attention", "decode_attention_kernel"),
+             ("matrix products (cuBLAS)", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
+             ("elementwise, norms, reductions, copies", ""))
+    state = {"cache": cache}
+
+    def run_prefill():
+        logits, state["cache"] = model.prefill(params, prompt_batch, state["cache"])
+        state["tok"] = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+
+    def run_decode():
+        for _ in range(steps):
+            state["tok"], state["cache"] = step(params, state["tok"], state["cache"])
+
+    for label, fn in (("prefill", run_prefill), (f"{steps} decode steps", run_decode)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+        busy, end = 0.0, float("-inf")
+        for a, b in spans:  # union of the kernels' intervals
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        by_kind = dict.fromkeys((k for k, _ in kinds), 0.0)
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            name = e.name.lower()
+            for kind, keys in kinds:
+                keys = (keys,) if isinstance(keys, str) else keys
+                if any(key in name for key in keys):
+                    by_kind[kind] += e.time_range.elapsed_us()
+                    break
+        total = sum(by_kind.values())
+        parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / max(total, 1e-9):.1%})"
+                          for k, v in by_kind.items())
+        print(f"profile serving {label}: wall {wall_us / 1e3:.3f} ms, {len(kernels)} kernels, "
+              f"device busy {busy / 1e3:.3f} ms ({busy / wall_us:.1%} of wall): {parts}")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
 
 
 def main() -> int:
@@ -111,17 +506,27 @@ def main() -> int:
         _pad_bucket,
         _RepFrameSource,
     )
+    from repro_torch.configs import get_config
     from repro_torch.kernels.build import build_libraries
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gus import gus_assign, gus_assign_ref
     from repro_torch.kernels.hier import hier_cells, hier_cells_ref
     from repro_torch.obs.trace import Stopwatch
 
     dev = torch.device("cuda")
     fields = [f.name for f in dataclasses.fields(FlatInstance)]
+    # f32 comparisons on the card are full f32: no TF32 in the plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def zero_counts():
+        gus_assign.launches = hier_cells.launches = 0
+        flash_attention.launches = decode_attention.launches = 0
     t_start = time.perf_counter()
 
     # -- 1. build ------------------------------------------------------------
-    builds = build_libraries(["gus_assign", "hier_cells"])
+    builds = build_libraries(["gus_assign", "hier_cells", "flash_attention", "decode_attention"])
     for info in builds.values():
         print(f"build {info.name}: nvcc {info.seconds:.3f} s -> {info.path.name}")
         for line in info.log.splitlines():
@@ -304,13 +709,14 @@ def main() -> int:
         "the draining congested run never built a backlog",
     )
 
-    gus_assign.launches = hier_cells.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fr = fleet(n_rep_scale, "cuda", window=window)
     wall = time.perf_counter() - t0
     launches = gus_assign.launches
-    check(hier_cells.launches == 0, "the dense main path launched the class allocator")
+    check(hier_cells.launches == flash_attention.launches == decode_attention.launches == 0,
+          "the dense main path launched another kernel")
     print(
         f"fleet scale n_rep={fr.n_rep} frames={fr.n_frames} window={fr.window} "
         f"prefetch={fr.prefetch}: wall {wall:.3f} s dispatch_s {fr.dispatch_s:.3f} "
@@ -486,13 +892,14 @@ def main() -> int:
         if congestion.enabled:
             check(g.final_backlog_per_rep.sum() > 0, "the draining hier run built no backlog")
 
-    gus_assign.launches = hier_cells.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fh = city_fleet(n_rep_city, "cuda")
     hier_wall = time.perf_counter() - t0
     hier_launches = hier_cells.launches
-    check(gus_assign.launches == 0, "the hierarchical main path launched the GUS kernel")
+    check(gus_assign.launches == flash_attention.launches == decode_attention.launches == 0,
+          "the hierarchical main path launched another kernel")
     print(
         f"hier main path mega-city n_rep={fh.n_rep} frames={fh.n_frames} window={fh.window} "
         f"prefetch={fh.prefetch}: wall {hier_wall:.3f} s dispatch_s {fh.dispatch_s:.3f} "
@@ -512,7 +919,12 @@ def main() -> int:
     )
     check(int(n_arr.sum()) < fh.n_requests, "the compared window is not the main path's")
 
-    # -- 5. kernel timing ------------------------------------------------------
+    # -- 5.-6. attention kernels, the small model, the serving main path,
+    #         attention timing ---------------------------------------------
+    attn = serving_smoke(dev, zero_counts, get_config(SERVE_ARCH))
+
+
+    # -- 7. kernel timing (the scheduler kernels) ----------------------------
     def time_kernel(args, reps):
         for _ in range(2):
             gus_assign(*args)
@@ -623,6 +1035,18 @@ def main() -> int:
         "bound_ms": hb_ms,
         "bound_by": hb_by,
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:118",
+        **attn["flash_attention"],
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:91",
+        **attn["decode_attention"],
     }]}
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

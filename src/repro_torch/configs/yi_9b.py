@@ -1,0 +1,22 @@
+"""yi-9b [dense] — llama-architecture GQA.  [arXiv:2403.04652]
+
+48L d_model=4096 32H (GQA kv=4) d_ff=11008 vocab=64000."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="yi-9b",
+    family="dense",
+    source="arXiv:2403.04652",
+    num_layers=48,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=4,
+    head_dim=128,
+    d_ff=11008,
+    vocab_size=64000,
+    norm="rmsnorm",
+    activation="silu",
+    rope_theta=10_000.0,
+    dtype="bfloat16",
+    param_dtype="bfloat16",
+)

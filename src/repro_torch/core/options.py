@@ -42,6 +42,7 @@ __all__ = [
     "BACKENDS",
     "SCHEDULERS",
     "ENV_BACKEND",
+    "ENV_ATTN_BACKEND",
     "ENV_RNG_MODE",
     "ENV_SCHEDULER",
     "resolve_options",
@@ -54,6 +55,8 @@ BACKENDS = ("torch", "cuda")
 SCHEDULERS = ("dense", "hierarchical")
 
 ENV_BACKEND = "REPRO_TORCH_GUS_BACKEND"
+#: the attention kernels' backend (``torch`` | ``cuda``), resolved as GUS's
+ENV_ATTN_BACKEND = "REPRO_TORCH_ATTN_BACKEND"
 ENV_RNG_MODE = "REPRO_RNG_MODE"
 ENV_SCHEDULER = "REPRO_SCHEDULER"
 
@@ -105,18 +108,21 @@ def resolve_backend(
     backend: Optional[str] = None,
     device: Optional[torch.device] = None,
     env: Optional[Mapping[str, str]] = None,
+    var: str = ENV_BACKEND,
 ) -> str:
     """The GUS backend: explicit ``backend=`` > ``REPRO_TORCH_GUS_BACKEND``
-    > the device's own (``"cuda"`` on a CUDA device, else ``"torch"``)."""
+    > the device's own (``"cuda"`` on a CUDA device, else ``"torch"``).
+
+    The attention kernels resolve theirs the same way from
+    ``var=ENV_ATTN_BACKEND`` (``REPRO_TORCH_ATTN_BACKEND``)."""
     if env is None:
         env = os.environ
-    b = backend if backend is not None else _env_choice(
-        env, ENV_BACKEND, BACKENDS, "GUS backend"
-    )
+    what = "GUS backend" if var == ENV_BACKEND else "attention backend"
+    b = backend if backend is not None else _env_choice(env, var, BACKENDS, what)
     if b is None:
         b = "cuda" if device is not None and torch.device(device).type == "cuda" else "torch"
     if b not in BACKENDS:
-        raise ValueError(f"unknown GUS backend {b!r}; expected one of {', '.join(BACKENDS)}")
+        raise ValueError(f"unknown {what} {b!r}; expected one of {', '.join(BACKENDS)}")
     return b
 
 

@@ -4,8 +4,8 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C interface, built
 for Hopper (``sm_90a``) into a shared library at first use and loaded with
 ``ctypes``.  No PyTorch header is included, so a build takes seconds.  The
 library lands in ``_build/`` beside this module (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source is never
-served from a stale build.  Several sources build in parallel, one ``nvcc``
+named by a hash of the source and the flags it is built with (``_flags``),
+so an edited source or flag set is never served from a stale build.  Several sources build in parallel, one ``nvcc``
 process each, all started together (:func:`build_libraries`).
 
 Nothing here runs when the module is imported: the CPU tests import every
@@ -25,7 +25,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["NVCC_FLAGS", "BuildInfo", "build_libraries", "load_library"]
+__all__ = ["NVCC_FLAGS", "ATTN_NVCC_FLAGS", "BuildInfo", "build_libraries", "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -40,6 +40,21 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+#: the attention kernels need no bit parity (their plain versions are held
+#: to a tolerance), so they are built without ``--fmad=false``: the dot
+#: products and the online-softmax rescale contract into fused multiply-adds
+ATTN_NVCC_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
+
+#: each source's flags; a source not listed takes ``NVCC_FLAGS``
+_SOURCE_FLAGS = {
+    "flash_attention": ATTN_NVCC_FLAGS,
+    "decode_attention": ATTN_NVCC_FLAGS,
+}
+
+
+def _flags(name: str):
+    return _SOURCE_FLAGS.get(name, NVCC_FLAGS)
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -69,7 +84,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -94,7 +109,7 @@ def build_libraries(names: Iterable[str]) -> Dict[str, BuildInfo]:
         # loads a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )

@@ -1,0 +1,81 @@
+"""Carry the reference's parameters into the port.
+
+The reference draws its weights with ``jax.random``, which the port cannot
+reproduce, so the two packages compute the same function only on the same
+weights: :func:`params_from_reference` takes the reference's parameter tree
+as numpy arrays (``jax.tree.map(np.asarray, model.init(key))``) and returns
+the port's.  The reference stacks every layer leaf on a leading ``L`` axis
+(scan over layers); the port keeps one dict per layer.  That split is the
+only change of layout, and it lives here.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.instance import resolve_device
+from .layers import ParamDecl
+from .model import Model
+
+__all__ = ["params_from_reference", "params_to"]
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (bfloat16 included, as ``ml_dtypes`` gives it) as a
+    tensor on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _carry(decl, tree, device, where: str):
+    if isinstance(decl, ParamDecl):
+        t = _tensor(tree, device)
+        if tuple(t.shape) != tuple(decl.shape):
+            raise ValueError(f"{where}: shape {tuple(t.shape)}, expected {decl.shape}")
+        return t
+    if set(decl) != set(tree):
+        raise ValueError(f"{where}: keys {sorted(tree)}, expected {sorted(decl)}")
+    return {k: _carry(decl[k], tree[k], device, f"{where}.{k}") for k in decl}
+
+
+def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any], *, device=None) -> Dict[str, Any]:
+    """The port's parameters for ``cfg`` from the reference's tree of numpy
+    arrays, on ``device`` (default: the CUDA device; raises without one).
+    Every leaf keeps its dtype and its shape; the layer stack becomes a
+    list of per-layer dicts."""
+    dev = resolve_device(device)
+    decl = Model(cfg).decl()
+    if set(decl) != set(tree):
+        raise ValueError(f"params: keys {sorted(tree)}, expected {sorted(decl)}")
+    out: Dict[str, Any] = {}
+    for name, sub in decl.items():
+        if name == "layers":
+            layers = tree[name]
+            out[name] = [
+                _carry(sub, _index(layers, i), dev, f"layers[{i}]")
+                for i in range(cfg.num_layers)
+            ]
+        else:
+            out[name] = _carry(sub, tree[name], dev, name)
+    return out
+
+
+def _index(tree, i: int):
+    """Layer i of a stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def params_to(params, device):
+    """A copy of a parameter tree (dicts and lists of tensors) on ``device``."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_to(v, device) for v in params]
+    return params.to(device)

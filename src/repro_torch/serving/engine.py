@@ -1,0 +1,113 @@
+"""Serving engine: batched prefill + greedy decode.
+
+The port's counterpart of ``repro/serving/engine.py``.  ``ServingEngine``
+drives a real model and measures its latencies (what a deployment feeds
+back into the GUS scheduler's processing-time table); ``make_serve_step`` /
+``make_prefill_step`` build the step functions.  PyTorch runs eagerly, so
+there is nothing to jit; a timing reads the clock only after
+``torch.cuda.synchronize()``, where the reference calls
+``block_until_ready``.  Greedy argmax takes the first maximal index, as
+``jnp.argmax`` does.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..core.instance import resolve_device
+from ..models.model import DecodeCache, Model
+
+__all__ = ["ServingEngine", "make_serve_step", "make_prefill_step", "GenerationResult"]
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """(B, V) logits -> (B, 1) int32 tokens, first maximal index."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+
+def make_serve_step(model: Model):
+    """serve_step(params, tokens (B,1), cache) -> (next_tokens (B,1), cache):
+    ONE new token against a KV cache of the configured length."""
+
+    def serve_step(params, tokens, cache: DecodeCache):
+        logits, cache = model.decode_step(params, tokens, cache)
+        return _greedy(logits[:, -1, :]), cache
+
+    return serve_step
+
+
+def make_prefill_step(model: Model):
+    def prefill_step(params, batch, cache: DecodeCache):
+        logits, cache = model.prefill(params, batch, cache)
+        return _greedy(logits[:, -1, :]), cache
+
+    return prefill_step
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray           # (B, gen)
+    prefill_ms: float
+    decode_ms_per_token: float
+    total_ms: float
+
+
+class ServingEngine:
+    """Batched generation for one model whose parameters lie on ``device``
+    (default: the CUDA device; raises without one)."""
+
+    def __init__(self, model: Model, params, *, device=None):
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(
+                f"the parameters are on {params['embed'].device}, the engine on {self.device}"
+            )
+        self.model = model
+        self.params = params
+        self._decode = make_serve_step(model)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def generate(
+        self,
+        batch: Dict[str, torch.Tensor],
+        max_new_tokens: int = 16,
+        max_len: Optional[int] = None,
+    ) -> GenerationResult:
+        B, S = batch["tokens"].shape
+        max_len = max_len or (S + max_new_tokens)
+        cache = self.model.init_cache(B, max_len, device=self.device)
+
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = self.model.prefill(self.params, batch, cache)
+        self._sync()
+        t1 = time.perf_counter()
+
+        tok = _greedy(logits[:, -1, :])
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            tok, cache = self._decode(self.params, tok, cache)
+            out.append(tok)
+        self._sync()
+        t2 = time.perf_counter()
+
+        return GenerationResult(
+            tokens=torch.cat(out, dim=1).cpu().numpy(),
+            prefill_ms=1000 * (t1 - t0),
+            decode_ms_per_token=1000 * (t2 - t1) / max(max_new_tokens - 1, 1),
+            total_ms=1000 * (t2 - t0),
+        )
+
+    def eval_next_token_accuracy(self, batch: Dict[str, torch.Tensor]) -> float:
+        """Teacher-forcing next-token top-1 accuracy — the 'accuracy' that the
+        scheduler trades against latency for the zoo variants."""
+        logits, _ = self.model.forward(self.params, batch)
+        pred = torch.argmax(logits, dim=-1)
+        return float((pred == batch["labels"]).float().mean())

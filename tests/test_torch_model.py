@@ -1,0 +1,218 @@
+"""The port's dense model against the reference's, on the CPU.
+
+* Every registry ``ModelConfig`` equals the reference's field for field.
+* The weight carry turns the reference's stacked parameter tree into the
+  port's per-layer dicts, value for value.
+* On carried weights, ``forward``, ``prefill`` (logits and the filled ring
+  cache) and several ``decode_step``s equal the reference with
+  ``use_pallas=True`` (its Pallas kernels in interpret mode) for four dense
+  flavours: yi-like (GQA rep 4), starcoder2-like (LayerNorm, biases, classic
+  GELU MLP, a sliding window whose ring wraps), stablelm-like (25% partial
+  rotary) and qwen2-like (qkv bias).  Biases and norm scales are perturbed
+  from their zero/one init so that they matter.
+
+Stated tolerance: f32 logits ``rtol=atol=1e-3``.  The reference's own two
+attention paths (``use_pallas`` False vs True) already differ by up to
+2.6e-4 on logits of magnitude ~4 at this size; the port differs from the
+Pallas path by at most ~2e-4 (matrix products and reductions summed in
+another order).  The cache holds k/v of magnitude up to ~40 here (the
+reference's fan-in of ``shape[-2]`` gives ``w_k`` a std of 1/sqrt(KV)), so
+its contents are held to ``rtol=1e-3`` with an absolute part of 1e-4 of
+the largest entry (measured: up to 1.7e-3 absolute on entries of ~38,
+4e-5 of the scale).  Greedy tokens are held exactly.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import repro.configs as JC  # noqa: E402
+from repro.models import Model as JModel  # noqa: E402
+import repro_torch.configs as TC  # noqa: E402
+from repro_torch.models import Model, params_from_reference  # noqa: E402
+from repro_torch.models.layers import ParamDecl  # noqa: E402
+
+TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def _assert_cache_close(got, want, msg=""):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-3,
+                               atol=1e-4 * float(np.abs(want).max()), err_msg=msg)
+
+
+@pytest.mark.parametrize("arch", sorted(JC.REGISTRY))
+def test_registry_config_equals_reference(arch):
+    ref, port = JC.get_config(arch), TC.get_config(arch)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(TC.reduce_for_smoke(port)) == dataclasses.asdict(
+        JC.reduce_for_smoke(ref))
+    assert port.n_params() == ref.n_params()
+    assert port.n_active_params() == ref.n_active_params()
+    assert (port.d_inner, port.ssm_nheads, port.effective_moe_d_ff, port.is_attention_free) == (
+        ref.d_inner, ref.ssm_nheads, ref.effective_moe_d_ff, ref.is_attention_free)
+
+
+def test_registry_ids():
+    assert TC.ARCH_IDS == JC.ARCH_IDS
+    assert sorted(TC.REGISTRY) == sorted(JC.REGISTRY)
+    assert sorted(TC.PAPER_ZOO) == sorted(JC.PAPER_ZOO)
+    with pytest.raises(KeyError, match="unknown arch"):
+        TC.get_config("gpt-7")
+
+
+def _flavour(name):
+    """(reference config, port config) of one dense flavour at smoke size."""
+    arch, changes = {
+        "yi": ("yi-9b", dict(num_kv_heads=1)),
+        "starcoder2": ("starcoder2-15b", dict(num_kv_heads=2, sliding_window=8)),
+        "stablelm": ("stablelm-12b", dict(num_kv_heads=2)),
+        "qwen2": ("qwen2-72b", dict(num_kv_heads=2)),
+    }[name]
+    ref = dataclasses.replace(JC.reduce_for_smoke(JC.get_config(arch)), use_pallas=True, **changes)
+    port = dataclasses.replace(TC.reduce_for_smoke(TC.get_config(arch)), use_pallas=True, **changes)
+    return ref, port
+
+
+def _perturbed_tree(jm, seed):
+    """The reference's init with every bias and norm leaf perturbed."""
+    rng = np.random.default_rng(seed)
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(seed)))
+
+    def perturb(path, x):
+        name = jax.tree_util.keystr(path)
+        if "'b_" in name or "'bias'" in name:
+            return (0.1 * rng.standard_normal(x.shape)).astype(x.dtype)
+        if "'scale'" in name:
+            return (1.0 + 0.1 * rng.standard_normal(x.shape)).astype(x.dtype)
+        return x
+
+    return jax.tree_util.tree_map_with_path(perturb, tree)
+
+
+def test_weight_carry_splits_the_layer_stack():
+    ref, port = _flavour("starcoder2")
+    tree = _perturbed_tree(JModel(ref), 0)
+    params = params_from_reference(port, tree, device="cpu")
+    assert len(params["layers"]) == port.num_layers
+    for i, layer in enumerate(params["layers"]):
+        np.testing.assert_array_equal(layer["attn"]["w_q"].numpy(), tree["layers"]["attn"]["w_q"][i])
+        np.testing.assert_array_equal(layer["mlp"]["b_up"].numpy(), tree["layers"]["mlp"]["b_up"][i])
+    np.testing.assert_array_equal(params["lm_head"].numpy(), tree["lm_head"])
+    np.testing.assert_array_equal(params["ln_f"]["bias"].numpy(), tree["ln_f"]["bias"])
+    bad = dict(tree, lm_head=tree["lm_head"][:, :-1])
+    with pytest.raises(ValueError, match="lm_head"):
+        params_from_reference(port, bad, device="cpu")
+
+
+def test_weight_carry_keeps_bfloat16():
+    ref = dataclasses.replace(JC.get_config("squeeze-lm"), param_dtype="bfloat16")
+    port = dataclasses.replace(TC.get_config("squeeze-lm"), param_dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, JModel(ref).init(jax.random.PRNGKey(1)))
+    params = params_from_reference(port, tree, device="cpu")
+    w = params["layers"][1]["attn"]["w_o"]
+    assert w.dtype == torch.bfloat16
+    np.testing.assert_array_equal(w.float().numpy(),
+                                  tree["layers"]["attn"]["w_o"][1].astype(np.float32))
+
+
+def test_port_init_draws_the_reference_distributions():
+    """Same shapes, dtypes and scales as the reference's init, including its
+    fan-in of ``shape[-2]`` for 3-D leaves (H for ``w_q``, hd for ``w_o``)."""
+    ref, port = _flavour("qwen2")
+    tree = jax.tree.map(np.asarray, JModel(ref).init(jax.random.PRNGKey(0)))
+    params = Model(port).init(0, device="cpu")
+    again = Model(port).init(torch.Generator().manual_seed(0), device="cpu")
+    assert torch.equal(params["layers"][1]["attn"]["w_k"], again["layers"][1]["attn"]["w_k"])
+    for name, want_std in (("w_q", 1 / np.sqrt(port.num_heads)),
+                           ("w_o", 1 / np.sqrt(port.head_dim))):
+        got = torch.stack([lp["attn"][name] for lp in params["layers"]]).numpy()
+        assert got.shape == tree["layers"]["attn"][name].shape and got.dtype == np.float32
+        assert abs(got.std() / want_std - 1) < 0.05
+        assert abs(tree["layers"]["attn"][name].std() / want_std - 1) < 0.05
+    assert abs(params["embed"].std().item() / 0.02 - 1) < 0.05
+    assert torch.equal(params["layers"][0]["attn"]["b_q"], torch.zeros_like(params["layers"][0]["attn"]["b_q"]))
+    assert abs(params["lm_head"].std().item() * np.sqrt(port.d_model) - 1) < 0.05
+
+
+@pytest.mark.parametrize("flavour", ["yi", "starcoder2", "stablelm", "qwen2"])
+def test_dense_flavour_matches_reference_pallas_path(flavour):
+    """forward, prefill (+ ring cache) and 4 decode steps on carried weights,
+    against the reference with ``use_pallas=True``."""
+    ref, port = _flavour(flavour)
+    jm, tm = JModel(ref), Model(port)
+    tree = _perturbed_tree(jm, 3)
+    jp = jax.tree.map(jnp.asarray, tree)
+    tp = params_from_reference(port, tree, device="cpu")
+    B, S, steps = 2, 12, 4
+    toks = np.random.default_rng(4).integers(0, port.vocab_size, (B, S)).astype(np.int32)
+
+    lj, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    lt, aux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    assert lt.dtype == torch.float32 and tuple(lt.shape) == (B, S, port.vocab_size)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    assert float(aux["router_aux"]) == 0.0
+
+    max_len = S + steps + 2
+    cj = jm.init_cache(B, max_len)
+    ct = tm.init_cache(B, max_len, device="cpu")
+    assert tuple(ct.attn["k"].shape) == cj.attn["k"].shape
+    lj, cj = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, cj)
+    lt, ct = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, ct)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    assert ct.index == int(cj.index) == S
+    for name in ("k", "v"):
+        _assert_cache_close(ct.attn[name], cj.attn[name], f"prefill {name}")
+
+    for step in range(steps):
+        tok = np.asarray(jnp.argmax(lj[:, -1], -1)).astype(np.int32)[:, None]
+        np.testing.assert_array_equal(torch.argmax(lt[:, -1], -1).numpy(), tok[:, 0],
+                                      err_msg=f"greedy token, step {step}")
+        lj, cj = jm.decode_step(jp, jnp.asarray(tok), cj)
+        lt, ct = tm.decode_step(tp, torch.from_numpy(tok), ct)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL, err_msg=f"step {step}")
+        assert ct.index == int(cj.index)
+    for name in ("k", "v"):
+        _assert_cache_close(ct.attn[name], cj.attn[name], f"decoded {name}")
+    if port.sliding_window:
+        assert ct.attn["k"].shape[2] == port.sliding_window < S + steps  # the ring wrapped
+
+
+@pytest.mark.parametrize("arch", sorted(a for a, c in JC.REGISTRY.items() if c.family != "dense"))
+def test_unported_families_raise(arch):
+    cfg = TC.reduce_for_smoke(TC.get_config(arch))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 1[1-4]"):
+        Model(cfg)
+
+
+@pytest.mark.parametrize("change,item", [(dict(attn_impl="chunked"), 16),
+                                         (dict(kv_cache_dtype="int8"), 15)])
+def test_unported_options_raise(change, item):
+    cfg = dataclasses.replace(TC.get_config("squeeze-lm"), **change)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}"):
+        Model(cfg)
+
+
+def test_decl_matches_reference_shapes():
+    """Every leaf the port declares has the reference's shape (one layer)."""
+    for arch in ("yi-9b", "starcoder2-15b", "stablelm-12b", "qwen2-72b"):
+        ref = JC.get_config(arch)
+        shapes = jax.eval_shape(lambda: JModel(ref).init(jax.random.PRNGKey(0)))
+
+        def walk(decl, tree):
+            if isinstance(decl, ParamDecl):
+                return [(decl.shape, tree.shape)]
+            assert set(decl) == set(tree)
+            return [x for k in decl for x in walk(decl[k], tree[k])]
+
+        decl = Model(TC.get_config(arch)).decl()
+        pairs = [x for k in decl if k != "layers" for x in walk(decl[k], shapes[k])]
+        pairs += [(d, t[1:]) for d, t in walk(decl["layers"], shapes["layers"])]
+        assert all(tuple(d) == tuple(t) for d, t in pairs), arch

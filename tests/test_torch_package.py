@@ -25,7 +25,14 @@ torch = pytest.importorskip("torch")
 import repro_torch.core as P  # noqa: E402
 from repro_torch.core import options as PO  # noqa: E402
 from repro_torch.kernels import build as PB  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.gus import gus_assign  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import Model, params_from_reference  # noqa: E402
+from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.training import make_batch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -86,6 +93,31 @@ def test_entry_points_without_device_raise_instead_of_running_on_cpu(no_cuda):
             call()
 
 
+def test_serving_entry_points_without_device_raise(no_cuda):
+    cfg = get_config("squeeze-lm")
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    tree = {k: (v.numpy() if torch.is_tensor(v) else {n: t.numpy() for n, t in v.items()})
+            for k, v in params.items() if k != "layers"}
+    tree["layers"] = {
+        blk: {n: np.stack([lp[blk][n].numpy() for lp in params["layers"]]) for n in p}
+        for blk, p in params["layers"][0].items()
+    }
+    calls = [
+        lambda: model.init(0),
+        lambda: model.init_cache(1, 8),
+        lambda: ServingEngine(model, params),
+        lambda: serve("squeeze-lm"),
+        lambda: make_batch(cfg, 1, 4, np.random.default_rng(0)),
+        lambda: params_from_reference(cfg, tree),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert params_from_reference(cfg, tree, device="cpu")["layers"][1]["mlp"]["w_up"].shape == (
+        cfg.d_model, cfg.d_ff)
+
+
 def test_chip_smoke_fails_without_cuda(no_cuda, tmp_path):
     """Without a card it exits non-zero and prints no result; alone in a
     directory (no repository beside it) it fails as well."""
@@ -120,6 +152,30 @@ def test_kernel_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         gus_assign(*args)
     assert gus_assign.launches == n0
+
+
+def test_attention_wrappers_refuse_other_devices():
+    q = torch.zeros((1, 4, 8, 16), device="meta")
+    k = torch.zeros((1, 2, 8, 16), device="meta")
+    valid = torch.ones((1, 8), dtype=torch.bool, device="meta")
+    counts = (flash_attention.launches, decode_attention.launches)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        flash_attention(q, k, k, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        decode_attention(q[:, :, 0].unflatten(1, (2, 2)), k, k, valid, backend="cuda")
+    assert (flash_attention.launches, decode_attention.launches) == counts
+
+
+def test_attention_backend_precedence(monkeypatch):
+    monkeypatch.delenv(PO.ENV_ATTN_BACKEND, raising=False)
+    assert PO.resolve_backend(None, torch.device("cuda"), var=PO.ENV_ATTN_BACKEND) == "cuda"
+    monkeypatch.setenv(PO.ENV_ATTN_BACKEND, "torch")
+    assert PO.resolve_backend(None, torch.device("cuda"), var=PO.ENV_ATTN_BACKEND) == "torch"
+    assert PO.resolve_backend("cuda", torch.device("cuda"), var=PO.ENV_ATTN_BACKEND) == "cuda"
+    assert PO.resolve_backend(None, torch.device("cuda")) == "cuda"  # GUS's own variable
+    monkeypatch.setenv(PO.ENV_ATTN_BACKEND, "triton")
+    with pytest.raises(ValueError, match="REPRO_TORCH_ATTN_BACKEND"):
+        PO.resolve_backend(None, torch.device("cpu"), var=PO.ENV_ATTN_BACKEND)
 
 
 def test_cpu_wrapper_takes_the_plain_version_without_counting():
