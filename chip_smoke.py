@@ -8,9 +8,9 @@ Run from the repository root on a machine with a CUDA device and ``nvcc``:
 It drives the port (``src/repro_torch``) end to end and exits non-zero if
 any phase fails:
 
-1. builds every kernel of the main paths from ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` (one process per source, all started together) and prints
-   the card's name and power limit;
+1. builds every kernel of the main paths (five sources) from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
+   all started together) and prints the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card — the
    GUS kernel's integer assignments must be equal (0 mismatches) on the
    golden frames, the paper's 20 000-instance numerical batch (plain and
@@ -48,12 +48,33 @@ any phase fails:
    against argmax decoding by one full re-forward (in f32, at full width
    and 8 layers); ``torch.profiler`` splits one prefill's and four decode
    steps' device time by kernel kind and gives the device's busy share;
-7. times each kernel with CUDA events at its main path's launch shape
+7. holds the SSD kernel against its plain version on the card (S a
+   multiple of the chunk and ragged, G = 1, 2 and 3, N = 16, 64 and 128,
+   f32 and bf16, with and without the final state, and both SSM main
+   paths' launch shapes), flash and decode attention at
+   zamba2-1.2b's shapes (H = KV = 32, hd 64), then small f32 ``ssm`` and
+   ``hybrid`` models (4 layers, a ragged prompt) on the card against the
+   same weights on the CPU: forward and prefill logits, 8 greedy tokens;
+8. serves zamba2-1.2b (38 Mamba-2 layers, 7 shared-attention sites) and
+   mamba2-130m (24 layers) at full width and depth (bf16, seeded random
+   weights) on batch 8 x a 2048-token prompt from ``make_batch(seed=0)``,
+   32 greedy tokens — the SSM slice's main paths, each counted on its own:
+   38 ``ssd_scan``, 7 ``flash_attention`` and 7 x 31 ``decode_attention``
+   launches for zamba2, 24 ``ssd_scan`` for mamba2; ``torch.profiler``
+   splits zamba2's prefill and decode device time by kernel kind; then one
+   teacher-forcing ``forward`` of mamba2-130m at 8 x 2048 (24 counted
+   launches, no state output);
+9. checks prefill + decode against one forward in f32 at full width and
+   depth (a 200-token prompt, 8 decode steps): within 5e-3 for
+   mamba2-130m, and for zamba2-1.2b with its shared attention's q/k/v
+   rescaled to a fan-in of d_model;
+10. times each kernel with CUDA events at its main path's launch shape
    beside its plain version, its bound (bytes over the card's memory
    rate, or operations over its rate) and, for attention, one
    ``scaled_dot_product_attention`` call as a library yardstick (never
-   called by the port);
-8. prints one JSON line listing every ported kernel, then the contract line
+   called by the port); the attention kernels also at zamba2-1.2b's
+   launch shapes;
+11. prints one JSON line listing every ported kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device,
@@ -94,6 +115,18 @@ ATTN_TOL = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": dict(rtol=2e-2, a
 MODEL_RTOL = MODEL_ATOL = 1e-3
 #: the serving main path: yi-9b at full width and depth
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "yi-9b", 8, 1024, 32
+#: SSD kernel vs plain version: tests/test_kernels.py's Pallas-vs-plain SSD
+#: bound in f32, its bf16 bound in bf16 (both versions compute in f32 and
+#: round y once); the f32 final state at rtol 1e-3 with an absolute part of
+#: 1e-4 of its largest entry
+SSD_TOL = {"float32": dict(rtol=1e-3, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SSD_STATE_RTOL, SSD_STATE_ATOL_SHARE = 1e-3, 1e-4
+#: the SSM slice's main paths: zamba2-1.2b and mamba2-130m at full width and
+#: depth, batch 8 x a 2048-token prompt, 32 greedy tokens
+SSM_HYBRID_ARCH, SSM_ARCH, SSM_PROMPT = "zamba2-1.2b", "mamba2-130m", 2048
+#: f32 prefill + decode vs forward at full width: a ragged prompt (200 =
+#: 128 + 72) and 8 decode steps, held to tests/test_arch_smoke.py's 5e-3
+SSM_ACC_PROMPT, SSM_ACC_STEPS, SSM_DECODE_ATOL = 200, 8, 5e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -105,9 +138,194 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+def sync(dev):
+    """Wait for the card (a no-op on the CPU, where the phases are rehearsed)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def randn(dev, shape, dtype, seed):
+    """Standard normal draws on ``dev`` from ``seed``, made in f32 and cast
+    to ``dtype`` (a torch dtype name)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(
+        getattr(torch, dtype))
+
+
+def compare_attn(errs, name, label, got, want, dtype):
+    """Hold an attention kernel's output against its plain version at
+    ``ATTN_TOL``; ``errs[name]`` keeps the largest error seen."""
+    import torch
+
+    sync(got.device)
+    err = float((got.float() - want.float()).abs().max())
+    errs[name] = max(errs[name], err)
+    ok = torch.allclose(got.float(), want.float(), **ATTN_TOL[dtype])
+    print(f"compare {name} {label} {dtype}: max_abs_err={err} within {ATTN_TOL[dtype]}: {ok}")
+    check(ok, f"{name} kernel != plain version on {label} {dtype}")
+
+
+def time_events(fn, reps, warmup=2):
+    """Mean ms of ``fn()`` over ``reps`` calls after ``warmup`` calls, by
+    CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def bound(nbytes, ops, dtype):
+    """(ms, "bytes" or "operations"): the larger of ``nbytes`` over the
+    memory rate and ``ops`` over the rate of ``dtype``'s operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_ms(fn, reps):
+    """One PyTorch call for the same function, timed as a yardstick only."""
+    try:
+        return time_events(fn, reps)
+    except RuntimeError as exc:  # a backend that refuses these inputs
+        print(f"library yardstick unavailable: {exc}")
+        return None
+
+
+def attention_bounds(B, H, KV, S, T, n_valid, hd, dtype):
+    """((ms, by) of flash, (ms, by) of decode) at a serving launch shape.
+    Flash over an S-token causal prompt: q, k, v and out once, two dot
+    products of hd multiply-adds for each of the S (S + 1) / 2 causal
+    (row, col) pairs.  Decode over a T-position cache: q and out once, the
+    ``n_valid`` valid positions' k and v once, the (B, T) mask."""
+    import torch
+
+    elt = getattr(torch, dtype).itemsize
+    flash = bound(2 * B * (H + KV) * S * hd * elt, 4 * hd * B * H * (S * (S + 1) // 2), dtype)
+    decode = bound(2 * B * H * hd * elt + 2 * B * KV * n_valid * hd * elt + B * T,
+                   4 * hd * B * H * n_valid, dtype)
+    return flash, decode
+
+
+class AttentionLaunch:
+    """Both attention kernels' inputs at a serving launch shape of ``cfg``
+    (``batch`` x ``prompt`` tokens, then ``gen``), as model-layout views the
+    way the path hands them over: flash q/k/v over the prompt, one decode
+    query, six k/v caches of prompt + gen positions (timed launches take
+    them in turn, so each finds its cache out of L2 as the serving path
+    does, where the layers' weights stream between two launches) and the
+    last decode step's mask (every position but one holds a token)."""
+
+    def __init__(self, dev, cfg, batch, prompt, gen, seed):
+        import torch
+
+        self.dtype = dt = cfg.dtype
+        self.B, self.H, self.KV, self.hd = batch, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        self.S, self.T = prompt, prompt + gen
+        B, H, KV, hd, S, T = self.B, self.H, self.KV, self.hd, self.S, self.T
+        self.fq = randn(dev, (B, S, H, hd), dt, seed).transpose(1, 2)
+        self.fk = randn(dev, (B, S, KV, hd), dt, seed + 1).transpose(1, 2)
+        self.fv = randn(dev, (B, S, KV, hd), dt, seed + 2).transpose(1, 2)
+        self.dq = randn(dev, (B, KV, H // KV, hd), dt, seed + 3)
+        self.caches = randn(dev, (6, 2, B, T, KV, hd), dt, seed + 4)
+        self.valid = (torch.arange(T, device=dev) < T - 1)[None].expand(B, T)
+        self.turn = 0
+
+    def cache(self, i=0):
+        """The (k, v) views of cache ``i``."""
+        return self.caches[i, 0].transpose(1, 2), self.caches[i, 1].transpose(1, 2)
+
+    def next_cache(self):
+        self.turn = (self.turn + 1) % self.caches.shape[0]
+        return self.cache(self.turn)
+
+    def label(self, name):
+        if name == "flash_attention":
+            return f"B={self.B} H={self.H} KV={self.KV} S={self.S} hd={self.hd}"
+        return f"B={self.B} KV={self.KV} rep={self.H // self.KV} T={self.T} hd={self.hd}"
+
+    def compare(self, errs, where):
+        """Hold both kernels against their plain versions at this shape."""
+        from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+        from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+        q, k, v = self.fq, self.fk, self.fv
+        compare_attn(errs, "flash_attention", f"{where} {self.label('flash_attention')}",
+                     flash_attention(q, k, v, backend="cuda"), flash_attention_ref(q, k, v),
+                     self.dtype)
+        k, v = self.cache()
+        compare_attn(errs, "decode_attention", f"{where} {self.label('decode_attention')}",
+                     decode_attention(self.dq, k, v, self.valid, backend="cuda"),
+                     decode_attention_ref(self.dq, k, v, self.valid), self.dtype)
+
+    def time(self, where):
+        """Each kernel, its plain version and ``scaled_dot_product_attention``
+        timed by CUDA events next to the bound: ``{name: {"ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms"}}``."""
+        import torch
+
+        from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+        from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        q, k, v, dq, valid = self.fq, self.fk, self.fv, self.dq, self.valid
+        n_valid = int(valid[0].sum())
+        (fb_ms, fb_by), (db_ms, db_by) = attention_bounds(
+            self.B, self.H, self.KV, self.S, self.T, n_valid, self.hd, self.dtype)
+        mask = valid[:, None, None, :]
+        out = {
+            "flash_attention": {
+                "ms": time_events(lambda: flash_attention(q, k, v, backend="cuda"), 10),
+                "plain_ms": time_events(lambda: flash_attention_ref(q, k, v), 3, warmup=1),
+                "bound_ms": fb_ms, "bound_by": fb_by,
+                "library_ms": library_ms(
+                    lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10),
+            },
+            "decode_attention": {
+                "ms": time_events(
+                    lambda: decode_attention(dq, *self.next_cache(), valid, backend="cuda"), 60),
+                "plain_ms": time_events(
+                    lambda: decode_attention_ref(dq, *self.next_cache(), valid), 12),
+                "bound_ms": db_ms, "bound_by": db_by,
+                "library_ms": library_ms(
+                    lambda: sdpa(dq.flatten(1, 2)[:, :, None], *self.next_cache(),
+                                 attn_mask=mask, enable_gqa=True), 60),
+            },
+        }
+        for name, t in out.items():
+            extra = f" valid={n_valid}" if name == "decode_attention" else " causal"
+            print(
+                f"time {name} {where} launch {self.label(name)}{extra} {self.dtype}: kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}), kernel/bound {t['ms'] / t['bound_ms']:.2f}x, library "
+                f"scaled_dot_product_attention {t['library_ms']} ms"
+            )
+        return out
+
+
+def tree_size(tree):
+    """(elements, bytes) of a parameter tree of dicts and lists of tensors."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        sizes = [tree_size(t) for t in tree]
+        return sum(n for n, _ in sizes), sum(b for _, b in sizes)
+    return tree.numel(), tree.numel() * tree.element_size()
+
+
 def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
                   gen=SERVE_GEN):
-    """Phases 5-6 and the attention half of phase 7: the attention kernels
+    """Phases 5-6 and the attention part of phase 10: the attention kernels
     against their plain versions, the small model on the card against the
     CPU, the counted serving main path (``cfg_serve`` at its own width and
     depth, ``batch`` x ``prompt`` tokens, ``gen`` greedy tokens) and both
@@ -118,13 +336,10 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
 
     from repro_torch.configs import reduce_for_smoke
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
-    from repro_torch.kernels.flash_attention import (
-        attention_mask,
-        flash_attention,
-        flash_attention_ref,
-    )
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.gus import gus_assign
     from repro_torch.kernels.hier import hier_cells
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model, params_to
     from repro_torch.serving import ServingEngine
@@ -133,19 +348,6 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
     # -- 5. the attention kernels vs their plain versions, the small model
     #       on the card vs the CPU --------------------------------------------
     attn_err = {"flash_attention": 0.0, "decode_attention": 0.0}
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-    def randn(shape, dtype, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtypes[dtype])
-
-    def compare_attn(name, label, got, want, dtype):
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        attn_err[name] = max(attn_err[name], err)
-        ok = torch.allclose(got.float(), want.float(), **ATTN_TOL[dtype])
-        print(f"compare {name} {label} {dtype}: max_abs_err={err} within {ATTN_TOL[dtype]}: {ok}")
-        check(ok, f"{name} kernel != plain version on {label} {dtype}")
 
     t0 = time.perf_counter()
     for dtype in ("float32", "bfloat16"):
@@ -155,43 +357,30 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
             (2, 16, 2, 77, 128, None),    # rep 8, ragged
             (1, 8, 1, 130, 64, 8),        # rep 8, window 8, ragged
         ):
-            q = randn((B, S, H, hd), dtype, 1).transpose(1, 2)  # model-layout views
-            k = randn((B, S, KV, hd), dtype, 2).transpose(1, 2)
-            v = randn((B, S, KV, hd), dtype, 3).transpose(1, 2)
+            q = randn(dev, (B, S, H, hd), dtype, 1).transpose(1, 2)  # model-layout views
+            k = randn(dev, (B, S, KV, hd), dtype, 2).transpose(1, 2)
+            v = randn(dev, (B, S, KV, hd), dtype, 3).transpose(1, 2)
             compare_attn(
-                "flash_attention", f"B={B} H={H} KV={KV} S={S} hd={hd} window={win}",
+                attn_err, "flash_attention", f"B={B} H={H} KV={KV} S={S} hd={hd} window={win}",
                 flash_attention(q, k, v, causal=True, window=win, backend="cuda"),
                 flash_attention_ref(q, k, v, causal=True, window=win), dtype,
             )
         for B, KV, rep, T, hd in ((2, 4, 1, 100, 64), (3, 2, 4, 257, 128), (2, 4, 8, 333, 128)):
-            q = randn((B, KV, rep, hd), dtype, 4)
-            k = randn((B, T, KV, hd), dtype, 5).transpose(1, 2)  # cache-layout views
-            v = randn((B, T, KV, hd), dtype, 6).transpose(1, 2)
+            q = randn(dev, (B, KV, rep, hd), dtype, 4)
+            k = randn(dev, (B, T, KV, hd), dtype, 5).transpose(1, 2)  # cache-layout views
+            v = randn(dev, (B, T, KV, hd), dtype, 6).transpose(1, 2)
             g = torch.Generator(device=dev).manual_seed(7)
             valid = torch.rand((B, T), generator=g, device=dev) < 0.6
             valid[0] = False  # no valid position at all: zeros
             got = decode_attention(q, k, v, valid, backend="cuda")
-            compare_attn("decode_attention", f"B={B} KV={KV} rep={rep} T={T} hd={hd}",
-                         got, decode_attention_ref(q, k, v, valid), dtype)
+            compare_attn(attn_err, "decode_attention",
+                         f"B={B} KV={KV} rep={rep} T={T} hd={hd}", got,
+                         decode_attention_ref(q, k, v, valid), dtype)
             check(bool((got[0] == 0).all()), "an all-invalid decode row must be zeros")
 
     # both kernels at the serving main path's launch shapes and dtype
-    mdt = cfg_serve.dtype
-    Bm, Hm, KVm, hdm = batch, cfg_serve.num_heads, cfg_serve.num_kv_heads, cfg_serve.head_dim
-    Sm, Tm = prompt, prompt + gen
-    fq = randn((Bm, Sm, Hm, hdm), mdt, 8).transpose(1, 2)
-    fk = randn((Bm, Sm, KVm, hdm), mdt, 9).transpose(1, 2)
-    fv = randn((Bm, Sm, KVm, hdm), mdt, 10).transpose(1, 2)
-    compare_attn("flash_attention", f"main-path launch B={Bm} H={Hm} KV={KVm} S={Sm} hd={hdm}",
-                 flash_attention(fq, fk, fv, backend="cuda"), flash_attention_ref(fq, fk, fv), mdt)
-    dq = randn((Bm, KVm, Hm // KVm, hdm), mdt, 11)
-    dcache = randn((2, Bm, Tm, KVm, hdm), mdt, 12)
-    dk, dv = dcache[0].transpose(1, 2), dcache[1].transpose(1, 2)
-    # the last decode step's mask: every position but one holds a token
-    dvalid = (torch.arange(Tm, device=dev) < Tm - 1)[None].expand(Bm, Tm)
-    compare_attn("decode_attention", f"main-path launch B={Bm} KV={KVm} rep={Hm // KVm} T={Tm}",
-                 decode_attention(dq, dk, dv, dvalid, backend="cuda"),
-                 decode_attention_ref(dq, dk, dv, dvalid), mdt)
+    launch = AttentionLaunch(dev, cfg_serve, batch, prompt, gen, 8)
+    launch.compare(attn_err, "main-path launch")
     print(f"attention kernel comparisons: {time.perf_counter() - t0:.3f} s")
 
     # the same small model (f32, rep 4, 16-token window) on the card and the CPU
@@ -228,22 +417,15 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
 
-    def nbytes(tree):
-        if isinstance(tree, dict):
-            return sum(nbytes(v) for v in tree.values())
-        if isinstance(tree, list):
-            return sum(nbytes(v) for v in tree)
-        return tree.numel() * tree.element_size()
-
-    param_bytes = nbytes(serve_params)
+    param_bytes = tree_size(serve_params)[1]
     engine = ServingEngine(serve_model, serve_params, device=dev)
     prompt_batch = make_batch(cfg_serve, batch, prompt, np.random.default_rng(0), device=dev)
     zero_counts()
     torch.cuda.synchronize()
     res = engine.generate(prompt_batch, max_new_tokens=gen)
     n_flash, n_decode = flash_attention.launches, decode_attention.launches
-    check(gus_assign.launches == hier_cells.launches == 0,
-          "the serving main path launched a scheduler kernel")
+    check(gus_assign.launches == hier_cells.launches == ssd_scan.launches == 0,
+          "the serving main path launched a scheduler or SSD kernel")
     peak = torch.cuda.max_memory_allocated() - base
     W = serve_model.cache_window(prompt + gen)
     cache_bytes = 2 * cfg_serve.num_layers * batch * W * cfg_serve.num_kv_heads * \
@@ -327,75 +509,8 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
     check(scaled >= 0.95 and agree32 >= 0.95, "f32 greedy decoding disagrees with the re-forward")
     del params32
 
-    def time_events(fn, reps, warmup=2):
-        """Mean ms of ``fn()`` over ``reps`` calls after ``warmup`` calls."""
-        for _ in range(warmup):
-            fn()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
-
-    def attn_bound(nbytes, ops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / (BF16_OPS_PER_S if mdt == "bfloat16" else F32_OPS_PER_S) * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-    def library_ms(fn, reps):
-        """One PyTorch call for the same function, timed as a yardstick only."""
-        try:
-            return time_events(fn, reps)
-        except RuntimeError as exc:  # a backend that refuses these inputs
-            print(f"library yardstick unavailable: {exc}")
-            return None
-
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    elt = dtypes[mdt].itemsize
-    # flash: q and out once, k and v once; the causal (row, col) pairs' two
-    # dot products of hd multiply-adds each
-    pairs = int(attention_mask(Sm, Sm, True, None, dev).sum())
-    fb_ms, fb_by = attn_bound(2 * Bm * Hm * Sm * hdm * elt + 2 * Bm * KVm * Sm * hdm * elt,
-                              4 * hdm * Bm * Hm * pairs)
-    flash_ms = time_events(lambda: flash_attention(fq, fk, fv, backend="cuda"), 10)
-    flash_plain_ms = time_events(lambda: flash_attention_ref(fq, fk, fv), 3, warmup=1)
-    flash_lib_ms = library_ms(lambda: sdpa(fq, fk, fv, is_causal=True, enable_gqa=True), 10)
-    print(
-        f"time flash_attention main-path launch B={Bm} H={Hm} KV={KVm} S={Sm} hd={hdm} {mdt} "
-        f"causal: kernel {flash_ms:.4f} ms, plain {flash_plain_ms:.4f} ms, bound {fb_ms:.4f} ms "
-        f"({fb_by}), kernel/bound {flash_ms / fb_ms:.2f}x, library "
-        f"scaled_dot_product_attention {flash_lib_ms} ms"
-    )
-    # decode: the valid positions' k and v once, q and out once, the mask;
-    # 6 caches of 17 MB in turn, so each launch finds its cache out of L2 as
-    # the serving path does (48 layers' weights stream between two launches)
-    n_valid = int(dvalid[0].sum())
-    db_ms, db_by = attn_bound(
-        2 * Bm * Hm * hdm * elt + 2 * Bm * KVm * n_valid * hdm * elt + Bm * Tm,
-        4 * hdm * Bm * Hm * n_valid,
-    )
-    caches = randn((6, 2, Bm, Tm, KVm, hdm), mdt, 13)
-    turn = [0]
-
-    def next_cache():
-        turn[0] = (turn[0] + 1) % caches.shape[0]
-        return caches[turn[0], 0].transpose(1, 2), caches[turn[0], 1].transpose(1, 2)
-
-    decode_ms = time_events(
-        lambda: decode_attention(dq, *next_cache(), dvalid, backend="cuda"), 60)
-    decode_plain_ms = time_events(lambda: decode_attention_ref(dq, *next_cache(), dvalid), 12)
-    dmask = dvalid[:, None, None, :]
-    decode_lib_ms = library_ms(
-        lambda: sdpa(dq.flatten(1, 2)[:, :, None], *next_cache(), attn_mask=dmask,
-                     enable_gqa=True), 60)
-    print(
-        f"time decode_attention main-path launch B={Bm} KV={KVm} rep={Hm // KVm} T={Tm} "
-        f"valid={n_valid} hd={hdm} {mdt}: kernel {decode_ms:.4f} ms, plain {decode_plain_ms:.4f} "
-        f"ms, bound {db_ms:.4f} ms ({db_by}), kernel/bound {decode_ms / db_ms:.2f}x, library "
-        f"scaled_dot_product_attention {decode_lib_ms} ms"
-    )
+    timed = launch.time("main-path")
+    flash_ms, decode_ms = timed["flash_attention"]["ms"], timed["decode_attention"]["ms"]
     print(
         f"serve main path attention share: flash {n_flash} x {flash_ms:.4f} ms of "
         f"{res.prefill_ms:.3f} ms prefill, decode {n_decode} x {decode_ms:.4f} ms of "
@@ -403,17 +518,287 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
         "shape, out of L2)"
     )
 
+    timed["flash_attention"].update(launches=n_flash, max_abs_err=attn_err["flash_attention"])
+    timed["decode_attention"].update(launches=n_decode,
+                                     max_abs_err=attn_err["decode_attention"])
+    return timed
+
+
+def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=SSM_PROMPT,
+              gen=SERVE_GEN, acc_prompt=SSM_ACC_PROMPT, acc_steps=SSM_ACC_STEPS):
+    """Phases 7-9 and the SSM slice's part of phase 10: the SSD kernel
+    against its plain version, flash and decode at the hybrid's shapes, the
+    small ``ssm`` and ``hybrid`` models on the card against the CPU, the
+    counted main paths (``hybrid_cfg`` and ``ssm_cfg`` served at their own
+    width and depth, ``batch`` x ``prompt`` tokens, ``gen`` greedy tokens;
+    one teacher-forcing forward of ``ssm_cfg``), f32 decode against forward
+    at full width, the SSD kernel timed at both launch shapes and the
+    attention kernels at the hybrid's.  Returns ``ssd_scan``'s entry of the
+    ``kernels`` line without its name, route, source and replaced kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gus import gus_assign
+    from repro_torch.kernels.hier import hier_cells
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model, params_to
+    from repro_torch.serving import ServingEngine
+    from repro_torch.training import make_batch
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    errs = {"ssd_scan": 0.0}
+
+    def ssd_inputs(B, H, G, S, P, N, dtype, seed):
+        """tests/test_kernels.py's distributions, made on the card."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((B, H, S, P), generator=g, device=dev).to(dtypes[dtype])
+        dt = (0.001 + 0.099 * torch.rand((B, H, S), generator=g, device=dev)).to(dtypes[dtype])
+        A = -(0.5 + 3.5 * torch.rand((H,), generator=g, device=dev))
+        Bm = torch.randn((B, G, S, N), generator=g, device=dev).to(dtypes[dtype])
+        Cm = torch.randn((B, G, S, N), generator=g, device=dev).to(dtypes[dtype])
+        return x, dt, A, Bm, Cm
+
+    def compare_ssd(label, args, chunk, dtype, final):
+        got = ssd_scan(*args, chunk=chunk, return_final_state=final, backend="cuda")
+        want = ssd_scan_ref(*args, chunk, return_final_state=final)
+        sync(dev)
+        (got, gst), (want, wst) = (got, want) if final else ((got, None), (want, None))
+        err = float((got.float() - want.float()).abs().max())
+        ok = torch.allclose(got.float(), want.float(), **SSD_TOL[dtype])
+        msg = f"y max_abs_err={err} within {SSD_TOL[dtype]}: {ok}"
+        if final:
+            st_err = float((gst - wst).abs().max())
+            st_atol = SSD_STATE_ATOL_SHARE * float(wst.abs().max())
+            st_ok = torch.allclose(gst, wst, rtol=SSD_STATE_RTOL, atol=st_atol)
+            msg += (f"; final state max_abs_err={st_err} within rtol={SSD_STATE_RTOL}, "
+                    f"atol={st_atol:.3e}: {st_ok}")
+            ok = ok and st_ok
+        errs["ssd_scan"] = max(errs["ssd_scan"], err)
+        print(f"compare ssd_scan {label} {dtype}: {msg}")
+        check(ok, f"ssd_scan kernel != plain version on {label} {dtype}")
+
+    # -- 7. the SSD kernel vs its plain version; flash and decode at the
+    #       hybrid's shapes ---------------------------------------------------
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        for B, H, G, S, P, N, Q, final in (
+            (2, 4, 4, 256, 64, 128, 128, True),    # whole chunks, N 128
+            (2, 4, 1, 2000, 64, 64, 128, True),    # ragged S, G 1, N 64
+            (2, 4, 1, 2000, 64, 64, 128, False),   # the same, no state output
+            (1, 8, 2, 300, 64, 128, 64, False),    # G 2, ragged
+            (1, 6, 3, 77, 32, 16, 16, True),       # G 3, small P, N and chunk
+        ):
+            compare_ssd(f"B={B} H={H} G={G} S={S} P={P} N={N} Q={Q} state={final}",
+                        ssd_inputs(B, H, G, S, P, N, dtype, S + N), Q, dtype, final)
+
+    def launch_shape(cfg):
+        return (batch, cfg.ssm_nheads, cfg.ssm_ngroups, prompt, cfg.ssm_headdim, cfg.ssm_state)
+
+    main_args = {}
+    for cfg in (hybrid_cfg, ssm_cfg):
+        B, H, G, S, P, N = launch_shape(cfg)
+        main_args[cfg.arch_id] = ssd_inputs(B, H, G, S, P, N, cfg.dtype, 21)
+        compare_ssd(f"main-path launch {cfg.arch_id} B={B} H={H} G={G} S={S} P={P} N={N} "
+                    f"Q={cfg.ssd_chunk} state=True", main_args[cfg.arch_id], cfg.ssd_chunk,
+                    cfg.dtype, True)
+
+    attn_err = {"flash_attention": 0.0, "decode_attention": 0.0}
+
+    hybrid_launch = AttentionLaunch(dev, hybrid_cfg, batch, prompt, gen, 31)
+    hybrid_launch.compare(attn_err, f"{hybrid_cfg.arch_id} launch")
+    print(f"ssd/attention kernel comparisons: {time.perf_counter() - t0:.3f} s")
+
+    # -- 7. (cont.) the small ssm and hybrid models on the card vs the CPU ---
+    for cfg in (hybrid_cfg, ssm_cfg):
+        t0 = time.perf_counter()
+        small = dataclasses.replace(reduce_for_smoke(cfg), num_layers=4)
+        model = Model(small)
+        cpu_params = model.init(0, device="cpu")
+        card_params = params_to(cpu_params, dev)
+        sb = make_batch(small, 2, 45, np.random.default_rng(0), device="cpu")  # ragged: 45
+        sb_card = {k: t.to(dev) for k, t in sb.items()}
+        fc, fg = model.forward(cpu_params, sb)[0], model.forward(card_params, sb_card)[0].cpu()
+        fwd_err = float((fg - fc).abs().max())
+        lc, _ = model.prefill(cpu_params, sb, model.init_cache(2, 64, device="cpu"))
+        lg, _ = model.prefill(card_params, sb_card, model.init_cache(2, 64, device=dev))
+        logit_err = float((lg.cpu() - lc).abs().max())
+        tok_card = ServingEngine(model, card_params, device=dev).generate(sb_card, 8).tokens
+        tok_cpu = ServingEngine(model, cpu_params, device="cpu").generate(sb, 8).tokens
+        print(f"small {small.family} model card vs cpu ({small.num_layers} layers, "
+              f"d={small.d_model}, {small.ssm_nheads} SSM heads, N={small.ssm_state}, "
+              f"{model.n_attn_sites()} attention sites, 45-token prompt + 8): forward logits "
+              f"max_abs_diff={fwd_err}, prefill logits max_abs_diff={logit_err}, tokens equal="
+              f"{np.array_equal(tok_card, tok_cpu)}, {time.perf_counter() - t0:.3f} s")
+        check(torch.allclose(fg, fc, rtol=MODEL_RTOL, atol=MODEL_ATOL) and torch.allclose(
+            lg.cpu(), lc, rtol=MODEL_RTOL, atol=MODEL_ATOL),
+            f"the small {small.family} model's logits on the card != on the CPU")
+        check(np.array_equal(tok_card, tok_cpu), f"the small {small.family} model's tokens differ")
+        serve(cfg.arch_id, batch=2, prompt=37, gen=4, device=dev)  # the serving command, reduced
+
+    # -- 8. the main paths: the hybrid and the ssm model at full width and
+    #       depth, then the ssm model's teacher-forcing forward --------------
+    def counts():
+        return {"ssd_scan": ssd_scan.launches, "flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches,
+                "scheduler": gus_assign.launches + hier_cells.launches}
+
+    served = {}
+    for cfg in (hybrid_cfg, ssm_cfg):
+        model = Model(cfg)
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = model.init(0, device=dev)
+        sync(dev)
+        init_s = time.perf_counter() - t0
+        engine = ServingEngine(model, params, device=dev)
+        prompt_batch = make_batch(cfg, batch, prompt, np.random.default_rng(0), device=dev)
+        zero_counts()
+        sync(dev)
+        res = engine.generate(prompt_batch, max_new_tokens=gen)
+        n = counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        cache = model.init_cache(batch, prompt + gen, device=dev)
+        cache_bytes = sum(t.numel() * t.element_size() for t in (
+            [cache.conv, cache.ssm] + ([cache.attn["k"], cache.attn["v"]] if cache.attn else [])))
+        del cache
+        sites = model.n_attn_sites()
+        print(
+            f"serve main path {cfg.arch_id} ({cfg.num_layers} layers, d={cfg.d_model}, "
+            f"{cfg.ssm_nheads} SSM heads x P={cfg.ssm_headdim}, N={cfg.ssm_state}, "
+            f"{sites} attention sites, {cfg.dtype}): batch={batch} prompt={prompt} gen={gen}: "
+            f"prefill_ms {res.prefill_ms:.3f} decode_ms_per_token {res.decode_ms_per_token:.3f} "
+            f"total_ms {res.total_ms:.3f} generated tokens/s "
+            f"{batch * gen / res.total_ms * 1e3:.1f} decode tokens/s "
+            f"{batch / res.decode_ms_per_token * 1e3:.1f} prefill tokens/s "
+            f"{batch * prompt / res.prefill_ms * 1e3:.1f} init_s {init_s:.3f} params "
+            f"{tree_size(params)[0]} ({tree_size(params)[1] / 1e9:.3f} GB; config n_params "
+            f"{cfg.n_params()}) cache {cache_bytes / 1e9:.4f} GB peak memory of the path "
+            f"{peak / 1e9:.3f} GB (max_memory_allocated less {base / 1e9:.3f} GB held before) "
+            f"launches {json.dumps(n)}"
+        )
+        check(n["ssd_scan"] == cfg.num_layers,
+              f"prefill must launch ssd_scan once per mamba layer, got {n['ssd_scan']}")
+        check(n["flash_attention"] == sites,
+              f"prefill must launch flash_attention once per attention site, got "
+              f"{n['flash_attention']}")
+        check(n["decode_attention"] == (gen - 1) * sites,
+              f"decode must launch decode_attention once per site and step, got "
+              f"{n['decode_attention']}")
+        check(n["scheduler"] == 0, "the serving main path launched a scheduler kernel")
+        toks = res.tokens
+        check(toks.shape == (batch, gen) and (toks >= 0).all() and (toks < cfg.vocab_size).all(),
+              f"{cfg.arch_id} main path tokens malformed")
+        served[cfg.arch_id] = n
+        if cfg is hybrid_cfg:
+            profile_serving(model, params, prompt_batch)
+        else:
+            zero_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, _ = model.forward(params, prompt_batch)
+            sync(dev)
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            nf = counts()
+            print(f"forward main path {cfg.arch_id} B={batch} S={prompt} (teacher forcing, no "
+                  f"state output): {fwd_ms:.3f} ms, launches {json.dumps(nf)}, logits "
+                  f"{tuple(logits.shape)} finite={bool(torch.isfinite(logits).all())}")
+            check(nf["ssd_scan"] == cfg.num_layers and nf["flash_attention"] == 0
+                  and nf["decode_attention"] == 0 and nf["scheduler"] == 0,
+                  "the forward must launch ssd_scan once per layer and nothing else")
+            check(tuple(logits.shape) == (batch, prompt, cfg.vocab_size)
+                  and bool(torch.isfinite(logits).all()), "the forward's logits are malformed")
+            del logits
+        del engine, params
+
+    # -- 9. f32 at full width and depth: prefill + decode == forward ---------
+    def decode_vs_forward(cfg, rescale):
+        """Max |logit| difference between prefill + teacher-forced decode and
+        one forward over the same tokens, f32, ragged prompt; and the share
+        of positions whose argmax agrees."""
+        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        model = Model(cfg32)
+        params = model.init(1, device=dev)
+        if rescale:
+            # the reference's init gives w_q, w_k, w_v a fan-in of H or KV
+            # (shape[-2] of a 3-D leaf), so scores have a std in the tens and
+            # every softmax is nearly one-hot; rescale to a fan-in of d_model
+            sa = params["shared_attn"]["attn"]
+            for name, fan_in in (("w_q", cfg32.num_heads), ("w_k", cfg32.num_kv_heads),
+                                 ("w_v", cfg32.num_kv_heads)):
+                sa[name].mul_(math.sqrt(fan_in / cfg32.d_model))
+        toks = make_batch(cfg32, 2, acc_prompt + acc_steps, np.random.default_rng(1),
+                          device=dev)["tokens"]
+        full, _ = model.forward(params, {"tokens": toks})
+        last, cache = model.prefill(params, {"tokens": toks[:, :acc_prompt]},
+                                    model.init_cache(2, acc_prompt + acc_steps, device=dev))
+        got = [last[:, 0]]
+        for t in range(acc_prompt, acc_prompt + acc_steps):
+            lg, cache = model.decode_step(params, toks[:, t:t + 1], cache)
+            got.append(lg[:, 0])
+        got = torch.stack(got, 1)
+        want = full[:, acc_prompt - 1:]
+        err = float((got - want).abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        return err, agree, float(want.abs().max())
+
+    t0 = time.perf_counter()
+    err, agree, scale = decode_vs_forward(ssm_cfg, False)
+    print(f"{ssm_cfg.arch_id} f32 full width and depth, prompt {acc_prompt} + {acc_steps} "
+          f"decode steps: max |decode - forward| logits {err} (max |logit| {scale}), argmax "
+          f"agreement {agree:.4f}, bound {SSM_DECODE_ATOL}")
+    check(err < SSM_DECODE_ATOL, f"{ssm_cfg.arch_id} f32 decode disagrees with the forward")
+    raw_err, raw_agree, _ = decode_vs_forward(hybrid_cfg, False)
+    err, agree, scale = decode_vs_forward(hybrid_cfg, True)
+    print(f"{hybrid_cfg.arch_id} f32 full width and depth, prompt {acc_prompt} + {acc_steps} "
+          f"decode steps: max |decode - forward| logits {raw_err} (argmax agreement "
+          f"{raw_agree:.4f}) with the reference's init; {err} (max |logit| {scale}, argmax "
+          f"agreement {agree:.4f}) with q/k/v at fan-in d_model; bound {SSM_DECODE_ATOL}; "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(err < SSM_DECODE_ATOL, f"{hybrid_cfg.arch_id} f32 decode disagrees with the forward")
+
+    # -- 10. timing at both main-path launch shapes --------------------------
+    def ssd_bound(B, H, G, S, P, N, Q, dtype):
+        """Each input read once and each output written once (y and the f32
+        final state, as prefill asks); the operations the chunked form needs
+        for this S: per chunk of q real tokens, C.B^T and W.x over the
+        causal q(q+1)/2 pairs, C.state and the state update over q x N x P."""
+        elt = dtypes[dtype].itemsize
+        nb = (2 * B * H * S * P + B * H * S + 2 * B * G * S * N) * elt + H * 4 + B * H * N * P * 4
+        ops = 0
+        for c0 in range(0, S, Q):
+            q = min(Q, S - c0)
+            ops += B * H * (q * (q + 1) * (N + P) + 4 * q * N * P)
+        return bound(nb, ops, dtype)
+
+    timing = {}
+    for cfg in (hybrid_cfg, ssm_cfg):
+        args, Q, dt_ = main_args[cfg.arch_id], cfg.ssd_chunk, cfg.dtype
+        ms = time_events(lambda: ssd_scan(*args, chunk=Q, return_final_state=True,
+                                          backend="cuda"), 10)
+        plain = time_events(lambda: ssd_scan_ref(*args, Q, return_final_state=True), 3, warmup=1)
+        b_ms, b_by = ssd_bound(*launch_shape(cfg), Q, dt_)
+        timing[cfg.arch_id] = (ms, plain, b_ms, b_by)
+        B, H, G, S, P, N = launch_shape(cfg)
+        print(f"time ssd_scan main-path launch {cfg.arch_id} B={B} H={H} G={G} S={S} P={P} "
+              f"N={N} Q={Q} {dt_} with final state: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), kernel/bound {ms / b_ms:.2f}x; library: none (no "
+              f"single PyTorch call computes SSD); x {cfg.num_layers} launches per prefill = "
+              f"{ms * cfg.num_layers:.3f} ms")
+
+    hybrid_launch.time(hybrid_cfg.arch_id)
+    print(f"{hybrid_cfg.arch_id} attention max_abs_err: flash {attn_err['flash_attention']} "
+          f"decode {attn_err['decode_attention']}")
+
+    ms, plain, b_ms, b_by = timing[hybrid_cfg.arch_id]
     return {
-        "flash_attention": {
-            "launches": n_flash, "max_abs_err": attn_err["flash_attention"], "ms": flash_ms,
-            "plain_ms": flash_plain_ms, "bound_ms": fb_ms, "bound_by": fb_by,
-            "library_ms": flash_lib_ms,
-        },
-        "decode_attention": {
-            "launches": n_decode, "max_abs_err": attn_err["decode_attention"], "ms": decode_ms,
-            "plain_ms": decode_plain_ms, "bound_ms": db_ms, "bound_by": db_by,
-            "library_ms": decode_lib_ms,
-        },
+        "launches": served[hybrid_cfg.arch_id]["ssd_scan"], "max_abs_err": errs["ssd_scan"],
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
 
 
@@ -432,6 +817,7 @@ def profile_serving(model, params, prompt_batch, steps=4):
     step = make_serve_step(model)
     kinds = (("flash_attention", "flash_attention_kernel"),
              ("decode_attention", "decode_attention_kernel"),
+             ("ssd_scan", "ssd_scan_kernel"),
              ("matrix products (cuBLAS)", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
              ("elementwise, norms, reductions, copies", ""))
     state = {"cache": cache}
@@ -512,6 +898,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gus import gus_assign, gus_assign_ref
     from repro_torch.kernels.hier import hier_cells, hier_cells_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.obs.trace import Stopwatch
 
     dev = torch.device("cuda")
@@ -522,11 +909,12 @@ def main() -> int:
 
     def zero_counts():
         gus_assign.launches = hier_cells.launches = 0
-        flash_attention.launches = decode_attention.launches = 0
+        flash_attention.launches = decode_attention.launches = ssd_scan.launches = 0
     t_start = time.perf_counter()
 
     # -- 1. build ------------------------------------------------------------
-    builds = build_libraries(["gus_assign", "hier_cells", "flash_attention", "decode_attention"])
+    builds = build_libraries(
+        ["gus_assign", "hier_cells", "flash_attention", "decode_attention", "ssd_scan"])
     for info in builds.values():
         print(f"build {info.name}: nvcc {info.seconds:.3f} s -> {info.path.name}")
         for line in info.log.splitlines():
@@ -715,8 +1103,8 @@ def main() -> int:
     fr = fleet(n_rep_scale, "cuda", window=window)
     wall = time.perf_counter() - t0
     launches = gus_assign.launches
-    check(hier_cells.launches == flash_attention.launches == decode_attention.launches == 0,
-          "the dense main path launched another kernel")
+    check(hier_cells.launches == flash_attention.launches == decode_attention.launches
+          == ssd_scan.launches == 0, "the dense main path launched another kernel")
     print(
         f"fleet scale n_rep={fr.n_rep} frames={fr.n_frames} window={fr.window} "
         f"prefetch={fr.prefetch}: wall {wall:.3f} s dispatch_s {fr.dispatch_s:.3f} "
@@ -898,8 +1286,8 @@ def main() -> int:
     fh = city_fleet(n_rep_city, "cuda")
     hier_wall = time.perf_counter() - t0
     hier_launches = hier_cells.launches
-    check(gus_assign.launches == flash_attention.launches == decode_attention.launches == 0,
-          "the hierarchical main path launched another kernel")
+    check(gus_assign.launches == flash_attention.launches == decode_attention.launches
+          == ssd_scan.launches == 0, "the hierarchical main path launched another kernel")
     print(
         f"hier main path mega-city n_rep={fh.n_rep} frames={fh.n_frames} window={fh.window} "
         f"prefetch={fh.prefetch}: wall {hier_wall:.3f} s dispatch_s {fh.dispatch_s:.3f} "
@@ -923,8 +1311,11 @@ def main() -> int:
     #         attention timing ---------------------------------------------
     attn = serving_smoke(dev, zero_counts, get_config(SERVE_ARCH))
 
+    # -- 7.-10. the SSD kernel, the ssm and hybrid models, their main paths,
+    #          SSD timing ---------------------------------------------------
+    ssd = ssm_smoke(dev, zero_counts, get_config(SSM_HYBRID_ARCH), get_config(SSM_ARCH))
 
-    # -- 7. kernel timing (the scheduler kernels) ----------------------------
+    # -- 10. kernel timing (the scheduler kernels) ---------------------------
     def time_kernel(args, reps):
         for _ in range(2):
             gus_assign(*args)
@@ -1047,6 +1438,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:91",
         **attn["decode_attention"],
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:84",
+        **ssd,
     }]}
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

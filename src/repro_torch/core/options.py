@@ -42,7 +42,7 @@ __all__ = [
     "BACKENDS",
     "SCHEDULERS",
     "ENV_BACKEND",
-    "ENV_ATTN_BACKEND",
+    "ENV_MODEL_BACKEND",
     "ENV_RNG_MODE",
     "ENV_SCHEDULER",
     "resolve_options",
@@ -55,8 +55,8 @@ BACKENDS = ("torch", "cuda")
 SCHEDULERS = ("dense", "hierarchical")
 
 ENV_BACKEND = "REPRO_TORCH_GUS_BACKEND"
-#: the attention kernels' backend (``torch`` | ``cuda``), resolved as GUS's
-ENV_ATTN_BACKEND = "REPRO_TORCH_ATTN_BACKEND"
+#: the model kernels' backend (attention and SSD; ``torch`` | ``cuda``), resolved as GUS's
+ENV_MODEL_BACKEND = "REPRO_TORCH_MODEL_BACKEND"
 ENV_RNG_MODE = "REPRO_RNG_MODE"
 ENV_SCHEDULER = "REPRO_SCHEDULER"
 
@@ -113,11 +113,11 @@ def resolve_backend(
     """The GUS backend: explicit ``backend=`` > ``REPRO_TORCH_GUS_BACKEND``
     > the device's own (``"cuda"`` on a CUDA device, else ``"torch"``).
 
-    The attention kernels resolve theirs the same way from
-    ``var=ENV_ATTN_BACKEND`` (``REPRO_TORCH_ATTN_BACKEND``)."""
+    The model kernels (attention, SSD) resolve theirs the same way from
+    ``var=ENV_MODEL_BACKEND`` (``REPRO_TORCH_MODEL_BACKEND``)."""
     if env is None:
         env = os.environ
-    what = "GUS backend" if var == ENV_BACKEND else "attention backend"
+    what = "GUS backend" if var == ENV_BACKEND else "model-kernel backend"
     b = backend if backend is not None else _env_choice(env, var, BACKENDS, what)
     if b is None:
         b = "cuda" if device is not None and torch.device(device).type == "cuda" else "torch"

@@ -41,15 +41,16 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-#: the attention kernels need no bit parity (their plain versions are held
-#: to a tolerance), so they are built without ``--fmad=false``: the dot
-#: products and the online-softmax rescale contract into fused multiply-adds
+#: the model kernels (attention, SSD) need no bit parity (their plain
+#: versions are held to a tolerance), so they are built without
+#: ``--fmad=false``: their dot products contract into fused multiply-adds
 ATTN_NVCC_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 
 #: each source's flags; a source not listed takes ``NVCC_FLAGS``
 _SOURCE_FLAGS = {
     "flash_attention": ATTN_NVCC_FLAGS,
     "decode_attention": ATTN_NVCC_FLAGS,
+    "ssd_scan": ATTN_NVCC_FLAGS,
 }
 
 

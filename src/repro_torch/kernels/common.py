@@ -1,0 +1,38 @@
+"""What the model kernels (attention and SSD) share: the dtype codes of
+their C interfaces, the per-tensor input check, and the backend switch.
+
+The model kernels' backend is chosen as GUS's is: an explicit ``backend=``
+(``"torch"`` for the plain version, ``"cuda"`` for the kernel), else the
+environment variable ``REPRO_TORCH_MODEL_BACKEND``
+(``core.options.ENV_MODEL_BACKEND``), else the tensors' device.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["DTYPES", "check_tensor", "resolve_model_backend"]
+
+#: dtype codes of the C interfaces
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def resolve_model_backend(backend: Optional[str], device: torch.device) -> str:
+    """Explicit ``backend=`` > ``REPRO_TORCH_MODEL_BACKEND`` > the device's own."""
+    from repro_torch.core.options import ENV_MODEL_BACKEND, resolve_backend
+
+    return resolve_backend(backend, device, var=ENV_MODEL_BACKEND)
+
+
+def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    """Raise unless ``t`` is what the kernel takes: device, dtype, shape and
+    a unit stride on the last axis (any other strides are fine)."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{kernel}: {name} needs a unit stride on its last axis")

@@ -30,14 +30,8 @@ from typing import Optional
 import torch
 
 from .build import load_library
-from .flash_attention import (
-    DTYPES,
-    check_head_dim,
-    check_tensor,
-    masked_softmax_pv,
-    resolve_attention_backend,
-    vector_loads,
-)
+from .common import DTYPES, check_tensor, resolve_model_backend
+from .flash_attention import check_head_dim, masked_softmax_pv, vector_loads
 
 __all__ = ["MAX_REP", "decode_attention", "decode_attention_ref"]
 
@@ -83,7 +77,7 @@ def decode_attention(
     dev = q.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_attention runs on CUDA or CPU tensors, not {dev.type}")
-    if dev.type == "cpu" or resolve_attention_backend(backend, dev) == "torch":
+    if dev.type == "cpu" or resolve_model_backend(backend, dev) == "torch":
         res = decode_attention_ref(q, k, v, valid)
         return res if out is None else out.copy_(res)
     B, KV, rep, hd = q.shape

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from .build import load_library
+from .common import DTYPES, check_tensor, resolve_model_backend
 
 __all__ = [
     "NEG_INF",
@@ -44,8 +45,6 @@ __all__ = [
 NEG_INF = -1e30
 #: largest head dimension the kernels take (and hd % 4 == 0)
 MAX_HEAD_DIM = 256
-#: dtype codes of the C interface
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def attention_mask(S: int, T: int, causal: bool, window: Optional[int], device) -> torch.Tensor:
@@ -83,26 +82,6 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] =
     mask = attention_mask(S, T, causal, window, q.device)
     out = masked_softmax_pv(s, mask, v.float()[:, :, None])       # (B, KV, rep, S, hd)
     return out.flatten(1, 2).to(q.dtype)
-
-
-def resolve_attention_backend(backend: Optional[str], device: torch.device) -> str:
-    """Explicit ``backend=`` > ``REPRO_TORCH_ATTN_BACKEND`` > the device's own."""
-    from repro_torch.core.options import ENV_ATTN_BACKEND, resolve_backend
-
-    return resolve_backend(backend, device, var=ENV_ATTN_BACKEND)
-
-
-def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    """Raise unless ``t`` is what the kernel takes: device, dtype, shape and
-    a unit stride on the last axis (any other strides are fine)."""
-    if t.device != device:
-        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{kernel}: {name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.shape[-1] > 1 and t.stride(-1) != 1:
-        raise ValueError(f"{kernel}: {name} needs a unit stride on its last axis")
 
 
 def check_head_dim(kernel: str, hd: int, dtype) -> None:
@@ -145,14 +124,14 @@ def flash_attention(
     given (any strides, unit last stride).
 
     ``backend``: ``"torch"`` is the plain version on the tensors' device,
-    ``"cuda"`` the kernel; ``None`` defers to ``REPRO_TORCH_ATTN_BACKEND``,
+    ``"cuda"`` the kernel; ``None`` defers to ``REPRO_TORCH_MODEL_BACKEND``,
     else follows the device.  CPU tensors always take the plain version and
     count no launch; CUDA tensors on ``"cuda"`` launch the kernel or raise.
     """
     dev = q.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {dev.type}")
-    if dev.type == "cpu" or resolve_attention_backend(backend, dev) == "torch":
+    if dev.type == "cpu" or resolve_model_backend(backend, dev) == "torch":
         res = flash_attention_ref(q, k, v, causal=causal, window=window)
         return res if out is None else out.copy_(res)
     B, H, S, hd = q.shape

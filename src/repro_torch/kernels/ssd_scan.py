@@ -1,0 +1,255 @@
+"""Mamba-2 chunked SSD scan: the Hopper kernel and its plain PyTorch versions.
+
+:func:`ssd_scan` is the port of the TPU kernel
+``repro/kernels/ssd_scan.py::ssd_scan``.  On CUDA tensors it launches the
+hand-written kernel in ``csrc/ssd_scan.cu`` (built with ``nvcc`` at first
+use, bound with ``ctypes``) or raises; on CPU tensors it runs
+:func:`ssd_scan_ref`.  There is no fallback from the kernel to the plain
+version.  ``ssd_scan.launches`` counts the kernel launches.
+
+Kernel layout: x ``(B, H, S, P)``, dt ``(B, H, S)``, A ``(H,)`` f32,
+Bm/Cm ``(B, G, S, N)`` with query head h reading SSM group
+``h // (H // G)`` (the groups are never repeated over heads), y
+``(B, H, S, P)`` in x's dtype, and optionally the final state
+``(B, H, N, P)`` in f32.  The kernel reads x, Bm, Cm and y through their
+strides (unit stride on the last axis; dt any strides), so ``ops.ssd``
+hands it transposed views of the model's ``(B, S, ...)`` tensors and an
+output view.  Unlike the Pallas kernel it takes any S: positions past S in
+the last chunk count as dt = 0, the reference's own padding rule, which is
+exact; and it can write out the final state, which the serving prefill
+needs.
+
+:func:`ssd_reference` is the port's copy of the reference's chunked einsum
+form (``repro/models/ssm.py::ssd_reference``, model layout, with its
+right-padding rule for a ragged S); :func:`ssd_scan_ref` is the port's copy
+of ``repro/kernels/ref.py::ssd_ref`` (kernel layout), which calls it.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .build import load_library
+from .common import DTYPES, check_tensor, resolve_model_backend
+
+__all__ = [
+    "MAX_CHUNK",
+    "MAX_STATE",
+    "MAX_HEAD_DIM",
+    "ssd_reference",
+    "ssd_scan",
+    "ssd_scan_ref",
+    "check_ssd_inputs",
+]
+
+#: the kernel's limits: chunk Q <= 128 and state N <= 128 (both multiples
+#: of 4), head dim P <= 64
+MAX_CHUNK = 128
+MAX_STATE = 128
+MAX_HEAD_DIM = 64
+
+
+def _segsum(x):
+    """x: (..., Q).  (..., Q, Q) with out[i, j] = sum_{j < m <= i} x_m for
+    i >= j, -inf otherwise (log of the causal decay matrix)."""
+    Q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    return out.masked_fill(~mask, float("-inf"))
+
+
+def ssd_reference(x, dt, A, B, C, chunk: int, initial_state=None, return_final_state=False):
+    """Chunked SSD (the Mamba-2 paper's matmul form), model layout.
+
+    x : (b, S, H, P)   inputs per head
+    dt: (b, S, H)      positive step sizes (softplus already applied)
+    A : (H,)           negative decay rates
+    B : (b, S, G, N)   input projections  (G groups, broadcast over H)
+    C : (b, S, G, N)   output projections
+    -> y: (b, S, H, P) in x's dtype [, final_state (b, H, N, P) f32]
+    """
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if S % chunk:
+        # Right-pad with dt=0 tokens: decay exp(0)=1 and zero dt-weighted
+        # contribution, so both outputs at real positions and the final state
+        # are exactly preserved (outputs at pad positions are sliced off).
+        pad = chunk - S % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+        out = ssd_reference(x, dt, A, B, C, chunk, initial_state, return_final_state)
+        if return_final_state:
+            return out[0][:, :S], out[1]
+        return out[:, :S]
+    nc, Q = S // chunk, chunk
+    rep = H // G
+
+    in_dtype = x.dtype
+    # the recurrence is done in f32 (exp/cumsum are precision-critical)
+    x, dt, B, C = x.float(), dt.float(), B.float(), C.float()
+
+    xc = x.reshape(b, nc, Q, H, P)
+    dtc = dt.reshape(b, nc, Q, H)
+    Bh = B.reshape(b, nc, Q, G, N).repeat_interleave(rep, dim=3)  # (b, nc, Q, H, N)
+    Ch = C.reshape(b, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    dA = dtc * A.float()                                           # (b, nc, Q, H), negative
+
+    # ---- intra-chunk (quadratic within the chunk) ---------------------------
+    L = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))                 # (b, nc, H, Q, Q)
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Ch, Bh)            # (b, nc, H, Q, Q)
+    w = scores * L * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", w, xc)
+
+    # ---- chunk states -------------------------------------------------------
+    dA_cum = torch.cumsum(dA, dim=2)                               # (b, nc, Q, H)
+    decay_to_end = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)        # (b, nc, Q, H)
+    states = torch.einsum("bcqhn,bcqhp->bchnp", Bh * (decay_to_end * dtc)[..., None], xc)
+
+    # ---- inter-chunk recurrence (scan over chunks) --------------------------
+    chunk_decay = torch.exp(dA_cum[:, :, -1, :])                   # (b, nc, H)
+    s = (torch.zeros((b, H, N, P), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    prev = []
+    for c in range(nc):
+        prev.append(s)
+        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                         # (b, nc, H, N, P)
+
+    # ---- inter-chunk output -------------------------------------------------
+    in_decay = torch.exp(dA_cum)                                   # decay from chunk start
+    y_inter = torch.einsum("bcqhn,bchnp->bcqhp", Ch * in_decay[..., None], prev_states)
+    y = (y_intra + y_inter).reshape(b, S, H, P).to(in_dtype)
+    if return_final_state:
+        return y, s
+    return y
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, chunk: int, return_final_state=False):
+    """Plain PyTorch SSD on the tensors' device, kernel layout: x
+    (B, H, S, P), dt (B, H, S), A (H,), Bm/Cm (B, G, S, N) -> y (B, H, S, P)
+    in x's dtype [, final state (B, H, N, P) f32].  With G = H this is the
+    reference's ``ref.ssd_ref``."""
+    out = ssd_reference(
+        x.transpose(1, 2), dt.transpose(1, 2), A, Bm.transpose(1, 2), Cm.transpose(1, 2),
+        chunk, return_final_state=return_final_state,
+    )
+    if return_final_state:
+        return out[0].transpose(1, 2), out[1]
+    return out.transpose(1, 2)
+
+
+def check_ssd_inputs(x, dt, A, Bm, Cm, chunk: int, *, out=None, state_out=None) -> None:
+    """Raise unless the kernel takes these tensors: one device, x/dt/Bm/Cm
+    (and out) f32 or bf16 of one dtype, A f32, the shapes of the kernel
+    layout with H % G == 0, chunk and N multiples of 4 up to 128, P up to
+    64, a unit stride on the last axis of x, Bm, Cm and out, and the state
+    output (B, H, N, P) f32 contiguous."""
+    dev = x.device
+    if x.dim() != 4 or Bm.dim() != 4:
+        raise ValueError("ssd_scan: x and Bm must be 4-D (B, H, S, P) and (B, G, S, N)")
+    Bsz, H, S, P = x.shape
+    G, N = Bm.shape[1], Bm.shape[3]
+    if x.dtype not in DTYPES:
+        raise TypeError(f"ssd_scan: dtype {x.dtype} is not float32 or bfloat16")
+    if G == 0 or H % G:
+        raise ValueError(f"ssd_scan: {H} heads do not split into {G} groups")
+    if chunk % 4 or not 4 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"ssd_scan: chunk {chunk} must be a multiple of 4 in [4, {MAX_CHUNK}]")
+    if N % 4 or not 4 <= N <= MAX_STATE:
+        raise ValueError(f"ssd_scan: state size {N} must be a multiple of 4 in [4, {MAX_STATE}]")
+    if not 1 <= P <= MAX_HEAD_DIM:
+        raise ValueError(f"ssd_scan: head dim {P} must be in [1, {MAX_HEAD_DIM}]")
+    for name, t, shape in (
+        ("x", x, (Bsz, H, S, P)), ("Bm", Bm, (Bsz, G, S, N)), ("Cm", Cm, (Bsz, G, S, N)),
+    ) + ((("out", out, (Bsz, H, S, P)),) if out is not None else ()):
+        check_tensor("ssd_scan", name, t, x.dtype, shape, dev)
+    if dt.device != dev or dt.dtype != x.dtype or tuple(dt.shape) != (Bsz, H, S):
+        raise ValueError(f"ssd_scan: dt must be a ({Bsz}, {H}, {S}) {x.dtype} tensor on {dev}")
+    if A.device != dev or A.dtype != torch.float32 or tuple(A.shape) != (H,) or (
+            H > 1 and A.stride(0) != 1):
+        raise ValueError(f"ssd_scan: A must be a contiguous ({H},) float32 tensor on {dev}")
+    if state_out is not None and (
+            state_out.device != dev or state_out.dtype != torch.float32
+            or tuple(state_out.shape) != (Bsz, H, N, P) or not state_out.is_contiguous()):
+        raise ValueError(
+            f"ssd_scan: state_out must be a contiguous ({Bsz}, {H}, {N}, {P}) float32 "
+            f"tensor on {dev}")
+
+
+def _library() -> ctypes.CDLL:
+    lib = load_library("ssd_scan")
+    if not getattr(lib, "_argtypes_set", False):
+        lib.ssd_scan_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_void_p]
+        )
+        lib.ssd_scan_launch.restype = ctypes.c_int
+        lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_scan_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def ssd_scan(
+    x, dt, A, Bm, Cm, *, chunk: int = 128, return_final_state: bool = False,
+    backend: Optional[str] = None, out: Optional[torch.Tensor] = None,
+):
+    """SSD in kernel layout: x (B, H, S, P), dt (B, H, S), A (H,) f32, Bm/Cm
+    (B, G, S, N) -> y (B, H, S, P) in x's dtype, written into ``out`` when
+    given (any strides, unit last stride); with ``return_final_state``,
+    ``(y, final_state)`` with the state (B, H, N, P) in f32; the
+    recurrence starts from a zero state.
+
+    ``backend`` as for the attention kernels: ``"torch"`` is the plain
+    version on the tensors' device, ``"cuda"`` the kernel; ``None`` defers
+    to ``REPRO_TORCH_MODEL_BACKEND`` (the model kernels' switch), else
+    follows the device.  CPU tensors always take the plain version and
+    count no launch; CUDA tensors on ``"cuda"`` launch the kernel or raise.
+    """
+    dev = x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {dev.type}")
+    if dev.type == "cpu" or resolve_model_backend(backend, dev) == "torch":
+        res = ssd_scan_ref(x, dt, A, Bm, Cm, chunk, return_final_state)
+        if out is None:
+            return res
+        if return_final_state:
+            return out.copy_(res[0]), res[1]
+        return out.copy_(res)
+    Bsz, H, S, P = x.shape
+    N = Bm.shape[3]
+    if out is None:
+        out = torch.empty((Bsz, H, S, P), dtype=x.dtype, device=dev)
+    state = (torch.empty((Bsz, H, N, P), dtype=torch.float32, device=dev)
+             if return_final_state else None)
+    check_ssd_inputs(x, dt, A, Bm, Cm, chunk, out=out, state_out=state)
+    if Bsz == 0 or H == 0 or S == 0:
+        if state is not None:
+            return out, state.zero_()
+        return out
+    lib = _library()
+    strides = (ctypes.c_longlong * 15)(
+        *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3], *out.stride()[:3]
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            out.data_ptr(), state.data_ptr() if state is not None else None, DTYPES[x.dtype],
+            Bsz, H, Bm.shape[1], S, P, N, chunk, strides, stream,
+        )
+    if err != 0:
+        msg = lib.ssd_scan_error_string(err).decode()
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err} ({msg})")
+    ssd_scan.launches += 1
+    return (out, state) if return_final_state else out
+
+
+#: kernel launches since the count was last set to 0
+ssd_scan.launches = 0

@@ -6,7 +6,11 @@ weights: :func:`params_from_reference` takes the reference's parameter tree
 as numpy arrays (``jax.tree.map(np.asarray, model.init(key))``) and returns
 the port's.  The reference stacks every layer leaf on a leading ``L`` axis
 (scan over layers); the port keeps one dict per layer.  That split is the
-only change of layout, and it lives here.
+only change of layout, and it lives here.  Every other subtree (the
+embedding, the final norm, the unembedding, the hybrid family's unstacked
+``shared_attn`` block) is carried as it is, and the mamba leaves of a layer
+(``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``, ``D``,
+``norm_scale``, ``out_proj``) like any other leaf.
 """
 from __future__ import annotations
 

@@ -1,9 +1,14 @@
-"""The dense decoder-only transformer, prefill and decode.
+"""The decoder-only models, prefill and decode.
 
-The port's counterpart of ``repro/models/model.py`` for the ``dense``
-family (yi-9b, qwen2-72b, stablelm-12b, starcoder2-15b and the paper zoo):
-pre-norm GQA blocks, RoPE, a gated or classic MLP, optional biases, a
-sliding window, tied embeddings and a logits soft-cap.
+The port's counterpart of ``repro/models/model.py`` for three families:
+
+  dense  — pre-norm GQA transformer (yi-9b, qwen2-72b, stablelm-12b,
+           starcoder2-15b and the paper zoo): RoPE, a gated or classic MLP,
+           optional biases, a sliding window, tied embeddings and a logits
+           soft-cap
+  ssm    — Mamba-2 / SSD stack (mamba2-130m)
+  hybrid — Mamba-2 backbone + one weight-*shared* attention block applied
+           every ``attn_every`` layers (zamba2-1.2b)
 
 API (plain functions on a nested dict of tensors):
   init(generator, device=)          -> params
@@ -14,21 +19,24 @@ API (plain functions on a nested dict of tensors):
 
 ``params["layers"]`` is a list with one dict per layer; the reference
 stacks every layer leaf on a leading axis instead
-(:func:`repro_torch.models.carry.params_from_reference` converts).
+(:func:`repro_torch.models.carry.params_from_reference` converts).  The
+hybrid family's ``params["shared_attn"]`` is one unstacked block.
 
 Unlike the reference, :meth:`Model.prefill` and :meth:`Model.decode_step`
 update the cache's tensors in place (the reference's ``.at[].set`` and
 ``dynamic_update_slice`` return copies); the returned :class:`DecodeCache`
-shares them with the one passed in.
+shares them with the one passed in.  The reference's prefill leaves the
+Pallas SSD kernel for its plain form to get the final state; the port's
+SSD kernel writes the final state out, so prefill runs on it too.
 
-The ``moe``, ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` families, the
-``attn_impl="chunked"`` path and the int8 KV cache raise
-``NotImplementedError`` naming their ROADMAP item (:func:`check_ported`).
+The ``moe``, ``encdec`` and ``vlm`` families, the ``attn_impl="chunked"``
+path and the int8 KV cache raise ``NotImplementedError`` naming their
+ROADMAP item (:func:`check_ported`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -45,13 +53,12 @@ from .layers import (
     mlp_decl,
     norm_decl,
 )
+from .ssm import apply_mamba, init_ssm_state, mamba_decl, mamba_decode_step
 
 __all__ = ["Model", "DecodeCache", "check_ported"]
 
 #: families and options not ported yet -> their ROADMAP.md §1 item
 _UNPORTED_FAMILIES = {
-    "ssm": "item 11, still to port: the SSM/hybrid forward path with the ssd_scan kernel",
-    "hybrid": "item 11, still to port: the SSM/hybrid forward path with the ssd_scan kernel",
     "moe": "item 12, still to port: the MoE family",
     "encdec": "item 13, still to port: the encoder-decoder family",
     "vlm": "item 14, still to port: the VLM family",
@@ -65,7 +72,7 @@ def check_ported(cfg: ModelConfig) -> None:
             f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet "
             f"(ROADMAP.md §1 {_UNPORTED_FAMILIES[cfg.family]})"
         )
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError(
@@ -83,13 +90,18 @@ def check_ported(cfg: ModelConfig) -> None:
 class DecodeCache:
     """Decode-time state.  ``index`` is the absolute #tokens consumed so far.
 
-    attn:  {'k','v'} (L, B, W, KV, hd) ring buffers.  The reference's
-    ``conv``/``ssm``/``cross`` fields come with the families that use them
-    (ROADMAP.md §1 items 11 and 13).
+    attn:  {'k','v'} (L_attn, B, W, KV, hd) ring buffers (None if attn-free)
+    conv:  (L_ssm, B, convw-1, ch)      (None unless ssm/hybrid)
+    ssm:   (L_ssm, B, H, N, P)          (None unless ssm/hybrid)
+    All in the activation dtype, as the reference's.  The reference's
+    ``cross`` field comes with the encoder-decoder family (ROADMAP.md §1
+    item 13).
     """
 
     index: int
-    attn: Dict[str, torch.Tensor]
+    attn: Optional[Dict[str, torch.Tensor]] = None
+    conv: Optional[torch.Tensor] = None
+    ssm: Optional[torch.Tensor] = None
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -102,7 +114,7 @@ class Model:
         self.cfg = cfg
 
     # ------------------------------------------------------------------ decl
-    def _block_decl(self) -> Dict[str, Any]:
+    def _attn_block_decl(self) -> Dict[str, Any]:
         cfg = self.cfg
         return {
             "ln1": norm_decl(cfg),
@@ -110,6 +122,11 @@ class Model:
             "ln2": norm_decl(cfg),
             "mlp": mlp_decl(cfg),
         }
+
+    def _block_decl(self) -> Dict[str, Any]:
+        if self.cfg.family in ("ssm", "hybrid"):
+            return {"ln": norm_decl(self.cfg), "mamba": mamba_decl(self.cfg)}
+        return self._attn_block_decl()
 
     def decl(self) -> Dict[str, Any]:
         """The parameter declarations; ``layers`` is one block's (the
@@ -122,6 +139,8 @@ class Model:
         if not cfg.tie_embeddings:
             d["lm_head"] = ParamDecl((cfg.d_model, cfg.vocab_size))
         d["layers"] = self._block_decl()
+        if cfg.family == "hybrid":
+            d["shared_attn"] = self._attn_block_decl()
         return d
 
     # ------------------------------------------------------------------ init
@@ -176,58 +195,113 @@ class Model:
         positions = batch.get("positions")
         if positions is None:
             positions = make_positions(B, S, h.device)
-        for lp in params["layers"]:
-            h, _ = self._dense_block(lp, h, positions)
+        for i, lp in enumerate(params["layers"]):
+            if self.cfg.family == "dense":
+                h, _ = self._dense_block(lp, h, positions)
+                continue
+            if self._attn_site(i):
+                h, _ = self._dense_block(params["shared_attn"], h, positions)
+            h = h + apply_mamba(lp["mamba"], apply_norm(lp["ln"], h, self.cfg), self.cfg)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return self._unembed(params, h), {"router_aux": aux}
 
+    def _attn_site(self, i: int) -> bool:
+        """Whether the hybrid family's shared block fires before layer i."""
+        every = self.cfg.attn_every
+        return self.cfg.family == "hybrid" and bool(every) and i % every == 0
+
     # ------------------------------------------------------------------ cache
     def n_attn_sites(self) -> int:
-        return self.cfg.num_layers
+        cfg = self.cfg
+        if cfg.family == "dense":
+            return cfg.num_layers
+        if cfg.family == "hybrid":
+            return -(-cfg.num_layers // cfg.attn_every) if cfg.attn_every else 0
+        return 0
 
     def cache_window(self, max_len: int) -> int:
         w = self.cfg.sliding_window
         return min(max_len, w) if w else max_len
 
     def init_cache(self, batch: int, max_len: int, *, device=None) -> DecodeCache:
-        """Zeroed (L, B, W, KV, hd) ring buffers in the activation dtype on
-        ``device`` (default: the CUDA device; raises without one)."""
+        """Zeroed caches in the activation dtype on ``device`` (default: the
+        CUDA device; raises without one): (sites, B, W, KV, hd) ring buffers
+        for the attention sites, (L, B, W-1, ch) conv and (L, B, H, N, P)
+        SSM states for the mamba layers."""
         cfg = self.cfg
         dev = resolve_device(device)
-        shape = (self.n_attn_sites(), batch, self.cache_window(max_len),
-                 cfg.num_kv_heads, cfg.head_dim)
         dt = _dtype(cfg.dtype)
-        attn = {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev)}
-        return DecodeCache(index=0, attn=attn)
+        attn = conv = ssm = None
+        if self.n_attn_sites():
+            shape = (self.n_attn_sites(), batch, self.cache_window(max_len),
+                     cfg.num_kv_heads, cfg.head_dim)
+            attn = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                    "v": torch.zeros(shape, dtype=dt, device=dev)}
+        if cfg.family in ("ssm", "hybrid"):
+            c1, s1 = init_ssm_state(cfg, batch, dt, dev)
+            conv = c1.expand(cfg.num_layers, *c1.shape).clone()
+            ssm = s1.expand(cfg.num_layers, *s1.shape).clone()
+        return DecodeCache(index=0, attn=attn, conv=conv, ssm=ssm)
 
     # ---------------------------------------------------------------- prefill
     def prefill(self, params, batch, cache: DecodeCache) -> Tuple[torch.Tensor, DecodeCache]:
         """Consume a prompt, fill the cache in place, return last-position
         logits (B, 1, V) in f32."""
+        cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
         h = self._embed(params, tokens)
         positions = make_positions(B, S, h.device)
-        W = cache.attn["k"].shape[2]
-        # keep the last min(S, W) tokens; slot = pos % W matches decode
-        keep = min(S, W)
-        slots = torch.arange(S - keep, S, device=h.device) % W
-        for i, lp in enumerate(params["layers"]):
-            h, kv = self._dense_block(lp, h, positions)
+        if cache.attn is not None:
+            W = cache.attn["k"].shape[2]
+            # keep the last min(S, W) tokens; slot = pos % W matches decode
+            keep = min(S, W)
+            slots = torch.arange(S - keep, S, device=h.device) % W
+
+        def fill_ring(site, kv):
             for name in ("k", "v"):
-                ring = cache.attn[name][i]
+                ring = cache.attn[name][site]
                 ring.index_copy_(1, slots, kv[name][:, S - keep:].to(ring.dtype))
+
+        site = 0
+        for i, lp in enumerate(params["layers"]):
+            if cfg.family == "dense":
+                h, kv = self._dense_block(lp, h, positions)
+                fill_ring(i, kv)
+                continue
+            if self._attn_site(i):
+                h, kv = self._dense_block(params["shared_attn"], h, positions)
+                fill_ring(site, kv)
+                site += 1
+            y, (cv, st) = apply_mamba(
+                lp["mamba"], apply_norm(lp["ln"], h, cfg), cfg, return_state=True
+            )
+            h = h + y
+            cache.conv[i].copy_(cv)
+            cache.ssm[i].copy_(st)
         logits = self._unembed(params, h[:, -1:, :])
-        return logits, DecodeCache(index=S, attn=cache.attn)
+        return logits, dataclasses.replace(cache, index=S)
 
     # ------------------------------------------------------------ decode step
     def decode_step(self, params, tokens, cache: DecodeCache) -> Tuple[torch.Tensor, DecodeCache]:
         """One new token per sequence.  tokens: (B, 1) int."""
+        cfg = self.cfg
         idx = cache.index
         h = self._embed(params, tokens)
         positions = torch.full((tokens.shape[0], 1), idx, device=h.device)
+        site = 0
         for i, lp in enumerate(params["layers"]):
-            lc = {"k": cache.attn["k"][i], "v": cache.attn["v"][i]}
-            h, _ = self._dense_block(lp, h, positions, cache=lc, index=idx)
-        return self._unembed(params, h), DecodeCache(index=idx + 1, attn=cache.attn)
+            if cfg.family == "dense" or self._attn_site(i):
+                lc = {"k": cache.attn["k"][site], "v": cache.attn["v"][site]}
+                block = lp if cfg.family == "dense" else params["shared_attn"]
+                h, _ = self._dense_block(block, h, positions, cache=lc, index=idx)
+                site += 1
+            if cfg.family == "dense":
+                continue
+            y, ncv, nst = mamba_decode_step(
+                lp["mamba"], apply_norm(lp["ln"], h, cfg), cfg, cache.conv[i], cache.ssm[i]
+            )
+            h = h + y
+            cache.conv[i].copy_(ncv)
+            cache.ssm[i].copy_(nst)
+        return self._unembed(params, h), dataclasses.replace(cache, index=idx + 1)

@@ -1,0 +1,166 @@
+"""Mamba-2 (SSD — state-space duality, arXiv:2405.21060) layer.
+
+The port's counterpart of ``repro/models/ssm.py``: the chunked SSD form for
+teacher forcing and prefill, routed through ``kernels.ops.ssd`` (the Hopper
+kernel on CUDA tensors, its plain version on CPU tensors), and the O(1)
+recurrent update for decode.  Where the reference's prefill
+(``return_state=True``) leaves its Pallas kernel for the plain
+``ssd_reference``, the port's kernel writes out the final state, so
+prefill runs on the kernel too.
+
+Block layout (mamba2-130m / zamba2 style):
+  in_proj : d -> [z (d_inner), x (d_inner), B (G*N), C (G*N), dt (H)]
+  conv1d  : depthwise causal width-w over the (x | B | C) channels
+  SSD     : y = SSD(x, dt, A, B, C) + D * x
+  gate    : y = RMSNormGated(y * silu(z))
+  out_proj: d_inner -> d
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels import ops as kops
+from ..kernels.ssd_scan import ssd_reference
+from .layers import ParamDecl
+
+__all__ = [
+    "mamba_decl",
+    "apply_mamba",
+    "mamba_decode_step",
+    "init_ssm_state",
+    "ssd_reference",
+]
+
+
+def _dims(cfg: ModelConfig):
+    di = cfg.d_inner
+    H = cfg.ssm_nheads
+    P = cfg.ssm_headdim
+    G = cfg.ssm_ngroups
+    N = cfg.ssm_state
+    return di, H, P, G, N
+
+
+def mamba_decl(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    di, H, P, G, N = _dims(cfg)
+    conv_ch = di + 2 * G * N
+    return {
+        "in_proj": ParamDecl((d, 2 * di + 2 * G * N + H)),
+        "conv_w": ParamDecl((cfg.ssm_conv, conv_ch), "normal", 0.2),
+        "conv_b": ParamDecl((conv_ch,), "zeros"),
+        "A_log": ParamDecl((H,), "a_log"),
+        "dt_bias": ParamDecl((H,), "dt_bias"),
+        "D": ParamDecl((H,), "ones"),
+        "norm_scale": ParamDecl((di,), "ones"),
+        "out_proj": ParamDecl((di, d)),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Layer forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _split_proj(z_all, cfg: ModelConfig):
+    di, H, P, G, N = _dims(cfg)
+    return torch.split(z_all, [di, di + 2 * G * N, H], dim=-1)
+
+
+def _causal_conv(xBC, w, b, conv_state=None):
+    """Depthwise causal conv1d.  xBC: (B, S, Ch); w: (W, Ch).
+    If conv_state (B, W-1, Ch) is given, it is prepended (decode/streaming).
+    The taps are summed in the reference's order, starting from Python's 0,
+    since that order decides the bf16 rounding."""
+    W = w.shape[0]
+    if conv_state is None:
+        pad = torch.zeros((xBC.shape[0], W - 1, xBC.shape[2]), dtype=xBC.dtype, device=xBC.device)
+    else:
+        pad = conv_state
+    xp = torch.cat([pad, xBC], dim=1)                        # (B, S+W-1, Ch)
+    out = sum(xp[:, i : i + xBC.shape[1], :] * w[i] for i in range(W))
+    new_state = xp[:, -(W - 1) :, :] if W > 1 else None
+    return out + b, new_state
+
+
+def _gated_rmsnorm(y, z, scale, eps):
+    y = y * F.silu(z)
+    y32 = y.float()
+    var = y32.square().mean(-1, keepdim=True)
+    return (y32 * torch.rsqrt(var + eps) * scale).to(y.dtype)
+
+
+def _softplus(x):
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): no linear cut-over."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def apply_mamba(p, x, cfg: ModelConfig, conv_state=None, return_state=False):
+    """Full-sequence forward from a zero SSM state.  x: (B, S, D) -> y  or
+    (y, (conv_state, ssm_state)) when ``return_state`` (used by prefill to
+    seed the decode cache; the SSM state is f32)."""
+    B, S, D = x.shape
+    di, H, P, G, N = _dims(cfg)
+    zall = x @ p["in_proj"]
+    z, xBC, dt = _split_proj(zall, cfg)
+    xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
+    xBC = F.silu(xBC)
+    xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
+    xs = xs.unflatten(-1, (H, P))
+    Bm = Bm.unflatten(-1, (G, N))
+    Cm = Cm.unflatten(-1, (G, N))
+    dt = _softplus(dt + p["dt_bias"])                         # (B, S, H)
+    A = -torch.exp(p["A_log"].float())
+
+    res = kops.ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssd_chunk, return_final_state=return_state)
+    y, final_state = res if return_state else (res, None)
+    y = y + p["D"][None, None, :, None] * xs
+    y = y.reshape(B, S, di)
+    y = _gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, (new_conv, final_state)
+    return out
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None):
+    di, H, P, G, N = _dims(cfg)
+    conv_ch = di + 2 * G * N
+    return (
+        torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype, device=device),
+        torch.zeros((batch, H, N, P), dtype=dtype, device=device),
+    )
+
+
+def mamba_decode_step(p, x, cfg: ModelConfig, conv_state, ssm_state):
+    """Single-token recurrent update.  x: (B, 1, D).
+    conv_state: (B, W-1, Ch); ssm_state: (B, H, N, P).  The state is updated
+    in f32 and returned in ``ssm_state``'s dtype."""
+    B = x.shape[0]
+    di, H, P, G, N = _dims(cfg)
+    zall = x @ p["in_proj"]
+    z, xBC, dt = _split_proj(zall, cfg)
+    xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
+    xBC = F.silu(xBC)
+    xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
+    xs = xs.reshape(B, H, P)
+    Bm = Bm.reshape(B, G, N)
+    Cm = Cm.reshape(B, G, N)
+    rep = H // G
+    Bh = Bm.repeat_interleave(rep, dim=1)                     # (B, H, N)
+    Ch = Cm.repeat_interleave(rep, dim=1)
+    dt1 = _softplus(dt[:, 0] + p["dt_bias"])                  # (B, H)
+    A = -torch.exp(p["A_log"].float())
+
+    decay = torch.exp(dt1 * A)[..., None, None]               # (B, H, 1, 1)
+    upd = (dt1[..., None, None] * Bh.float()[..., :, None]) * xs.float()[..., None, :]
+    new_state = ssm_state.float() * decay + upd               # (B, H, N, P) f32
+    y = torch.einsum("bhn,bhnp->bhp", Ch.float(), new_state)
+    y = y.to(x.dtype) + p["D"][None, :, None].to(x.dtype) * xs
+    y = y.reshape(B, 1, di)
+    y = _gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps)
+    out = (y @ p["out_proj"]).to(x.dtype)
+    return out, new_conv, new_state.to(ssm_state.dtype)

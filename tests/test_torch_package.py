@@ -167,15 +167,15 @@ def test_attention_wrappers_refuse_other_devices():
 
 
 def test_attention_backend_precedence(monkeypatch):
-    monkeypatch.delenv(PO.ENV_ATTN_BACKEND, raising=False)
-    assert PO.resolve_backend(None, torch.device("cuda"), var=PO.ENV_ATTN_BACKEND) == "cuda"
-    monkeypatch.setenv(PO.ENV_ATTN_BACKEND, "torch")
-    assert PO.resolve_backend(None, torch.device("cuda"), var=PO.ENV_ATTN_BACKEND) == "torch"
-    assert PO.resolve_backend("cuda", torch.device("cuda"), var=PO.ENV_ATTN_BACKEND) == "cuda"
+    monkeypatch.delenv(PO.ENV_MODEL_BACKEND, raising=False)
+    assert PO.resolve_backend(None, torch.device("cuda"), var=PO.ENV_MODEL_BACKEND) == "cuda"
+    monkeypatch.setenv(PO.ENV_MODEL_BACKEND, "torch")
+    assert PO.resolve_backend(None, torch.device("cuda"), var=PO.ENV_MODEL_BACKEND) == "torch"
+    assert PO.resolve_backend("cuda", torch.device("cuda"), var=PO.ENV_MODEL_BACKEND) == "cuda"
     assert PO.resolve_backend(None, torch.device("cuda")) == "cuda"  # GUS's own variable
-    monkeypatch.setenv(PO.ENV_ATTN_BACKEND, "triton")
-    with pytest.raises(ValueError, match="REPRO_TORCH_ATTN_BACKEND"):
-        PO.resolve_backend(None, torch.device("cpu"), var=PO.ENV_ATTN_BACKEND)
+    monkeypatch.setenv(PO.ENV_MODEL_BACKEND, "triton")
+    with pytest.raises(ValueError, match="REPRO_TORCH_MODEL_BACKEND"):
+        PO.resolve_backend(None, torch.device("cpu"), var=PO.ENV_MODEL_BACKEND)
 
 
 def test_cpu_wrapper_takes_the_plain_version_without_counting():

@@ -2,8 +2,9 @@
 
 * ``make_batch`` gives the reference's tokens for the same seed.
 * ``ServingEngine.generate`` gives the reference's greedy tokens on carried
-  weights (``reduce_for_smoke(yi-9b)`` with GQA rep 2, and ``squeeze-lm``),
-  and its next-token accuracy equals the reference's.
+  weights (``reduce_for_smoke(yi-9b)`` with GQA rep 2, ``squeeze-lm``, and
+  the reduced ``mamba2-130m`` and ``zamba2-1.2b``), and its next-token
+  accuracy equals the reference's.
 * Greedy generation equals argmax decoding by full re-forward, and the
   sliding-window ring cache wraps (the analogs of ``tests/test_serving.py``).
 * ``serve(..., device="cpu")`` runs end to end.
@@ -48,10 +49,14 @@ def _configs(arch):
     if arch == "yi-9b":
         ref = dataclasses.replace(JC.reduce_for_smoke(ref), num_kv_heads=2)
         port = dataclasses.replace(TC.reduce_for_smoke(port), num_kv_heads=2)
+    elif ref.family in ("ssm", "hybrid"):
+        # 4 layers: the hybrid's shared block fires at layers 0 and 2
+        ref = dataclasses.replace(JC.reduce_for_smoke(ref), num_layers=4)
+        port = dataclasses.replace(TC.reduce_for_smoke(port), num_layers=4)
     return ref, port
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "squeeze-lm"])
+@pytest.mark.parametrize("arch", ["yi-9b", "squeeze-lm", "mamba2-130m", "zamba2-1.2b"])
 def test_generate_equals_reference_on_carried_weights(arch):
     ref, port = _configs(arch)
     jm = JModel(ref)
@@ -111,3 +116,10 @@ def test_serve_runs_on_the_cpu(capsys):
     res = serve("mid-lm", batch=2, prompt=9, gen=3, seed=1, device="cpu")
     assert res.tokens.shape == (2, 3) and (res.tokens >= 0).all() and (res.tokens < 512).all()
     assert "mid-lm: batch=2 prompt=9 gen=3" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_serve_runs_the_ssm_families_on_the_cpu(arch, capsys):
+    res = serve(arch, batch=2, prompt=37, gen=3, seed=2, device="cpu")
+    assert res.tokens.shape == (2, 3) and (res.tokens >= 0).all() and (res.tokens < 512).all()
+    assert f"{arch}: batch=2 prompt=37 gen=3" in capsys.readouterr().out
