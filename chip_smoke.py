@@ -8,9 +8,12 @@ Run from the repository root on a machine with a CUDA device and ``nvcc``:
 It drives the port (``src/repro_torch``) end to end and exits non-zero if
 any phase fails:
 
-1. builds every kernel of the main paths (five sources) from
+1. builds every kernel of the main paths (six sources: flash attention
+   has a tensor-core route and a CUDA-core route) from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
-   all started together) and prints the card's name and power limit;
+   all started together), prints the card's name and power limit, and
+   whether the tensor-core flash library's SASS holds ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA loads), by ``cuobjdump -sass`` where the toolkit has it;
 2. holds each kernel against its plain PyTorch version on the card — the
    GUS kernel's integer assignments must be equal (0 mismatches) on the
    golden frames, the paper's 20 000-instance numerical batch (plain and
@@ -35,16 +38,19 @@ any phase fails:
    per edge, ~1.4e5 users per frame), 8 replications, ``window=1``,
    ``prefetch=2`` — the hierarchical main path, whose launches are counted;
 5. holds the attention kernels against their plain versions on the card
-   (ragged lengths, GQA rep 1/4/8, window None and 8, head_dim 64 and 128,
-   f32 and bf16, decode masks partly and wholly invalid, and both kernels'
-   serving-path launch shapes), then a small dense model (f32, GQA rep 4,
-   a 16-token window whose ring wraps) on the card against the same
-   weights on the CPU: prefill logits and 8 greedy tokens;
+   (ragged lengths, GQA rep 1/4/8, window None and 8, head_dim 64, 128 and
+   160, f32 and bf16: both flash routes; decode in one span and in several,
+   masks partly and wholly invalid, a span with no valid position, and
+   both kernels' serving-path launch shapes), then a small dense model
+   (f32, GQA rep 4, a 16-token window whose ring wraps: the CUDA-core flash
+   route) on the card against the same weights on the CPU: prefill logits
+   and 8 greedy tokens;
 6. serves yi-9b at full width and depth (48 layers, bf16, seeded random
    weights on the card): ``ServingEngine.generate`` on batch 8 x a
    1024-token prompt from ``make_batch(seed=0)``, 32 greedy tokens — the
-   serving main path, whose 48 ``flash_attention`` and 31 x 48
-   ``decode_attention`` launches are counted; greedy decoding is checked
+   serving main path, whose 48 ``flash_attention`` launches (all on the
+   tensor-core route) and 31 x 48 ``decode_attention`` launches are
+   counted; greedy decoding is checked
    against argmax decoding by one full re-forward (in f32, at full width
    and 8 layers); ``torch.profiler`` splits one prefill's and four decode
    steps' device time by kernel kind and gives the device's busy share;
@@ -59,8 +65,9 @@ any phase fails:
    mamba2-130m (24 layers) at full width and depth (bf16, seeded random
    weights) on batch 8 x a 2048-token prompt from ``make_batch(seed=0)``,
    32 greedy tokens — the SSM slice's main paths, each counted on its own:
-   38 ``ssd_scan``, 7 ``flash_attention`` and 7 x 31 ``decode_attention``
-   launches for zamba2, 24 ``ssd_scan`` for mamba2; ``torch.profiler``
+   38 ``ssd_scan``, 7 ``flash_attention`` (tensor-core route) and 7 x 31
+   ``decode_attention`` launches for zamba2, 24 ``ssd_scan`` for mamba2;
+   ``torch.profiler``
    splits zamba2's prefill and decode device time by kernel kind; then one
    teacher-forcing ``forward`` of mamba2-130m at 8 x 2048 (24 counted
    launches, no state output);
@@ -73,7 +80,9 @@ any phase fails:
    rate, or operations over its rate) and, for attention, one
    ``scaled_dot_product_attention`` call as a library yardstick (never
    called by the port); the attention kernels also at zamba2-1.2b's
-   launch shapes;
+   launch shapes, and each attention kernel and its yardstick a second
+   time as device time: one replay of a captured CUDA graph of many
+   launches, which leaves out the Python wrapper's host time;
 11. prints one JSON line listing every ported kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -185,6 +194,30 @@ def time_events(fn, reps, warmup=2):
     return e0.elapsed_time(e1) / reps
 
 
+def time_graph(fn, reps):
+    """Mean ms of ``fn()`` as device time: ``reps`` calls captured in one
+    CUDA graph (after a warm-up call on a side stream) and replayed once,
+    timed by CUDA events, so the host's time per call drops out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 def bound(nbytes, ops, dtype):
     """(ms, "bytes" or "operations"): the larger of ``nbytes`` over the
     memory rate and ``ops`` over the rate of ``dtype``'s operations."""
@@ -193,11 +226,11 @@ def bound(nbytes, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def library_ms(fn, reps):
+def library_ms(fn, reps, timer=time_events):
     """One PyTorch call for the same function, timed as a yardstick only."""
     try:
-        return time_events(fn, reps)
-    except RuntimeError as exc:  # a backend that refuses these inputs
+        return timer(fn, reps)
+    except RuntimeError as exc:  # a backend that refuses these inputs (or a capture)
         print(f"library yardstick unavailable: {exc}")
         return None
 
@@ -270,8 +303,10 @@ class AttentionLaunch:
 
     def time(self, where):
         """Each kernel, its plain version and ``scaled_dot_product_attention``
-        timed by CUDA events next to the bound: ``{name: {"ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms"}}``."""
+        timed by CUDA events next to the bound, and the kernel and the
+        yardstick again as device time (``time_graph``): ``{name: {"ms",
+        "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "library_graph_ms"}}``."""
         import torch
 
         from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
@@ -283,32 +318,48 @@ class AttentionLaunch:
         (fb_ms, fb_by), (db_ms, db_by) = attention_bounds(
             self.B, self.H, self.KV, self.S, self.T, n_valid, self.hd, self.dtype)
         mask = valid[:, None, None, :]
+
+        def flash():
+            flash_attention(q, k, v, backend="cuda")
+
+        def flash_lib():
+            sdpa(q, k, v, is_causal=True, enable_gqa=True)
+
+        def decode():
+            decode_attention(dq, *self.next_cache(), valid, backend="cuda")
+
+        def decode_lib():
+            sdpa(dq.flatten(1, 2)[:, :, None], *self.next_cache(), attn_mask=mask,
+                 enable_gqa=True)
+
         out = {
             "flash_attention": {
-                "ms": time_events(lambda: flash_attention(q, k, v, backend="cuda"), 10),
+                "ms": time_events(flash, 10),
+                "graph_ms": time_graph(flash, 10),
                 "plain_ms": time_events(lambda: flash_attention_ref(q, k, v), 3, warmup=1),
                 "bound_ms": fb_ms, "bound_by": fb_by,
-                "library_ms": library_ms(
-                    lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10),
+                "library_ms": library_ms(flash_lib, 10),
+                "library_graph_ms": library_ms(flash_lib, 10, time_graph),
             },
             "decode_attention": {
-                "ms": time_events(
-                    lambda: decode_attention(dq, *self.next_cache(), valid, backend="cuda"), 60),
+                "ms": time_events(decode, 60),
+                "graph_ms": time_graph(decode, 60),
                 "plain_ms": time_events(
                     lambda: decode_attention_ref(dq, *self.next_cache(), valid), 12),
                 "bound_ms": db_ms, "bound_by": db_by,
-                "library_ms": library_ms(
-                    lambda: sdpa(dq.flatten(1, 2)[:, :, None], *self.next_cache(),
-                                 attn_mask=mask, enable_gqa=True), 60),
+                "library_ms": library_ms(decode_lib, 60),
+                "library_graph_ms": library_ms(decode_lib, 60, time_graph),
             },
         }
         for name, t in out.items():
             extra = f" valid={n_valid}" if name == "decode_attention" else " causal"
             print(
                 f"time {name} {where} launch {self.label(name)}{extra} {self.dtype}: kernel "
-                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-                f"({t['bound_by']}), kernel/bound {t['ms'] / t['bound_ms']:.2f}x, library "
-                f"scaled_dot_product_attention {t['library_ms']} ms"
+                f"{t['ms']:.4f} ms eager, {t['graph_ms']:.4f} ms device (graph replay), plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                f"device/bound {t['graph_ms'] / t['bound_ms']:.2f}x, library "
+                f"scaled_dot_product_attention {t['library_ms']} ms eager, "
+                f"{t['library_graph_ms']} ms device"
             )
         return out
 
@@ -335,8 +386,16 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
     import torch
 
     from repro_torch.configs import reduce_for_smoke
-    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_ref,
+        decode_splits,
+    )
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+        flash_route,
+    )
     from repro_torch.kernels.gus import gus_assign
     from repro_torch.kernels.hier import hier_cells
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -356,27 +415,40 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
             (1, 8, 2, 200, 128, 8),       # rep 4, window 8
             (2, 16, 2, 77, 128, None),    # rep 8, ragged
             (1, 8, 1, 130, 64, 8),        # rep 8, window 8, ragged
+            (1, 8, 1, 300, 128, 100),     # rep 8, a window that starts mid-tile
+            (1, 4, 2, 40, 160, 16),       # hd 160: the CUDA-core route in bf16 too
         ):
             q = randn(dev, (B, S, H, hd), dtype, 1).transpose(1, 2)  # model-layout views
             k = randn(dev, (B, S, KV, hd), dtype, 2).transpose(1, 2)
             v = randn(dev, (B, S, KV, hd), dtype, 3).transpose(1, 2)
+            route = flash_route(q.dtype, hd)
+            before = flash_attention.route_launches[route]
             compare_attn(
-                attn_err, "flash_attention", f"B={B} H={H} KV={KV} S={S} hd={hd} window={win}",
+                attn_err, "flash_attention",
+                f"B={B} H={H} KV={KV} S={S} hd={hd} window={win} route={route}",
                 flash_attention(q, k, v, causal=True, window=win, backend="cuda"),
                 flash_attention_ref(q, k, v, causal=True, window=win), dtype,
             )
-        for B, KV, rep, T, hd in ((2, 4, 1, 100, 64), (3, 2, 4, 257, 128), (2, 4, 8, 333, 128)):
+            check(flash_attention.route_launches[route] == before + 1,
+                  f"flash_attention did not launch its {route} route")
+        for B, KV, rep, T, hd in ((2, 4, 1, 100, 64), (3, 2, 4, 257, 128), (2, 4, 8, 333, 128),
+                                  (2, 4, 8, 1056, 128), (9, 32, 1, 300, 64)):
             q = randn(dev, (B, KV, rep, hd), dtype, 4)
             k = randn(dev, (B, T, KV, hd), dtype, 5).transpose(1, 2)  # cache-layout views
             v = randn(dev, (B, T, KV, hd), dtype, 6).transpose(1, 2)
             g = torch.Generator(device=dev).manual_seed(7)
             valid = torch.rand((B, T), generator=g, device=dev) < 0.6
             valid[0] = False  # no valid position at all: zeros
+            n_split, span = decode_splits(B, KV, T)
+            if n_split > 1:
+                valid[1, :span] = False  # a span with no valid position drops out
             got = decode_attention(q, k, v, valid, backend="cuda")
+            again = decode_attention(q, k, v, valid, backend="cuda")
             compare_attn(attn_err, "decode_attention",
-                         f"B={B} KV={KV} rep={rep} T={T} hd={hd}", got,
+                         f"B={B} KV={KV} rep={rep} T={T} hd={hd} spans={n_split}x{span}", got,
                          decode_attention_ref(q, k, v, valid), dtype)
             check(bool((got[0] == 0).all()), "an all-invalid decode row must be zeros")
+            check(torch.equal(got, again), "split decode must not change from run to run")
 
     # both kernels at the serving main path's launch shapes and dtype
     launch = AttentionLaunch(dev, cfg_serve, batch, prompt, gen, 8)
@@ -424,6 +496,7 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
     torch.cuda.synchronize()
     res = engine.generate(prompt_batch, max_new_tokens=gen)
     n_flash, n_decode = flash_attention.launches, decode_attention.launches
+    routes = dict(flash_attention.route_launches)
     check(gus_assign.launches == hier_cells.launches == ssd_scan.launches == 0,
           "the serving main path launched a scheduler or SSD kernel")
     peak = torch.cuda.max_memory_allocated() - base
@@ -441,10 +514,14 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
         f"init_s {init_s:.3f} params {param_bytes / 1e9:.3f} GB ({cfg_serve.n_params()} "
         f"params) kv_cache {cache_bytes / 1e9:.3f} GB peak memory of the path {peak / 1e9:.3f} GB "
         f"(max_memory_allocated less {base / 1e9:.3f} GB held by earlier phases) "
-        f"flash_attention launches={n_flash} decode_attention launches={n_decode}"
+        f"flash_attention launches={n_flash} (by route {json.dumps(routes)}) "
+        f"decode_attention launches={n_decode} "
+        f"(spans {decode_splits(batch, cfg_serve.num_kv_heads, W)})"
     )
     check(n_flash == cfg_serve.num_layers,
           f"prefill must launch flash_attention once per layer, got {n_flash}")
+    check(routes == {"wgmma": n_flash, "simt": 0},
+          f"prefill must run the tensor-core flash route, got {routes}")
     check(n_decode == (gen - 1) * cfg_serve.num_layers,
           f"decode must launch decode_attention once per layer and step, got {n_decode}")
     toks = res.tokens
@@ -510,15 +587,17 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
     del params32
 
     timed = launch.time("main-path")
-    flash_ms, decode_ms = timed["flash_attention"]["ms"], timed["decode_attention"]["ms"]
+    flash_ms = timed["flash_attention"]["graph_ms"]
+    decode_ms = timed["decode_attention"]["graph_ms"]
     print(
         f"serve main path attention share: flash {n_flash} x {flash_ms:.4f} ms of "
         f"{res.prefill_ms:.3f} ms prefill, decode {n_decode} x {decode_ms:.4f} ms of "
-        f"{res.decode_ms_per_token * (gen - 1):.3f} ms decode (kernel times at the launch "
+        f"{res.decode_ms_per_token * (gen - 1):.3f} ms decode (device times at the launch "
         "shape, out of L2)"
     )
 
-    timed["flash_attention"].update(launches=n_flash, max_abs_err=attn_err["flash_attention"])
+    timed["flash_attention"].update(launches=n_flash, routes=routes,
+                                    max_abs_err=attn_err["flash_attention"])
     timed["decode_attention"].update(launches=n_decode,
                                      max_abs_err=attn_err["decode_attention"])
     return timed
@@ -534,7 +613,8 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
     one teacher-forcing forward of ``ssm_cfg``), f32 decode against forward
     at full width, the SSD kernel timed at both launch shapes and the
     attention kernels at the hybrid's.  Returns ``ssd_scan``'s entry of the
-    ``kernels`` line without its name, route, source and replaced kernel."""
+    ``kernels`` line without its name, route, source and replaced kernel,
+    and the attention kernels' entries at the hybrid's launch shapes."""
     import numpy as np
     import torch
 
@@ -643,6 +723,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
     #       depth, then the ssm model's teacher-forcing forward --------------
     def counts():
         return {"ssd_scan": ssd_scan.launches, "flash_attention": flash_attention.launches,
+                "flash_routes": dict(flash_attention.route_launches),
                 "decode_attention": decode_attention.launches,
                 "scheduler": gus_assign.launches + hier_cells.launches}
 
@@ -687,6 +768,8 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         check(n["flash_attention"] == sites,
               f"prefill must launch flash_attention once per attention site, got "
               f"{n['flash_attention']}")
+        check(n["flash_routes"] == {"wgmma": sites, "simt": 0},
+              f"prefill must run the tensor-core flash route, got {n['flash_routes']}")
         check(n["decode_attention"] == (gen - 1) * sites,
               f"decode must launch decode_attention once per site and step, got "
               f"{n['decode_attention']}")
@@ -791,15 +874,21 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
               f"single PyTorch call computes SSD); x {cfg.num_layers} launches per prefill = "
               f"{ms * cfg.num_layers:.3f} ms")
 
-    hybrid_launch.time(hybrid_cfg.arch_id)
+    attn_timed = hybrid_launch.time(hybrid_cfg.arch_id)
     print(f"{hybrid_cfg.arch_id} attention max_abs_err: flash {attn_err['flash_attention']} "
           f"decode {attn_err['decode_attention']}")
+    n = served[hybrid_cfg.arch_id]
+    attn_timed["flash_attention"].update(launches=n["flash_attention"],
+                                         routes=n["flash_routes"],
+                                         max_abs_err=attn_err["flash_attention"])
+    attn_timed["decode_attention"].update(launches=n["decode_attention"],
+                                          max_abs_err=attn_err["decode_attention"])
 
     ms, plain, b_ms, b_by = timing[hybrid_cfg.arch_id]
     return {
-        "launches": served[hybrid_cfg.arch_id]["ssd_scan"], "max_abs_err": errs["ssd_scan"],
+        "launches": n["ssd_scan"], "max_abs_err": errs["ssd_scan"],
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }
+    }, attn_timed
 
 
 def profile_serving(model, params, prompt_batch, steps=4):
@@ -815,7 +904,7 @@ def profile_serving(model, params, prompt_batch, steps=4):
     B, S = prompt_batch["tokens"].shape
     cache = model.init_cache(B, S + steps + 1, device=prompt_batch["tokens"].device)
     step = make_serve_step(model)
-    kinds = (("flash_attention", "flash_attention_kernel"),
+    kinds = (("flash_attention", "flash_attention"),  # both routes' kernels
              ("decode_attention", "decode_attention_kernel"),
              ("ssd_scan", "ssd_scan_kernel"),
              ("matrix products (cuBLAS)", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
@@ -861,6 +950,25 @@ def profile_serving(model, params, prompt_batch, steps=4):
               f"device busy {busy / 1e3:.3f} ms ({busy / wall_us:.1%} of wall): {parts}")
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
             print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
+
+
+def sass_check(lib):
+    """Print whether the library's SASS holds wgmma (``HGMMA``) and TMA
+    (``UTMALDG``, ``UTMASTG``) instructions; fail if it has no ``HGMMA``.
+    Skipped, with a line that says so, where the toolkit has no cuobjdump."""
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or (
+        str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME else None)
+    if not tool or not Path(tool).exists():
+        print(f"sass {lib.name}: cuobjdump not found, not checked")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
+    found = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    print(f"sass {lib.name}: instruction counts {json.dumps(found)}")
+    check(found["HGMMA"] > 0, "the tensor-core flash library holds no HGMMA instruction")
 
 
 def main() -> int:
@@ -910,11 +1018,12 @@ def main() -> int:
     def zero_counts():
         gus_assign.launches = hier_cells.launches = 0
         flash_attention.launches = decode_attention.launches = ssd_scan.launches = 0
+        flash_attention.route_launches = dict.fromkeys(flash_attention.route_launches, 0)
     t_start = time.perf_counter()
 
     # -- 1. build ------------------------------------------------------------
-    builds = build_libraries(
-        ["gus_assign", "hier_cells", "flash_attention", "decode_attention", "ssd_scan"])
+    builds = build_libraries(["gus_assign", "hier_cells", "flash_attention",
+                              "flash_attention_wgmma", "decode_attention", "ssd_scan"])
     for info in builds.values():
         print(f"build {info.name}: nvcc {info.seconds:.3f} s -> {info.path.name}")
         for line in info.log.splitlines():
@@ -926,6 +1035,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    sass_check(builds["flash_attention_wgmma"].path)
 
     # -- 2. kernel vs plain version on the card -----------------------------
     max_err = 0.0
@@ -1313,7 +1423,10 @@ def main() -> int:
 
     # -- 7.-10. the SSD kernel, the ssm and hybrid models, their main paths,
     #          SSD timing ---------------------------------------------------
-    ssd = ssm_smoke(dev, zero_counts, get_config(SSM_HYBRID_ARCH), get_config(SSM_ARCH))
+    ssd, hybrid_attn = ssm_smoke(dev, zero_counts, get_config(SSM_HYBRID_ARCH),
+                                 get_config(SSM_ARCH))
+    for name in ("flash_attention", "decode_attention"):
+        attn[name][SSM_HYBRID_ARCH] = hybrid_attn[name]  # the same kernel on the hybrid's path
 
     # -- 10. kernel timing (the scheduler kernels) ---------------------------
     def time_kernel(args, reps):
@@ -1429,7 +1542,8 @@ def main() -> int:
     }, {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        # the main path's route; f32 and other head dims take flash_attention.cu
+        "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:118",
         **attn["flash_attention"],
     }, {

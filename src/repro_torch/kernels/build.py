@@ -49,6 +49,7 @@ ATTN_NVCC_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 #: each source's flags; a source not listed takes ``NVCC_FLAGS``
 _SOURCE_FLAGS = {
     "flash_attention": ATTN_NVCC_FLAGS,
+    "flash_attention_wgmma": ATTN_NVCC_FLAGS,
     "decode_attention": ATTN_NVCC_FLAGS,
     "ssd_scan": ATTN_NVCC_FLAGS,
 }

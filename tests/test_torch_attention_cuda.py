@@ -6,11 +6,19 @@ with that reason (a CUDA kernel has no CPU mode).  On a GPU machine run:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_attention_cuda.py
 
+Flash attention has two routes (``flash_route``): bf16 at head_dim 64 or
+128 runs the tensor-core kernel (``flash_attention_wgmma.cu``), f32 and
+other head dims the CUDA-core kernel (``flash_attention.cu``); the cases
+below cover both, and ``flash_attention.route_launches`` shows which ran.
+Decode is split-K: the cases cover one span and several.
+
 Tolerances are those of ``tests/test_kernels.py``: f32 ``rtol=2e-4,
 atol=2e-5`` (with TF32 off, so the plain version's f32 products are full
-f32); bf16 ``rtol=atol=2e-2``.  The small model on the card is held to the
-same model on the CPU at the model tests' ``rtol=atol=1e-3``, its greedy
-tokens exactly.
+f32); bf16 ``rtol=atol=2e-2``, which covers the output's bf16 rounding and,
+on the tensor-core route, P rounded to bf16 before P.V (the rounding of the
+reference's ``ref.py`` oracle; the plain version keeps P in f32).  The small
+model on the card is held to the same model on the CPU at the model tests'
+``rtol=atol=1e-3``, its greedy tokens exactly.
 """
 from __future__ import annotations
 
@@ -26,8 +34,13 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention,
     decode_attention_ref,
+    decode_splits,
 )
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_ref,
+    flash_route,
+)
 from repro_torch.models import Model, params_to  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.training import make_batch  # noqa: E402
@@ -63,16 +76,22 @@ def _randn(shape, dtype, dev, seed):
         (1, 8, 1, 130, 64, 8),       # rep 8, window, ragged
         (1, 4, 2, 50, 32, None),     # small head dim
         (1, 4, 2, 40, 160, 16),      # stablelm's head dim (two 32-column groups past 128)
+        (1, 8, 1, 300, 128, 100),    # rep 8, a window that starts mid-tile
+        (2, 4, 1, 257, 64, 200),     # rep 4, window 200, ragged against 128 and 192 rows
+        (1, 4, 4, 384, 64, None),    # whole tiles of both routes
     ],
 )
 def test_flash_kernel_equals_plain(cuda, B, H, KV, S, hd, window, dtype):
     q = _randn((B, H, S, hd), dtype, cuda, 1)
     k = _randn((B, KV, S, hd), dtype, cuda, 2)
     v = _randn((B, KV, S, hd), dtype, cuda, 3)
+    route = flash_route(dtype, hd)
+    before = dict(flash_attention.route_launches)
     got = flash_attention(q, k, v, causal=True, window=window, backend="cuda")
     want = flash_attention_ref(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype
+    assert flash_attention.route_launches[route] == before[route] + 1
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
@@ -82,7 +101,9 @@ def test_flash_kernel_equals_plain(cuda, B, H, KV, S, hd, window, dtype):
     [
         (2, 4, 1, 100, 64),     # rep 1, ragged T
         (3, 2, 4, 257, 128),    # rep 4
-        (2, 4, 8, 1056, 128),   # rep 8, the serving path's T
+        (2, 4, 8, 1056, 128),   # rep 8, the serving path's T: 17 spans
+        (8, 4, 8, 1056, 128),   # yi-9b's decode launch: 9 spans
+        (9, 32, 1, 300, 64),    # 288 groups: one span
         (1, 2, 12, 70, 128),    # rep 12 (starcoder2)
         (2, 2, 2, 33, 32),
     ],
@@ -94,19 +115,25 @@ def test_decode_kernel_equals_plain(cuda, B, KV, rep, T, hd, dtype):
     g = torch.Generator(device=cuda).manual_seed(7)
     valid = torch.rand((B, T), generator=g, device=cuda) < 0.7
     valid[0] = False  # a sequence with no valid position: zeros
+    n_split, span = decode_splits(B, KV, T)
+    if n_split > 1 and B > 1:
+        valid[1, :span] = False  # a span with no valid position drops out
     got = decode_attention(q, k, v, valid, backend="cuda")
+    again = decode_attention(q, k, v, valid, backend="cuda")
     want = decode_attention_ref(q, k, v, valid)
     torch.cuda.synchronize()
     assert bool((got[0] == 0).all())
+    assert torch.equal(got, again)  # the spans combine in a fixed order
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
+@pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_model_layout_views_are_read_in_place(cuda, dtype):
+def test_model_layout_views_are_read_in_place(cuda, dtype, hd):
     """The adapters hand the kernels transposed views and one layer's slice
-    of an (L, B, W, KV, hd) cache; the results equal the plain versions on
-    contiguous copies."""
-    B, S, H, KV, hd, L = 2, 90, 8, 2, 64, 3
+    of an (L, B, W, KV, hd) cache, and write the output through a view; the
+    results equal the plain versions on contiguous copies."""
+    B, S, H, KV, L = 2, 90, 8, 2, 3
     q = _randn((B, S, H, hd), dtype, cuda, 8)
     k = _randn((B, S, KV, hd), dtype, cuda, 9)
     got = ops.flash_attention(q, k, k, causal=True, window=None, backend="cuda")
@@ -141,6 +168,25 @@ def test_launch_counters_and_input_checks(cuda):
     with pytest.raises(ValueError, match="valid"):
         decode_attention(q[:, :, 0].unflatten(1, (2, 2)), k, k, valid[:, :5], backend="cuda")
     assert (flash_attention.launches, decode_attention.launches) == (nf + 1, nd + 1)
+
+
+def test_tensor_core_route_refuses_what_tma_cannot_read(cuda):
+    """The tensor-core route describes its tensors to TMA: a stride that is
+    not a multiple of 16 bytes, or a base off a 16-byte boundary, raises
+    (no copy, no other route) and counts no launch."""
+    B, H, S, hd = 1, 4, 64, 128
+    wide = _randn((B, H, S, hd + 4), torch.bfloat16, cuda, 13)[..., :hd]
+    flat = _randn((B * H * S * hd + 8,), torch.bfloat16, cuda, 14)
+    shifted = flat[1:1 + B * H * S * hd].view(B, H, S, hd)
+    ok = _randn((B, H, S, hd), torch.bfloat16, cuda, 15)
+    counts = (flash_attention.launches, dict(flash_attention.route_launches))
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash_attention(wide, ok, ok, backend="cuda")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention(ok, shifted, ok, backend="cuda")
+    assert (flash_attention.launches, dict(flash_attention.route_launches)) == counts
+    flash_attention(ok, ok, ok, backend="cuda")
+    assert flash_attention.route_launches["wgmma"] == counts[1]["wgmma"] + 1
 
 
 def test_small_model_on_the_card_equals_the_cpu(cuda):
