@@ -8,12 +8,13 @@ Run from the repository root on a machine with a CUDA device and ``nvcc``:
 It drives the port (``src/repro_torch``) end to end and exits non-zero if
 any phase fails:
 
-1. builds every kernel of the main paths (six sources: flash attention
-   has a tensor-core route and a CUDA-core route) from
-   ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
-   all started together), prints the card's name and power limit, and
-   whether the tensor-core flash library's SASS holds ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA loads), by ``cuobjdump -sass`` where the toolkit has it;
+1. builds every kernel of the main paths (seven sources: flash attention
+   and the SSD scan each have a tensor-core route and a CUDA-core route)
+   from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
+   source, all started together), prints the card's name and power limit,
+   and whether the tensor-core flash and SSD libraries' SASS hold
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), by ``cuobjdump -sass``
+   where the toolkit has it;
 2. holds each kernel against its plain PyTorch version on the card — the
    GUS kernel's integer assignments must be equal (0 mismatches) on the
    golden frames, the paper's 20 000-instance numerical batch (plain and
@@ -54,10 +55,11 @@ any phase fails:
    against argmax decoding by one full re-forward (in f32, at full width
    and 8 layers); ``torch.profiler`` splits one prefill's and four decode
    steps' device time by kernel kind and gives the device's busy share;
-7. holds the SSD kernel against its plain version on the card (S a
+7. holds both SSD routes against the plain version on the card (S a
    multiple of the chunk and ragged, G = 1, 2 and 3, N = 16, 64 and 128,
    f32 and bf16, with and without the final state, and both SSM main
-   paths' launch shapes), flash and decode attention at
+   paths' launch shapes; each launch's route counted), flash and decode
+   attention at
    zamba2-1.2b's shapes (H = KV = 32, hd 64), then small f32 ``ssm`` and
    ``hybrid`` models (4 layers, a ragged prompt) on the card against the
    same weights on the CPU: forward and prefill logits, 8 greedy tokens;
@@ -65,24 +67,28 @@ any phase fails:
    mamba2-130m (24 layers) at full width and depth (bf16, seeded random
    weights) on batch 8 x a 2048-token prompt from ``make_batch(seed=0)``,
    32 greedy tokens — the SSM slice's main paths, each counted on its own:
-   38 ``ssd_scan``, 7 ``flash_attention`` (tensor-core route) and 7 x 31
-   ``decode_attention`` launches for zamba2, 24 ``ssd_scan`` for mamba2;
+   38 ``ssd_scan`` (tensor-core route), 7 ``flash_attention``
+   (tensor-core route) and 7 x 31 ``decode_attention`` launches for
+   zamba2, 24 ``ssd_scan`` (tensor-core route) for mamba2;
    ``torch.profiler``
    splits zamba2's prefill and decode device time by kernel kind; then one
    teacher-forcing ``forward`` of mamba2-130m at 8 x 2048 (24 counted
    launches, no state output);
 9. checks prefill + decode against one forward in f32 at full width and
-   depth (a 200-token prompt, 8 decode steps): within 5e-3 for
-   mamba2-130m, and for zamba2-1.2b with its shared attention's q/k/v
-   rescaled to a fan-in of d_model;
+   depth (a 200-token prompt, 8 decode steps; the SSD's CUDA-core route):
+   within 5e-3 for mamba2-130m, and for zamba2-1.2b with its shared
+   attention's q/k/v rescaled to a fan-in of d_model;
 10. times each kernel with CUDA events at its main path's launch shape
    beside its plain version, its bound (bytes over the card's memory
    rate, or operations over its rate) and, for attention, one
    ``scaled_dot_product_attention`` call as a library yardstick (never
    called by the port); the attention kernels also at zamba2-1.2b's
-   launch shapes, and each attention kernel and its yardstick a second
-   time as device time: one replay of a captured CUDA graph of many
-   launches, which leaves out the Python wrapper's host time;
+   launch shapes, and each attention kernel, its yardstick and the SSD
+   kernel a second time as device time: one replay of a captured CUDA
+   graph of many launches, which leaves out the Python wrapper's host
+   time; the SSD's CUDA-core route at the same bf16 shapes beside its
+   tensor-core route; the class allocator's chain floor (the same window
+   with every budget spent, so each class takes the shortest step);
 11. prints one JSON line listing every ported kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -623,14 +629,15 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gus import gus_assign
     from repro_torch.kernels.hier import hier_cells
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    from repro_torch.kernels import ssd_scan as ssd_module
+    from repro_torch.kernels.ssd_scan import ssd_route, ssd_scan, ssd_scan_ref
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model, params_to
     from repro_torch.serving import ServingEngine
     from repro_torch.training import make_batch
 
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    errs = {"ssd_scan": 0.0}
+    errs = dict.fromkeys(ssd_scan.route_launches, 0.0)  # by route
 
     def ssd_inputs(B, H, G, S, P, N, dtype, seed):
         """tests/test_kernels.py's distributions, made on the card."""
@@ -643,6 +650,8 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         return x, dt, A, Bm, Cm
 
     def compare_ssd(label, args, chunk, dtype, final):
+        route = ssd_route(args[0].dtype, args[0].shape[3], args[3].shape[3], chunk)
+        before = ssd_scan.route_launches[route]
         got = ssd_scan(*args, chunk=chunk, return_final_state=final, backend="cuda")
         want = ssd_scan_ref(*args, chunk, return_final_state=final)
         sync(dev)
@@ -657,9 +666,11 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
             msg += (f"; final state max_abs_err={st_err} within rtol={SSD_STATE_RTOL}, "
                     f"atol={st_atol:.3e}: {st_ok}")
             ok = ok and st_ok
-        errs["ssd_scan"] = max(errs["ssd_scan"], err)
-        print(f"compare ssd_scan {label} {dtype}: {msg}")
+        errs[route] = max(errs[route], err)
+        print(f"compare ssd_scan {label} {dtype} route={route}: {msg}")
         check(ok, f"ssd_scan kernel != plain version on {label} {dtype}")
+        check(ssd_scan.route_launches[route] == before + 1,
+              f"ssd_scan did not launch its {route} route")
 
     # -- 7. the SSD kernel vs its plain version; flash and decode at the
     #       hybrid's shapes ---------------------------------------------------
@@ -669,7 +680,9 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
             (2, 4, 4, 256, 64, 128, 128, True),    # whole chunks, N 128
             (2, 4, 1, 2000, 64, 64, 128, True),    # ragged S, G 1, N 64
             (2, 4, 1, 2000, 64, 64, 128, False),   # the same, no state output
-            (1, 8, 2, 300, 64, 128, 64, False),    # G 2, ragged
+            (1, 8, 2, 300, 64, 128, 128, True),    # G 2, ragged, N 128
+            (1, 6, 3, 77, 64, 64, 128, False),     # G 3, S below one chunk
+            (1, 8, 2, 300, 64, 128, 64, False),    # G 2, ragged, chunk 64
             (1, 6, 3, 77, 32, 16, 16, True),       # G 3, small P, N and chunk
         ):
             compare_ssd(f"B={B} H={H} G={G} S={S} P={P} N={N} Q={Q} state={final}",
@@ -722,7 +735,8 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
     # -- 8. the main paths: the hybrid and the ssm model at full width and
     #       depth, then the ssm model's teacher-forcing forward --------------
     def counts():
-        return {"ssd_scan": ssd_scan.launches, "flash_attention": flash_attention.launches,
+        return {"ssd_scan": ssd_scan.launches, "ssd_routes": dict(ssd_scan.route_launches),
+                "flash_attention": flash_attention.launches,
                 "flash_routes": dict(flash_attention.route_launches),
                 "decode_attention": decode_attention.launches,
                 "scheduler": gus_assign.launches + hier_cells.launches}
@@ -765,6 +779,8 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         )
         check(n["ssd_scan"] == cfg.num_layers,
               f"prefill must launch ssd_scan once per mamba layer, got {n['ssd_scan']}")
+        check(n["ssd_routes"] == {"wgmma": cfg.num_layers, "simt": 0},
+              f"prefill must run the tensor-core SSD route, got {n['ssd_routes']}")
         check(n["flash_attention"] == sites,
               f"prefill must launch flash_attention once per attention site, got "
               f"{n['flash_attention']}")
@@ -794,6 +810,8 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
             check(nf["ssd_scan"] == cfg.num_layers and nf["flash_attention"] == 0
                   and nf["decode_attention"] == 0 and nf["scheduler"] == 0,
                   "the forward must launch ssd_scan once per layer and nothing else")
+            check(nf["ssd_routes"] == {"wgmma": cfg.num_layers, "simt": 0},
+                  f"the bf16 forward must run the tensor-core SSD route, got {nf['ssd_routes']}")
             check(tuple(logits.shape) == (batch, prompt, cfg.vocab_size)
                   and bool(torch.isfinite(logits).all()), "the forward's logits are malformed")
             del logits
@@ -831,6 +849,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         return err, agree, float(want.abs().max())
 
     t0 = time.perf_counter()
+    ssd_scan.route_launches = dict.fromkeys(ssd_scan.route_launches, 0)
     err, agree, scale = decode_vs_forward(ssm_cfg, False)
     print(f"{ssm_cfg.arch_id} f32 full width and depth, prompt {acc_prompt} + {acc_steps} "
           f"decode steps: max |decode - forward| logits {err} (max |logit| {scale}), argmax "
@@ -844,6 +863,10 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
           f"agreement {agree:.4f}) with q/k/v at fan-in d_model; bound {SSM_DECODE_ATOL}; "
           f"{time.perf_counter() - t0:.3f} s")
     check(err < SSM_DECODE_ATOL, f"{hybrid_cfg.arch_id} f32 decode disagrees with the forward")
+    f32_routes = dict(ssd_scan.route_launches)
+    print(f"f32 checks' ssd_scan launches by route: {json.dumps(f32_routes)}")
+    check(f32_routes["simt"] > 0 and f32_routes["wgmma"] == 0,
+          "the f32 checks must run the CUDA-core SSD route")
 
     # -- 10. timing at both main-path launch shapes --------------------------
     def ssd_bound(B, H, G, S, P, N, Q, dtype):
@@ -859,20 +882,39 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
             ops += B * H * (q * (q + 1) * (N + P) + 4 * q * N * P)
         return bound(nb, ops, dtype)
 
+    def simt_ms(fn, reps):
+        """``fn``'s time by CUDA events with every launch on the CUDA-core
+        route (ssd_scan.cu), for comparison at the tensor-core route's
+        own shapes; the port's route rule is restored after."""
+        rule = ssd_module.ssd_route
+        ssd_module.ssd_route = lambda *a: "simt"
+        try:
+            return time_events(fn, reps)
+        finally:
+            ssd_module.ssd_route = rule
+
     timing = {}
     for cfg in (hybrid_cfg, ssm_cfg):
         args, Q, dt_ = main_args[cfg.arch_id], cfg.ssd_chunk, cfg.dtype
-        ms = time_events(lambda: ssd_scan(*args, chunk=Q, return_final_state=True,
-                                          backend="cuda"), 10)
-        plain = time_events(lambda: ssd_scan_ref(*args, Q, return_final_state=True), 3, warmup=1)
-        b_ms, b_by = ssd_bound(*launch_shape(cfg), Q, dt_)
-        timing[cfg.arch_id] = (ms, plain, b_ms, b_by)
+
+        def run(args=args, Q=Q):
+            ssd_scan(*args, chunk=Q, return_final_state=True, backend="cuda")
+
         B, H, G, S, P, N = launch_shape(cfg)
+        route = ssd_route(args[0].dtype, P, N, Q)
+        t = {"route": route, "ms": time_events(run, 10), "graph_ms": time_graph(run, 10),
+             "simt_ms": simt_ms(run, 5),
+             "plain_ms": time_events(lambda: ssd_scan_ref(*args, Q, return_final_state=True), 3,
+                                     warmup=1)}
+        t["bound_ms"], t["bound_by"] = ssd_bound(B, H, G, S, P, N, Q, dt_)
+        timing[cfg.arch_id] = t
         print(f"time ssd_scan main-path launch {cfg.arch_id} B={B} H={H} G={G} S={S} P={P} "
-              f"N={N} Q={Q} {dt_} with final state: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), kernel/bound {ms / b_ms:.2f}x; library: none (no "
-              f"single PyTorch call computes SSD); x {cfg.num_layers} launches per prefill = "
-              f"{ms * cfg.num_layers:.3f} ms")
+              f"N={N} Q={Q} {dt_} with final state: kernel ({route} route) {t['ms']:.4f} ms "
+              f"eager, {t['graph_ms']:.4f} ms device (graph replay); CUDA-core route "
+              f"{t['simt_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), device/bound {t['graph_ms'] / t['bound_ms']:.2f}x; library: "
+              f"none (no single PyTorch call computes SSD); x {cfg.num_layers} launches per "
+              f"prefill = {t['graph_ms'] * cfg.num_layers:.3f} ms")
 
     attn_timed = hybrid_launch.time(hybrid_cfg.arch_id)
     print(f"{hybrid_cfg.arch_id} attention max_abs_err: flash {attn_err['flash_attention']} "
@@ -884,10 +926,15 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
     attn_timed["decode_attention"].update(launches=n["decode_attention"],
                                           max_abs_err=attn_err["decode_attention"])
 
-    ms, plain, b_ms, b_by = timing[hybrid_cfg.arch_id]
+    t = timing[hybrid_cfg.arch_id]
+    mamba = dict(timing[ssm_cfg.arch_id], launches=served[ssm_cfg.arch_id]["ssd_scan"],
+                 routes=served[ssm_cfg.arch_id]["ssd_routes"])
     return {
-        "launches": n["ssd_scan"], "max_abs_err": errs["ssd_scan"],
-        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "launches": n["ssd_scan"], "routes": n["ssd_routes"],
+        "max_abs_err": max(errs.values()), "max_abs_err_by_route": errs,
+        "ms": t["ms"], "graph_ms": t["graph_ms"], "simt_ms": t["simt_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, ssm_cfg.arch_id: mamba,
     }, attn_timed
 
 
@@ -906,7 +953,7 @@ def profile_serving(model, params, prompt_batch, steps=4):
     step = make_serve_step(model)
     kinds = (("flash_attention", "flash_attention"),  # both routes' kernels
              ("decode_attention", "decode_attention_kernel"),
-             ("ssd_scan", "ssd_scan_kernel"),
+             ("ssd_scan", "ssd_scan"),  # both routes' kernels
              ("matrix products (cuBLAS)", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")),
              ("elementwise, norms, reductions, copies", ""))
     state = {"cache": cache}
@@ -952,9 +999,10 @@ def profile_serving(model, params, prompt_batch, steps=4):
             print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
 
 
-def sass_check(lib):
-    """Print whether the library's SASS holds wgmma (``HGMMA``) and TMA
-    (``UTMALDG``, ``UTMASTG``) instructions; fail if it has no ``HGMMA``.
+def sass_check(lib, label, required=("HGMMA",)):
+    """Print the counts of wgmma (``HGMMA``) and TMA (``UTMALDG``,
+    ``UTMASTG``) instructions in the library's SASS; fail if one of
+    ``required`` is missing.  ``label`` names the library in the messages.
     Skipped, with a line that says so, where the toolkit has no cuobjdump."""
     import shutil
 
@@ -963,12 +1011,13 @@ def sass_check(lib):
     tool = shutil.which("cuobjdump") or (
         str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME else None)
     if not tool or not Path(tool).exists():
-        print(f"sass {lib.name}: cuobjdump not found, not checked")
+        print(f"sass {label} {lib.name}: cuobjdump not found, not checked")
         return
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
     found = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
-    print(f"sass {lib.name}: instruction counts {json.dumps(found)}")
-    check(found["HGMMA"] > 0, "the tensor-core flash library holds no HGMMA instruction")
+    print(f"sass {label} {lib.name}: instruction counts {json.dumps(found)}")
+    for op in required:
+        check(found[op] > 0, f"the {label} library holds no {op} instruction")
 
 
 def main() -> int:
@@ -1019,11 +1068,13 @@ def main() -> int:
         gus_assign.launches = hier_cells.launches = 0
         flash_attention.launches = decode_attention.launches = ssd_scan.launches = 0
         flash_attention.route_launches = dict.fromkeys(flash_attention.route_launches, 0)
+        ssd_scan.route_launches = dict.fromkeys(ssd_scan.route_launches, 0)
     t_start = time.perf_counter()
 
     # -- 1. build ------------------------------------------------------------
     builds = build_libraries(["gus_assign", "hier_cells", "flash_attention",
-                              "flash_attention_wgmma", "decode_attention", "ssd_scan"])
+                              "flash_attention_wgmma", "decode_attention", "ssd_scan",
+                              "ssd_scan_wgmma"])
     for info in builds.values():
         print(f"build {info.name}: nvcc {info.seconds:.3f} s -> {info.path.name}")
         for line in info.log.splitlines():
@@ -1035,7 +1086,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    sass_check(builds["flash_attention_wgmma"].path)
+    sass_check(builds["flash_attention_wgmma"].path, "tensor-core flash", ("HGMMA", "UTMALDG"))
+    sass_check(builds["ssd_scan_wgmma"].path, "tensor-core SSD", ("HGMMA", "UTMALDG"))
 
     # -- 2. kernel vs plain version on the card -----------------------------
     max_err = 0.0
@@ -1509,6 +1561,13 @@ def main() -> int:
     hier_ms = time_hier(lambda *a: hier_cells(*a, backend="cuda"), win_args, 5)
     hier_plain_ms = time_hier(hier_cells_ref, win_args, 2)
     hb_ms, hb_by = hier_bound(win_args)
+    # the chain's floor: the same window with every budget spent, so each
+    # class takes the shortest step (its summary test fails at once)
+    spent = win_args[:6] + (torch.zeros_like(city_inst.gamma), torch.zeros_like(city_inst.eta))
+    floor_ms = time_hier(lambda *a: hier_cells(*a, backend="cuda"), spent, 5)
+    n_classes = city_us.shape[1]
+    print(f"hier_cells chain floor: {floor_ms:.4f} ms for {n_classes} classes per frame with "
+          f"every budget spent ({floor_ms / n_classes * 1e3:.4f} us per class)")
     print(
         f"time hier_cells main-path launch B={city_us.shape[0]} C={city_us.shape[1]} "
         f"M={city_us.shape[2]} L={city_us.shape[3]}: kernel {hier_ms:.4f} ms, plain "
@@ -1539,6 +1598,7 @@ def main() -> int:
         "bound_ms": hb_ms,
         "bound_by": hb_by,
         "library_ms": None,
+        "chain_floor_ms": floor_ms,
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -1555,7 +1615,8 @@ def main() -> int:
     }, {
         "name": "ssd_scan",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        # the main path's route; f32 and other shapes take ssd_scan.cu
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:84",
         **ssd,
     }]}

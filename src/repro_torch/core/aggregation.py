@@ -32,7 +32,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .instance import FlatInstance
+from .instance import FlatInstance, resolve_device
 from .satisfaction import hard_feasible, us_tensor
 
 __all__ = [
@@ -152,7 +152,7 @@ def aggregate_instance(inst: FlatInstance) -> AggregateClasses:
     )
 
 
-def class_batch(insts: Sequence[FlatInstance], pad_to: Optional[int] = None, device="cpu"):
+def class_batch(insts: Sequence[FlatInstance], pad_to: Optional[int] = None, device=None):
     """The class allocator's inputs for a list of unbatched instances.
 
     Each instance's lossless classes (:func:`aggregate_instance`) are
@@ -161,7 +161,9 @@ def class_batch(insts: Sequence[FlatInstance], pad_to: Optional[int] = None, dev
     count), and stacked on a leading frame axis.  Returns ``(us, feas, v,
     u, cover, count, gamma, eta)`` tensors on ``device``, in
     :func:`repro_torch.kernels.hier.hier_cells`'s argument order.
+    ``device`` follows :func:`resolve_device`: ``None`` means the card.
     """
+    device = resolve_device(device)
     aggs = [aggregate_instance(i) for i in insts]
     Cp = max([pad_to or 0] + [a.n_classes for a in aggs])
     M, L = aggs[0].us.shape[1:] if aggs else (0, 0)

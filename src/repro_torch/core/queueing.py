@@ -24,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from .instance import FlatInstance
+from .instance import FlatInstance, resolve_device
 
 __all__ = [
     "CongestionConfig",
@@ -92,9 +92,11 @@ class PolicyCarry:
 
 
 def fleet_policy_carry(
-    n_rep: int, n_servers: int, *, bandwidth_init: float = 0.0, device="cpu"
+    n_rep: int, n_servers: int, *, bandwidth_init: float = 0.0, device=None
 ) -> PolicyCarry:
-    """A fresh batched carry: empty backlogs, zero EMA, on ``device``."""
+    """A fresh batched carry: empty backlogs, zero EMA, on ``device``
+    (:func:`resolve_device`: ``None`` means the card)."""
+    device = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     return PolicyCarry(
         key=torch.zeros((n_rep, 2), dtype=torch.uint32, device=device),

@@ -4,8 +4,10 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C interface, built
 for Hopper (``sm_90a``) into a shared library at first use and loaded with
 ``ctypes``.  No PyTorch header is included, so a build takes seconds.  The
 library lands in ``_build/`` beside this module (listed in ``.gitignore``),
-named by a hash of the source and the flags it is built with (``_flags``),
-so an edited source or flag set is never served from a stale build.  Several sources build in parallel, one ``nvcc``
+named by a hash of the source, of every header under ``csrc/`` that it
+includes (``#include "..."``, followed recursively) and of the flags it is
+built with (``_flags``), so an edited source, header or flag set is never
+served from a stale build.  Several sources build in parallel, one ``nvcc``
 process each, all started together (:func:`build_libraries`).
 
 Nothing here runs when the module is imported: the CPU tests import every
@@ -17,6 +19,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -52,6 +55,7 @@ _SOURCE_FLAGS = {
     "flash_attention_wgmma": ATTN_NVCC_FLAGS,
     "decode_attention": ATTN_NVCC_FLAGS,
     "ssd_scan": ATTN_NVCC_FLAGS,
+    "ssd_scan_wgmma": ATTN_NVCC_FLAGS,
 }
 
 
@@ -84,10 +88,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(name: str):
+    """The source of kernel ``name`` and every ``csrc/`` header it
+    includes, directly or through another header, in a fixed order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / h.decode() for h in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in _inputs(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_libraries(names: Iterable[str]) -> Dict[str, BuildInfo]:

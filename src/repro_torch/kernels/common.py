@@ -1,5 +1,6 @@
 """What the model kernels (attention and SSD) share: the dtype codes of
-their C interfaces, the per-tensor input check, and the backend switch.
+their C interfaces, the per-tensor input check, the strides a TMA tensor
+map takes, and the backend switch.
 
 The model kernels' backend is chosen as GUS's is: an explicit ``backend=``
 (``"torch"`` for the plain version, ``"cuda"`` for the kernel), else the
@@ -12,7 +13,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["DTYPES", "check_tensor", "resolve_model_backend"]
+__all__ = ["DTYPES", "check_tensor", "resolve_model_backend", "tma_strides"]
 
 #: dtype codes of the C interfaces
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,3 +37,24 @@ def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype, shape, device) 
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.shape[-1] > 1 and t.stride(-1) != 1:
         raise ValueError(f"{kernel}: {name} needs a unit stride on its last axis")
+
+
+def tma_strides(kernel: str, name: str, t: torch.Tensor):
+    """``t``'s element strides but the last, as a TMA tensor map takes them,
+    or raise: the base must be 16-byte aligned and every stride a multiple
+    of 16 bytes.  The stride of an axis of size 1 is never followed, so it
+    is replaced by one past the tensor's extent, which TMA takes."""
+    per16 = 16 // t.element_size()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary for TMA")
+    past = -(-max(st * n for st, n in zip(t.stride(), t.shape)) // per16) * per16
+    out = []
+    for st, n in zip(t.stride()[:-1], t.shape[:-1]):
+        if n == 1:
+            st = past
+        elif st % per16:
+            raise ValueError(
+                f"{kernel}: {name}'s strides {tuple(t.stride())} must be multiples of 16 bytes "
+                "for TMA")
+        out.append(st)
+    return out

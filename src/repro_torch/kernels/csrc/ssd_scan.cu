@@ -2,9 +2,11 @@
 // (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/ssd_scan.py::ssd_scan (pallas_call
-// at ssd_scan.py:84, body _kernel at :27).  It computes what that kernel
-// computes, chunk by chunk of Q tokens, with an (N x P) f32 state carried
-// across chunks:
+// at ssd_scan.py:84, body _kernel at :27) for f32 inputs and for the shapes
+// that the tensor-core route (ssd_scan_wgmma.cu: bf16 at P 64, N 64/128,
+// chunk 128) does not take; ssd_scan.py::ssd_route picks the route.  It
+// computes what that kernel computes, chunk by chunk of Q tokens, with an
+// (N x P) f32 state carried across chunks:
 //   cs      = cumsum(dt * A)                               (f32, per chunk)
 //   W[i][j] = (C_i . B_j) * exp(cs_i - cs_j) * dt_j        for j <= i, else 0
 //   y_i     = sum_j W[i][j] x_j  +  exp(cs_i) * (C_i . state)
@@ -49,11 +51,8 @@
 // writes ~142 MB (0.085 ms at 3.35 TB/s) and needs ~34 GFLOP for the
 // causal products (0.035 ms at the bf16 tensor-core rate): bytes bound it.
 // This kernel does its products in f32 on the CUDA cores with operands in
-// shared memory, one block per SM, so it is far from that bound.  Left on
-// the table: wgmma on bf16 tiles fed by TMA, computing C.B^T once per group
-// instead of once per head (all heads share it when G = 1), splitting a
-// head's chunks over several blocks with a second pass for the carry, and
-// overlapping the next chunk's loads with this chunk's math.
+// shared memory, one block per SM, so it is far from that bound; bf16 at
+// the serving models' shapes takes the tensor-core route instead.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -42,7 +42,7 @@ from typing import Optional
 import torch
 
 from .build import load_library
-from .common import DTYPES, check_tensor, resolve_model_backend
+from .common import DTYPES, check_tensor, resolve_model_backend, tma_strides
 
 __all__ = [
     "NEG_INF",
@@ -148,27 +148,6 @@ def _wgmma_library() -> ctypes.CDLL:
         lib.flash_attention_wgmma_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
-
-
-def tma_strides(kernel: str, name: str, t: torch.Tensor):
-    """``t``'s element strides but the last, as a TMA tensor map takes them,
-    or raise: the base must be 16-byte aligned and every stride a multiple
-    of 16 bytes.  The stride of an axis of size 1 is never followed, so it
-    is replaced by one past the tensor's extent, which TMA takes."""
-    per16 = 16 // t.element_size()
-    if t.data_ptr() % 16:
-        raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary for TMA")
-    past = -(-max(st * n for st, n in zip(t.stride(), t.shape)) // per16) * per16
-    out = []
-    for st, n in zip(t.stride()[:-1], t.shape[:-1]):
-        if n == 1:
-            st = past
-        elif st % per16:
-            raise ValueError(
-                f"{kernel}: {name}'s strides {tuple(t.stride())} must be multiples of 16 bytes "
-                "for TMA")
-        out.append(st)
-    return out
 
 
 def flash_attention(

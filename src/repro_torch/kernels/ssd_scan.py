@@ -1,11 +1,24 @@
 """Mamba-2 chunked SSD scan: the Hopper kernel and its plain PyTorch versions.
 
 :func:`ssd_scan` is the port of the TPU kernel
-``repro/kernels/ssd_scan.py::ssd_scan``.  On CUDA tensors it launches the
-hand-written kernel in ``csrc/ssd_scan.cu`` (built with ``nvcc`` at first
-use, bound with ``ctypes``) or raises; on CPU tensors it runs
-:func:`ssd_scan_ref`.  There is no fallback from the kernel to the plain
-version.  ``ssd_scan.launches`` counts the kernel launches.
+``repro/kernels/ssd_scan.py::ssd_scan``.  On CUDA tensors it launches one
+of two hand-written kernels (built with ``nvcc`` at first use, bound with
+``ctypes``) or raises; on CPU tensors it runs :func:`ssd_scan_ref`.  There
+is no fallback from a kernel to the plain version or to the other kernel.
+The route is chosen before the launch by :func:`ssd_route`, from the dtype
+and the shape alone:
+
+* ``"wgmma"``: ``csrc/ssd_scan_wgmma.cu``, bf16 at head dim 64, state 64
+  or 128 and chunk 128 (the serving models' shapes), all four products on
+  the tensor cores (wgmma), x/B/C tiles fed by TMA.  Its operands W, the
+  state and ``x * exp(cs_Q - cs) * dt`` are each split into two bf16 terms
+  (hi + lo) for the products, so it agrees with the f32 form to within a
+  bf16 step of y;
+* ``"simt"``: ``csrc/ssd_scan.cu``, f32 and every other shape, f32
+  products on the CUDA cores.
+
+``ssd_scan.launches`` counts every launch and ``ssd_scan.route_launches``
+the launches of each route.
 
 Kernel layout: x ``(B, H, S, P)``, dt ``(B, H, S)``, A ``(H,)`` f32,
 Bm/Cm ``(B, G, S, N)`` with query head h reading SSM group
@@ -17,7 +30,10 @@ hands it transposed views of the model's ``(B, S, ...)`` tensors and an
 output view.  Unlike the Pallas kernel it takes any S: positions past S in
 the last chunk count as dt = 0, the reference's own padding rule, which is
 exact; and it can write out the final state, which the serving prefill
-needs.
+needs.  The ``"wgmma"`` route describes x, Bm and Cm to TMA, which needs a
+16-byte aligned base and strides that are multiples of 16 bytes, and
+writes y two values at a time (even strides, 4-byte aligned base): the
+wrapper checks both and raises otherwise, with no copy.
 
 :func:`ssd_reference` is the port's copy of the reference's chunked einsum
 form (``repro/models/ssm.py::ssd_reference``, model layout, with its
@@ -33,13 +49,14 @@ import torch
 import torch.nn.functional as F
 
 from .build import load_library
-from .common import DTYPES, check_tensor, resolve_model_backend
+from .common import DTYPES, check_tensor, resolve_model_backend, tma_strides
 
 __all__ = [
     "MAX_CHUNK",
     "MAX_STATE",
     "MAX_HEAD_DIM",
     "ssd_reference",
+    "ssd_route",
     "ssd_scan",
     "ssd_scan_ref",
     "check_ssd_inputs",
@@ -50,6 +67,17 @@ __all__ = [
 MAX_CHUNK = 128
 MAX_STATE = 128
 MAX_HEAD_DIM = 64
+#: the tensor-core route's shapes (bf16 only): head dim, state sizes, chunk
+WGMMA_HEAD_DIM, WGMMA_STATES, WGMMA_CHUNK = 64, (64, 128), 128
+
+
+def ssd_route(dtype, P: int, N: int, chunk: int) -> str:
+    """The kernel a CUDA launch takes: ``"wgmma"`` for bf16 at head dim
+    :data:`WGMMA_HEAD_DIM`, a state size of :data:`WGMMA_STATES` and chunk
+    :data:`WGMMA_CHUNK`, else ``"simt"``."""
+    wgmma = (dtype == torch.bfloat16 and P == WGMMA_HEAD_DIM and N in WGMMA_STATES
+             and chunk == WGMMA_CHUNK)
+    return "wgmma" if wgmma else "simt"
 
 
 def _segsum(x):
@@ -196,6 +224,30 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _wgmma_library() -> ctypes.CDLL:
+    lib = load_library("ssd_scan_wgmma")
+    if not getattr(lib, "_argtypes_set", False):
+        lib.ssd_scan_wgmma_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_void_p]
+        )
+        lib.ssd_scan_wgmma_launch.restype = ctypes.c_int
+        lib.ssd_scan_wgmma_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_scan_wgmma_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def _pair_strides(name: str, t: torch.Tensor):
+    """``t``'s element strides but the last, or raise unless the kernel can
+    write it two bf16 values (4 bytes) at a time."""
+    if t.data_ptr() % 4 or any(st % 2 for st in t.stride()[:-1]):
+        raise ValueError(
+            f"ssd_scan: {name} needs a 4-byte aligned base and even strides (got "
+            f"{tuple(t.stride())})")
+    return list(t.stride()[:-1])
+
+
 def ssd_scan(
     x, dt, A, Bm, Cm, *, chunk: int = 128, return_final_state: bool = False,
     backend: Optional[str] = None, out: Optional[torch.Tensor] = None,
@@ -210,7 +262,8 @@ def ssd_scan(
     version on the tensors' device, ``"cuda"`` the kernel; ``None`` defers
     to ``REPRO_TORCH_MODEL_BACKEND`` (the model kernels' switch), else
     follows the device.  CPU tensors always take the plain version and
-    count no launch; CUDA tensors on ``"cuda"`` launch the kernel or raise.
+    count no launch; CUDA tensors on ``"cuda"`` launch the kernel of
+    :func:`ssd_route` or raise.
     """
     dev = x.device
     if dev.type not in ("cpu", "cuda"):
@@ -233,23 +286,42 @@ def ssd_scan(
         if state is not None:
             return out, state.zero_()
         return out
-    lib = _library()
-    strides = (ctypes.c_longlong * 15)(
-        *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3], *out.stride()[:3]
-    )
+    route = ssd_route(x.dtype, P, N, chunk)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            out.data_ptr(), state.data_ptr() if state is not None else None, DTYPES[x.dtype],
-            Bsz, H, Bm.shape[1], S, P, N, chunk, strides, stream,
-        )
+        if route == "wgmma":
+            lib = _wgmma_library()
+            strides = (ctypes.c_longlong * 15)(
+                *tma_strides("ssd_scan", "x", x), *dt.stride(),
+                *tma_strides("ssd_scan", "Bm", Bm), *tma_strides("ssd_scan", "Cm", Cm),
+                *_pair_strides("out", out),
+            )
+            err = lib.ssd_scan_wgmma_launch(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                out.data_ptr(), state.data_ptr() if state is not None else None,
+                Bsz, H, Bm.shape[1], S, N, strides, stream,
+            )
+            errstr = lib.ssd_scan_wgmma_error_string
+        else:
+            lib = _library()
+            strides = (ctypes.c_longlong * 15)(
+                *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
+                *out.stride()[:3]
+            )
+            err = lib.ssd_scan_launch(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                out.data_ptr(), state.data_ptr() if state is not None else None,
+                DTYPES[x.dtype], Bsz, H, Bm.shape[1], S, P, N, chunk, strides, stream,
+            )
+            errstr = lib.ssd_scan_error_string
     if err != 0:
-        msg = lib.ssd_scan_error_string(err).decode()
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err} ({msg})")
+        msg = errstr(err).decode()
+        raise RuntimeError(f"ssd_scan ({route}) kernel launch failed: CUDA error {err} ({msg})")
     ssd_scan.launches += 1
+    ssd_scan.route_launches[route] += 1
     return (out, state) if return_final_state else out
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0, in all and by route
 ssd_scan.launches = 0
+ssd_scan.route_launches = {"wgmma": 0, "simt": 0}

@@ -298,7 +298,7 @@ def test_congestion_functions_bit_equal():
 
 def test_fleet_policy_carry_layout():
     ref = RQ.fleet_policy_carry(3, 4, seed=0, bandwidth_init=600.0)
-    got = PQ.fleet_policy_carry(3, 4, bandwidth_init=600.0)
+    got = PQ.fleet_policy_carry(3, 4, bandwidth_init=600.0, device="cpu")
     for f in ("backlog_gamma", "backlog_eta", "ema_util", "bw_prev", "bw_cur", "link_bw", "server_up"):
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)), err_msg=f)
     assert tuple(got.key.shape) == np.asarray(ref.key).shape and got.key.dtype == torch.uint32

@@ -93,6 +93,23 @@ def test_entry_points_without_device_raise_instead_of_running_on_cpu(no_cuda):
             call()
 
 
+@pytest.mark.parametrize("helper", ["class_batch", "fleet_policy_carry"])
+def test_input_helpers_without_device_raise(no_cuda, helper):
+    """The exported input builders resolve ``device=None`` to the card, as
+    every entry point does; ``device="cpu"`` still builds on the CPU."""
+    from repro_torch.core.aggregation import class_batch
+    from repro_torch.core.queueing import fleet_policy_carry
+
+    call = {
+        "class_batch": lambda **kw: class_batch([P.generate_instance(0, device="cpu")], **kw),
+        "fleet_policy_carry": lambda **kw: fleet_policy_carry(2, 3, **kw),
+    }[helper]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    out = call(device="cpu")
+    assert all(t.device.type == "cpu" for t in (out if helper == "class_batch" else (out.key,)))
+
+
 def test_serving_entry_points_without_device_raise(no_cuda):
     cfg = get_config("squeeze-lm")
     model = Model(cfg)

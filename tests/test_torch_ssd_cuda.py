@@ -1,5 +1,10 @@
-"""The Hopper SSD kernel against its plain PyTorch version, and the ``ssm``
-and ``hybrid`` models on the card against the CPU.
+"""The Hopper SSD kernels (both routes) against their plain PyTorch
+version, and the ``ssm`` and ``hybrid`` models on the card against the CPU.
+
+``ssd_route`` sends bf16 at head dim 64, state 64 or 128 and chunk 128 to
+the tensor-core kernel (``"wgmma"``) and the rest to the CUDA-core kernel
+(``"simt"``); the shapes below reach both, and each launch's route is
+counted.
 
 Every test here needs a CUDA device and ``nvcc``; without them they skip
 with that reason (a CUDA kernel has no CPU mode).  On a GPU machine run:
@@ -10,8 +15,9 @@ Tolerances: f32 ``rtol=1e-3, atol=1e-4`` (``tests/test_kernels.py``'s
 Pallas-vs-plain SSD bound, with TF32 off so the plain version's f32
 products are full f32); bf16 ``rtol=atol=2e-2`` (that file's bf16 bound:
 both versions compute in f32 and round y once, so they differ by at most
-one bf16 step); the final state, f32 in both dtypes, at the f32 bound
-relative to its largest entry.  The small models on the card are held to
+one bf16 step; the tensor-core route splits W, the state and x * w into
+two bf16 terms each, which keeps it there); the final state, f32 in both
+dtypes and on both routes, at the f32 bound relative to its largest entry.  The small models on the card are held to
 the same models on the CPU at the model tests' ``rtol=atol=1e-3``, their
 greedy tokens exactly.
 """
@@ -28,7 +34,7 @@ import repro_torch.configs as TC  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_route, ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch.models import Model, params_to  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.training import make_batch  # noqa: E402
@@ -75,18 +81,22 @@ def _close_state(got, want):
         (2, 3, 3, 64, 16, 8, 16),       # tests/test_kernels.py's first shape
         (2, 4, 4, 256, 64, 128, 128),   # N = 128, whole chunks
         (2, 4, 1, 2000, 64, 64, 128),   # ragged S, G = 1 (zamba2's N)
-        (1, 8, 2, 300, 64, 128, 64),    # G = 2, ragged
+        (1, 8, 2, 300, 64, 128, 128),   # G = 2, ragged, N = 128 (mamba2's N)
+        (2, 6, 3, 77, 64, 64, 128),     # G = 3, S below one chunk
+        (1, 8, 2, 300, 64, 128, 64),    # G = 2, ragged, chunk 64
         (1, 6, 2, 77, 32, 16, 16),      # small head dim and chunk, ragged
         (2, 4, 4, 128, 48, 32, 32),     # P not a multiple of 32
     ],
 )
 def test_ssd_kernel_equals_plain(cuda, B, H, G, S, P, N, Q, dtype, final):
     x, dt, A, Bm, Cm = _inputs(B, H, G, S, P, N, dtype, cuda, S + N)
-    n0 = ssd_scan.launches
+    route = ssd_route(dtype, P, N, Q)
+    n0, r0 = ssd_scan.launches, dict(ssd_scan.route_launches)
     got = ssd_scan(x, dt, A, Bm, Cm, chunk=Q, return_final_state=final, backend="cuda")
     want = ssd_scan_ref(x, dt, A, Bm, Cm, Q, return_final_state=final)
     torch.cuda.synchronize()
     assert ssd_scan.launches == n0 + 1
+    assert ssd_scan.route_launches == {k: r0[k] + (k == route) for k in r0}
     if final:
         (got, got_st), (want, want_st) = got, want
         assert got_st.dtype == torch.float32 and tuple(got_st.shape) == (B, H, N, P)
@@ -95,25 +105,53 @@ def test_ssd_kernel_equals_plain(cuda, B, H, G, S, P, N, Q, dtype, final):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
+@pytest.mark.parametrize("N", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_ssd_model_layout_views_are_read_in_place(cuda, dtype):
+def test_ssd_model_layout_views_are_read_in_place(cuda, dtype, N):
     """``ops.ssd`` hands the kernel transposed views of the strided slices
-    that ``apply_mamba`` makes; the result equals the plain version on
-    contiguous kernel-layout copies."""
-    Bsz, S, H, P, G, N, Q = 2, 333, 8, 64, 1, 64, 128
+    that ``apply_mamba`` makes (in bf16 they reach the tensor-core route,
+    whose TMA maps read them in place); the result equals the plain version
+    on contiguous kernel-layout copies."""
+    Bsz, S, H, P, G, Q = 2, 333, 8, 64, 1, 128
     g = torch.Generator(device=cuda).manual_seed(3)
     xBC = torch.randn((Bsz, S, H * P + 2 * G * N), generator=g, device=cuda).to(dtype)
     xs, Bm, Cm = torch.split(xBC, [H * P, G * N, G * N], dim=-1)
     xs, Bm, Cm = xs.unflatten(-1, (H, P)), Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N))
     dt = (0.001 + 0.099 * torch.rand((Bsz, S, H), generator=g, device=cuda)).to(dtype)
     A = -(0.5 + 3.5 * torch.rand((H,), generator=g, device=cuda))
+    route = ssd_route(dtype, P, N, Q)
+    r0 = ssd_scan.route_launches[route]
     y, st = ops.ssd(xs, dt, A, Bm, Cm, chunk=Q, return_final_state=True, backend="cuda")
+    assert ssd_scan.route_launches[route] == r0 + 1
     wy, wst = ssd_scan_ref(*(t.transpose(1, 2).contiguous() for t in (xs, dt)), A,
                            *(t.transpose(1, 2).contiguous() for t in (Bm, Cm)), Q,
                            return_final_state=True)
     torch.cuda.synchronize()
     torch.testing.assert_close(y.transpose(1, 2).float(), wy.float(), **_tol(dtype))
     _close_state(st, wst)
+
+
+def test_ssd_tensor_core_route_refuses_what_tma_cannot_read(cuda):
+    """A base off a 16-byte boundary, or a row stride that is not a multiple
+    of 16 bytes, raises before any launch: no copy, no other route."""
+    x, dt, A, Bm, Cm = _inputs(1, 2, 1, 256, 64, 64, torch.bfloat16, cuda, 5)
+    assert ssd_route(x.dtype, 64, 64, 128) == "wgmma"
+    shifted = torch.empty((1, 2, 256, 65), dtype=x.dtype, device=cuda)[..., 1:].copy_(x)
+    wide = torch.empty((1, 2, 256, 68), dtype=x.dtype, device=cuda)[..., :64].copy_(x)
+    n0, r0 = ssd_scan.launches, dict(ssd_scan.route_launches)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ssd_scan(shifted, dt, A, Bm, Cm, chunk=128, backend="cuda")
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ssd_scan(wide, dt, A, Bm, Cm, chunk=128, backend="cuda")
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ssd_scan(x, dt, A, torch.empty((1, 1, 256, 68), dtype=x.dtype, device=cuda)[..., :64],
+                 Cm, chunk=128, backend="cuda")
+    assert ssd_scan.launches == n0 and ssd_scan.route_launches == r0
+    # the same values from aligned tensors launch the tensor-core route
+    torch.testing.assert_close(ssd_scan(wide.contiguous(), dt, A, Bm, Cm, chunk=128,
+                                        backend="cuda").float(),
+                               ssd_scan_ref(x, dt, A, Bm, Cm, 128).float(), **_tol(x.dtype))
+    assert ssd_scan.route_launches["wgmma"] == r0["wgmma"] + 1
 
 
 def test_ssd_launch_counter_and_input_checks(cuda):
