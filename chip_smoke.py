@@ -19,7 +19,8 @@ any phase fails:
    GUS kernel's integer assignments must be equal (0 mismatches) on the
    golden frames, the paper's 20 000-instance numerical batch (plain and
    both Happy-* relaxations), degenerate frames and the dense fleet's own
-   frames; the class allocator's ``take``/``start`` cells and fixed-order
+   frames (a window, its first frame alone, the window with every budget
+   spent); the class allocator's ``take``/``start`` cells and fixed-order
    loads on class grids built from generated frames (several seeds and
    padding buckets, one above 4096), duplicate classes, tie,
    all-infeasible, zero-count, exact-capacity and budget-carry frames, and
@@ -87,8 +88,10 @@ any phase fails:
    kernel a second time as device time: one replay of a captured CUDA
    graph of many launches, which leaves out the Python wrapper's host
    time; the SSD's CUDA-core route at the same bf16 shapes beside its
-   tensor-core route; the class allocator's chain floor (the same window
-   with every budget spent, so each class takes the shortest step);
+   tensor-core route; the GUS kernel also at one frame (B=1, eager and
+   device time) and on its window with every budget spent (its chain
+   floor); the class allocator's chain floor (the same window with every
+   budget spent, so each class takes the shortest step);
 11. prints one JSON line listing every ported kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -1020,6 +1023,34 @@ def sass_check(lib, label, required=("HGMMA",)):
         check(found[op] > 0, f"the {label} library holds no {op} instruction")
 
 
+def dense_fleet_window(dev, n_rep, window):
+    """The dense fleet benchmark's cluster and config, and the first window
+    of its ``n_rep``-replication run (``window`` frames of every
+    replication, frame-major: frame 0 of replications 0..n_rep-1 first), as
+    ``simulate_fleet`` builds it, on ``dev``."""
+    from repro_torch.core import FlatInstance, SimConfig, demo_cluster_spec, get_scenario
+    from repro_torch.core.simulator import _build_window, _pad_bucket, _RepFrameSource
+    from repro_torch.obs.trace import Stopwatch
+
+    spec = demo_cluster_spec(n_edge=9, n_cloud=1, n_services=5, n_variants=10)
+    cfg = SimConfig(
+        horizon_ms=30_000.0, arrival_rate_per_s=6.0, delay_req_ms=6000.0,
+        acc_req_mean=50.0, acc_req_std=10.0,
+    )
+    T = int(math.ceil(cfg.horizon_ms / cfg.frame_ms))
+    scn = get_scenario("paper-default")
+    sources = [
+        _RepFrameSource(
+            scn, r, spec.n_edge, spec.proc_ms.shape[1], cfg, T, False, False, "vectorized"
+        )
+        for r in range(n_rep)
+    ]
+    n_pad = _pad_bucket(max(s.max_bucket for s in sources))
+    host, _ = _build_window(sources, spec, cfg, scn, 0, window, n_pad, Stopwatch(), True)
+    fields = [f.name for f in dataclasses.fields(FlatInstance)]
+    return spec, cfg, FlatInstance(**{f: host[f].to(dev) for f in fields})
+
+
 def main() -> int:
     import torch
 
@@ -1042,13 +1073,7 @@ def main() -> int:
         simulate_fleet,
     )
     from repro_torch.core.aggregation import QuantizationConfig, class_batch
-    from repro_torch.core.simulator import (
-        _build_hier_window,
-        _build_window,
-        _hier_device_inputs,
-        _pad_bucket,
-        _RepFrameSource,
-    )
+    from repro_torch.core.simulator import _build_hier_window, _hier_device_inputs, _RepFrameSource
     from repro_torch.configs import get_config
     from repro_torch.kernels.build import build_libraries
     from repro_torch.kernels.decode_attention import decode_attention
@@ -1183,27 +1208,21 @@ def main() -> int:
     check(bool((a.j == 0).all() and (a.l == 0).all()), "ties must pick the lowest flat index")
 
     # the fleet's own frames: the first window of the 1024-replication run
-    spec = demo_cluster_spec(n_edge=9, n_cloud=1, n_services=5, n_variants=10)
-    cfg = SimConfig(
-        horizon_ms=30_000.0, arrival_rate_per_s=6.0, delay_req_ms=6000.0,
-        acc_req_mean=50.0, acc_req_std=10.0,
-    )
     n_rep_scale, window = 1024, 5
-    T = int(math.ceil(cfg.horizon_ms / cfg.frame_ms))
-    scn = get_scenario("paper-default")
     t0 = time.perf_counter()
-    sources = [
-        _RepFrameSource(
-            scn, r, spec.n_edge, spec.proc_ms.shape[1], cfg, T, False, False, "vectorized"
-        )
-        for r in range(n_rep_scale)
-    ]
-    n_pad = _pad_bucket(max(s.max_bucket for s in sources))
-    host, _ = _build_window(sources, spec, cfg, scn, 0, window, n_pad, Stopwatch(), True)
-    fleet_win = FlatInstance(**{f: host[f].to(dev) for f in fields})
-    print(f"fleet window built: {time.perf_counter() - t0:.3f} s host, n_pad={n_pad}")
+    spec, cfg, fleet_win = dense_fleet_window(dev, n_rep_scale, window)
+    print(f"fleet window built: {time.perf_counter() - t0:.3f} s host, "
+          f"n_pad={fleet_win.A.shape[1]}")
     compare("fleet window (1024 reps x 5 frames)", fleet_win)
     fleet_step = FlatInstance(**{f: getattr(fleet_win, f)[:n_rep_scale] for f in fields})
+    # the sequential simulator's shape: one frame (replication 0's first)
+    fleet_first = FlatInstance(**{f: getattr(fleet_win, f)[:1] for f in fields})
+    compare("fleet first frame (B=1)", fleet_first)
+    # every budget spent: the chain's shortest steps
+    fleet_spent = dataclasses.replace(fleet_win, gamma=torch.zeros_like(fleet_win.gamma),
+                                      eta=torch.zeros_like(fleet_win.eta))
+    a = compare("fleet window, every budget spent", fleet_spent)
+    check(bool((a.j == -1).all()), "a frame with every budget spent must drop every request")
 
     # -- 3. the fleet main path ---------------------------------------------
     def fleet(n_rep, device, congestion=CongestionConfig(), **opt):
@@ -1515,9 +1534,11 @@ def main() -> int:
 
     timing = {}
     for label, batch in (
+        ("fleet first frame B=1 N=256 M=10 L=10", fleet_first),
         ("fleet frame step B=1024 N=256 M=10 L=10", fleet_step),
         ("paper batch B=20000 N=100 M=10 L=10", paper),
         ("fleet window launch B=5120 N=256 M=10 L=10", fleet_win),
+        ("chain floor: fleet window, every budget spent", fleet_spent),
     ):
         args = kernel_args(batch)
         ms = time_kernel(args, 10)
@@ -1531,6 +1552,13 @@ def main() -> int:
         )
 
     main_ms, main_plain, main_bound, main_by = timing["fleet window launch B=5120 N=256 M=10 L=10"]
+    gus_floor_ms = timing["chain floor: fleet window, every budget spent"][0]
+    # one frame is short enough for the wrapper's host time to show in eager
+    # timing: its device time too, by one replay of a captured CUDA graph
+    first_args = kernel_args(fleet_first)
+    first_dev_ms = time_graph(lambda: gus_assign(*first_args), 50)
+    print(f"time gus_assign fleet first frame B=1: {first_dev_ms:.4f} ms device "
+          f"(CUDA-graph replay), {timing['fleet first frame B=1 N=256 M=10 L=10'][0]:.4f} ms eager")
 
     def time_hier(fn, args, reps):
         """Mean ms of ``fn(*args)`` after one warm-up call, both versions
@@ -1586,6 +1614,8 @@ def main() -> int:
         "bound_ms": main_bound,
         "bound_by": main_by,
         "library_ms": None,
+        "chain_floor_ms": gus_floor_ms,
+        "single_frame_ms": first_dev_ms,
     }, {
         "name": "hier_cells",
         "route": "cuda",

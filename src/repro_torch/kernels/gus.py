@@ -28,16 +28,16 @@ import torch
 
 from .build import load_library
 
-__all__ = ["NEG", "gus_assign", "gus_assign_ref"]
+__all__ = ["MAX_CELLS", "MAX_SERVERS", "NEG", "gus_assign", "gus_assign_ref"]
 
 #: the masked-out candidate score; served iff the best score is > NEG
 NEG = -1e30
 
 _N_ARGS = 18  # pointers passed to gus_assign_launch before the sizes
-#: warps (frames) per block, as FRAMES_PER_BLOCK in csrc/gus_assign.cu; each
-#: keeps 4*M floats of budgets and loads in shared memory
-_FRAMES_PER_BLOCK = 4
-_SMEM_LIMIT = 227 * 1024
+#: the widest request row the kernel's shared-memory ring takes (one row per
+#: stage), as MAX_CELLS and MAX_SERVERS in csrc/gus_assign.cu
+MAX_CELLS = 4096
+MAX_SERVERS = 1024
 
 
 def gus_assign_ref(
@@ -128,7 +128,9 @@ def gus_assign(
     Shapes: ``cover/A/C/w_a/w_c`` ``(B, N)`` (cover int32, the rest
     float32); ``acc/ctime/v/u`` ``(B, N, M, L)`` float32; ``avail``
     ``(B, N, M, L)`` bool; ``gamma/eta`` ``(B, M)`` and ``max_as/max_cs``
-    ``(B,)`` float32.  Every tensor is contiguous and on one device.
+    ``(B,)`` float32.  Every tensor is contiguous and on one device.  The
+    kernel takes rows of at most ``MAX_CELLS`` cells and ``MAX_SERVERS``
+    servers and raises ``RuntimeError`` on a wider one before the launch.
     """
     dev = acc.device
     if dev.type == "cpu":
@@ -149,8 +151,11 @@ def gus_assign(
         ("max_as", max_as, f32, (B,)), ("max_cs", max_cs, f32, (B,)),
     ):
         _check(name, t, dtype, shape, dev)
-    if _FRAMES_PER_BLOCK * 4 * M * 4 > _SMEM_LIMIT:
-        raise ValueError(f"gus_assign: M={M} servers exceed the kernel's shared memory")
+    if M * L > MAX_CELLS or M > MAX_SERVERS:
+        raise RuntimeError(
+            f"gus_assign: a request row of M={M} servers x L={L} variants is wider than "
+            f"the kernel takes (M * L <= {MAX_CELLS} cells, M <= {MAX_SERVERS} servers)"
+        )
     out_j = torch.empty((B, N), dtype=torch.int32, device=dev)
     out_l = torch.empty((B, N), dtype=torch.int32, device=dev)
     w = torch.zeros((B, M), dtype=f32, device=dev)

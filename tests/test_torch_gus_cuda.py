@@ -112,3 +112,84 @@ def test_congested_fleet_equals_cpu(cuda):
     np.testing.assert_array_equal(g.satisfied_per_rep, c.satisfied_per_rep)
     np.testing.assert_array_equal(g.final_backlog_per_rep, c.final_backlog_per_rep)
     np.testing.assert_allclose(g.mean_us_per_rep, c.mean_us_per_rep, rtol=1e-5, atol=1e-6)
+
+
+def _random_batch(dev, B, N, M, L, seed, **kw):
+    """B frames of random rows (numpy, from ``seed``): feasible cells with
+    random utilities and costs, budgets that run out part way."""
+    rng = np.random.default_rng(seed)
+    f = {
+        "cover": rng.integers(0, M, (B, N)).astype(np.int32),
+        "A": rng.uniform(20, 60, (B, N)), "C": rng.uniform(500, 3000, (B, N)),
+        "w_a": rng.uniform(0.5, 1.5, (B, N)), "w_c": rng.uniform(0.5, 1.5, (B, N)),
+        "acc": rng.uniform(10, 100, (B, N, M, L)), "ctime": rng.uniform(100, 4000, (B, N, M, L)),
+        "v": rng.uniform(0.5, 3, (B, N, M, L)), "u": rng.uniform(0, 2, (B, N, M, L)),
+        "avail": rng.random((B, N, M, L)) < 0.7,
+        "gamma": rng.uniform(0.2, 1.0, (B, M)) * N + 3, "eta": rng.uniform(0.1, 0.6, (B, M)) * N + 2,
+        "max_as": np.full(B, 100.0), "max_cs": np.full(B, 4000.0),
+    }
+    f.update(kw)
+    return tuple(
+        torch.tensor(np.asarray(f[k]), dtype=torch.bool if k == "avail" else
+                     torch.int32 if k == "cover" else torch.float32, device=dev)
+        for k in FIELDS
+    )
+
+
+def _assert_args_equal(args):
+    got = gus_assign(*args)
+    want = gus_assign_ref(*args)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("j", "l", "w", "c")):
+        assert torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("N", [1, 7, 257])
+@pytest.mark.parametrize("M,L", [(10, 10), (3, 7), (40, 3)])
+def test_ragged_shapes(cuda, N, M, L):
+    """Request counts that are no multiple of the kernel's tile, rows of
+    M * L = 21 cells, whose avail bytes start unaligned at every row, and
+    M = 40 servers, whose budgets live in shared memory."""
+    j, _, _, _ = _assert_args_equal(_random_batch(cuda, 9, N, M, L, seed=N * 100 + L))
+    assert bool((j >= 0).any())
+
+
+@pytest.mark.parametrize("M,L", [(16, 256), (256, 16)])
+def test_row_at_the_width_limit(cuda, M, L):
+    """A row of exactly MAX_CELLS cells launches (budgets in registers and in
+    shared memory) and equals the plain version."""
+    from repro_torch.kernels.gus import MAX_CELLS
+
+    assert M * L == MAX_CELLS
+    n0 = gus_assign.launches
+    _assert_args_equal(_random_batch(cuda, 2, 5, M, L, seed=M))
+    assert gus_assign.launches == n0 + 1
+
+
+@pytest.mark.parametrize("M,L", [(17, 241), (1025, 1)])
+def test_row_above_the_width_limit_raises_before_launch(cuda, M, L):
+    from repro_torch.kernels.gus import MAX_CELLS, MAX_SERVERS
+
+    assert M * L > MAX_CELLS or M > MAX_SERVERS
+    args = _random_batch(cuda, 1, 2, M, L, seed=0)
+    n0 = gus_assign.launches
+    with pytest.raises(RuntimeError, match="wider than the kernel takes"):
+        gus_assign(*args)
+    assert gus_assign.launches == n0
+
+
+def test_single_frame(cuda):
+    """B = 1: the sequential simulator's launch shape."""
+    batch = P.generate_batch(3, 1, device=cuda)
+    _assert_kernel_equals_plain(batch)
+
+
+def test_spent_budgets(cuda):
+    """Every budget 0: nothing with a cost fits, every request is dropped
+    (a free candidate, v = u = 0, would still fit)."""
+    batch = P.generate_batch(4, 64, device=cuda)
+    args = list(_args(batch))
+    args[10], args[11] = torch.zeros_like(args[10]), torch.zeros_like(args[11])
+    j, _, w, c = _assert_args_equal(tuple(args))
+    assert bool((j == -1).all()) and not w.any() and not c.any()
