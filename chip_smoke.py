@@ -39,7 +39,22 @@ any phase fails:
    the CPU; then the scenario's own defaults (streamed arrivals, 2400 req/s
    per edge, ~1.4e5 users per frame), 8 replications, ``window=1``,
    ``prefetch=2`` — the hierarchical main path, whose launches are counted;
-5. holds the attention kernels against their plain versions on the card
+5. runs every scheduling policy on the GUS kernel: each GUS-cored policy
+   (``gus-ordered`` with and without priority weights, ``random`` with
+   threefry keys, ``offload_all``, ``local_all``, ``gus-adaptive`` with a
+   carry that shades overloaded servers and masks a down one) must equal its
+   plain version (0 mismatches) on the paper batch and the golden frames;
+   then the sequential testbed ``simulate`` — the paper's ``fig_scenarios``
+   matrix, every registered policy on every ``dense_sweep`` scenario
+   (3 edges + 1 cloud, 30 s, 2 req/s per edge, seed 0), plus ``gus`` and
+   ``gus-adaptive`` congested at a half drain — on the card must equal the
+   same calls on the CPU (``as_dict()``, bandwidth estimates, congestion
+   stats): the sequential main path, whose B=1 GUS launches are counted;
+   one point of Fig. 1(e)-(h) (200 requests, 120 s) for every batched
+   policy, timed; and the dense fleet of phase 3 with ``random`` (one
+   threefry key per replication and frame) and ``gus-ordered``: 64
+   replications equal to the CPU, then 1024 in windows of 5, counted;
+6. holds the attention kernels against their plain versions on the card
    (ragged lengths, GQA rep 1/4/8, window None and 8, head_dim 64, 128 and
    160, f32 and bf16: both flash routes; decode in one span and in several,
    masks partly and wholly invalid, a span with no valid position, and
@@ -47,7 +62,7 @@ any phase fails:
    (f32, GQA rep 4, a 16-token window whose ring wraps: the CUDA-core flash
    route) on the card against the same weights on the CPU: prefill logits
    and 8 greedy tokens;
-6. serves yi-9b at full width and depth (48 layers, bf16, seeded random
+7. serves yi-9b at full width and depth (48 layers, bf16, seeded random
    weights on the card): ``ServingEngine.generate`` on batch 8 x a
    1024-token prompt from ``make_batch(seed=0)``, 32 greedy tokens — the
    serving main path, whose 48 ``flash_attention`` launches (all on the
@@ -56,7 +71,7 @@ any phase fails:
    against argmax decoding by one full re-forward (in f32, at full width
    and 8 layers); ``torch.profiler`` splits one prefill's and four decode
    steps' device time by kernel kind and gives the device's busy share;
-7. holds both SSD routes against the plain version on the card (S a
+8. holds both SSD routes against the plain version on the card (S a
    multiple of the chunk and ragged, G = 1, 2 and 3, N = 16, 64 and 128,
    f32 and bf16, with and without the final state, and both SSM main
    paths' launch shapes; each launch's route counted), flash and decode
@@ -64,7 +79,7 @@ any phase fails:
    zamba2-1.2b's shapes (H = KV = 32, hd 64), then small f32 ``ssm`` and
    ``hybrid`` models (4 layers, a ragged prompt) on the card against the
    same weights on the CPU: forward and prefill logits, 8 greedy tokens;
-8. serves zamba2-1.2b (38 Mamba-2 layers, 7 shared-attention sites) and
+9. serves zamba2-1.2b (38 Mamba-2 layers, 7 shared-attention sites) and
    mamba2-130m (24 layers) at full width and depth (bf16, seeded random
    weights) on batch 8 x a 2048-token prompt from ``make_batch(seed=0)``,
    32 greedy tokens — the SSM slice's main paths, each counted on its own:
@@ -75,11 +90,11 @@ any phase fails:
    splits zamba2's prefill and decode device time by kernel kind; then one
    teacher-forcing ``forward`` of mamba2-130m at 8 x 2048 (24 counted
    launches, no state output);
-9. checks prefill + decode against one forward in f32 at full width and
+10. checks prefill + decode against one forward in f32 at full width and
    depth (a 200-token prompt, 8 decode steps; the SSD's CUDA-core route):
    within 5e-3 for mamba2-130m, and for zamba2-1.2b with its shared
    attention's q/k/v rescaled to a fan-in of d_model;
-10. times each kernel with CUDA events at its main path's launch shape
+11. times each kernel with CUDA events at its main path's launch shape
    beside its plain version, its bound (bytes over the card's memory
    rate, or operations over its rate) and, for attention, one
    ``scaled_dot_product_attention`` call as a library yardstick (never
@@ -90,9 +105,13 @@ any phase fails:
    time; the SSD's CUDA-core route at the same bf16 shapes beside its
    tensor-core route; the GUS kernel also at one frame (B=1, eager and
    device time) and on its window with every budget spent (its chain
-   floor); the class allocator's chain floor (the same window with every
-   budget spent, so each class takes the shortest step);
-11. prints one JSON line listing every ported kernel, then the contract line
+   floor); the ordered policy at the paper batch, the scaled entry (priority
+   weights) beside the plain entry at the fleet window, in turns, and the
+   kernel at one decision of ``simulate`` (B=1: device time, eager, and with
+   the wrapper's host time and the copy back); the class allocator's chain
+   floor (the same window with every budget spent, so each class takes the
+   shortest step);
+12. prints one JSON line listing every ported kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device,
@@ -385,7 +404,7 @@ def tree_size(tree):
 
 def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
                   gen=SERVE_GEN):
-    """Phases 5-6 and the attention part of phase 10: the attention kernels
+    """Phases 6-7 and the attention part of phase 11: the attention kernels
     against their plain versions, the small model on the card against the
     CPU, the counted serving main path (``cfg_serve`` at its own width and
     depth, ``batch`` x ``prompt`` tokens, ``gen`` greedy tokens) and both
@@ -413,7 +432,7 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
     from repro_torch.serving import ServingEngine
     from repro_torch.training import make_batch
 
-    # -- 5. the attention kernels vs their plain versions, the small model
+    # -- 6. the attention kernels vs their plain versions, the small model
     #       on the card vs the CPU --------------------------------------------
     attn_err = {"flash_attention": 0.0, "decode_attention": 0.0}
 
@@ -488,7 +507,7 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
     check(np.array_equal(tok_card, tok_cpu), "the small model's greedy tokens differ")
     serve(cfg_serve.arch_id, batch=2, prompt=24, gen=4)  # the serving command, reduced config, on the card
 
-    # -- 6. the serving main path: at full width and depth ------------------
+    # -- 7. the serving main path: at full width and depth ------------------
     serve_model = Model(cfg_serve)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -614,7 +633,7 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
 
 def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=SSM_PROMPT,
               gen=SERVE_GEN, acc_prompt=SSM_ACC_PROMPT, acc_steps=SSM_ACC_STEPS):
-    """Phases 7-9 and the SSM slice's part of phase 10: the SSD kernel
+    """Phases 8-10 and the SSM slice's part of phase 11: the SSD kernel
     against its plain version, flash and decode at the hybrid's shapes, the
     small ``ssm`` and ``hybrid`` models on the card against the CPU, the
     counted main paths (``hybrid_cfg`` and ``ssm_cfg`` served at their own
@@ -675,7 +694,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         check(ssd_scan.route_launches[route] == before + 1,
               f"ssd_scan did not launch its {route} route")
 
-    # -- 7. the SSD kernel vs its plain version; flash and decode at the
+    # -- 8. the SSD kernel vs its plain version; flash and decode at the
     #       hybrid's shapes ---------------------------------------------------
     t0 = time.perf_counter()
     for dtype in ("float32", "bfloat16"):
@@ -708,7 +727,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
     hybrid_launch.compare(attn_err, f"{hybrid_cfg.arch_id} launch")
     print(f"ssd/attention kernel comparisons: {time.perf_counter() - t0:.3f} s")
 
-    # -- 7. (cont.) the small ssm and hybrid models on the card vs the CPU ---
+    # -- 8. (cont.) the small ssm and hybrid models on the card vs the CPU ---
     for cfg in (hybrid_cfg, ssm_cfg):
         t0 = time.perf_counter()
         small = dataclasses.replace(reduce_for_smoke(cfg), num_layers=4)
@@ -735,7 +754,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         check(np.array_equal(tok_card, tok_cpu), f"the small {small.family} model's tokens differ")
         serve(cfg.arch_id, batch=2, prompt=37, gen=4, device=dev)  # the serving command, reduced
 
-    # -- 8. the main paths: the hybrid and the ssm model at full width and
+    # -- 9. the main paths: the hybrid and the ssm model at full width and
     #       depth, then the ssm model's teacher-forcing forward --------------
     def counts():
         return {"ssd_scan": ssd_scan.launches, "ssd_routes": dict(ssd_scan.route_launches),
@@ -820,7 +839,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
             del logits
         del engine, params
 
-    # -- 9. f32 at full width and depth: prefill + decode == forward ---------
+    # -- 10. f32 at full width and depth: prefill + decode == forward --------
     def decode_vs_forward(cfg, rescale):
         """Max |logit| difference between prefill + teacher-forced decode and
         one forward over the same tokens, f32, ragged prompt; and the share
@@ -871,7 +890,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
     check(f32_routes["simt"] > 0 and f32_routes["wgmma"] == 0,
           "the f32 checks must run the CUDA-core SSD route")
 
-    # -- 10. timing at both main-path launch shapes --------------------------
+    # -- 11. timing at both main-path launch shapes --------------------------
     def ssd_bound(B, H, G, S, P, N, Q, dtype):
         """Each input read once and each output written once (y and the f32
         final state, as prefill asks); the operations the chunked form needs
@@ -1051,6 +1070,293 @@ def dense_fleet_window(dev, n_rep, window):
     return spec, cfg, FlatInstance(**{f: host[f].to(dev) for f in fields})
 
 
+#: the sequential testbed's matrix: benchmarks/paper_figures.py::fig_scenarios
+#: at its full size (_base_cfg(False, horizon_ms=30_000)), one seed
+SEQ_CFG = dict(horizon_ms=30_000.0, arrival_rate_per_s=2.0, delay_req_ms=6000.0,
+               acc_req_mean=50.0, acc_req_std=10.0)
+#: one point of Fig. 1(e)-(h) (paper_figures.py::fig_num_users): 200 requests
+#: submitted over a 120 s horizon on demo_cluster_spec()
+FIG1_CFG, FIG1_REQUESTS = dict(SEQ_CFG, horizon_ms=120_000.0), 200
+
+
+def gus_kernel_args(batch):
+    """``gus_assign``'s arguments for a batch of frames."""
+    B = batch.A.shape[0]
+    return tuple(
+        getattr(batch, f.name).expand(B).contiguous() if f.name in ("max_as", "max_cs")
+        else getattr(batch, f.name).contiguous()
+        for f in dataclasses.fields(batch)
+    )
+
+
+class plain_gus:
+    """Inside the block every GUS-cored policy takes GUS's plain version
+    (``REPRO_TORCH_GUS_BACKEND=torch``), on whatever device its frames are."""
+
+    def __enter__(self):
+        import os
+
+        from repro_torch.core.options import ENV_BACKEND
+
+        self.old = os.environ.get(ENV_BACKEND)
+        os.environ[ENV_BACKEND] = "torch"
+
+    def __exit__(self, *exc):
+        import os
+
+        from repro_torch.core.options import ENV_BACKEND
+
+        if self.old is None:
+            os.environ.pop(ENV_BACKEND, None)
+        else:
+            os.environ[ENV_BACKEND] = self.old
+
+
+def policies_smoke(dev, zero_counts, paper, golden, fleet_spec, fleet_cfg, fleet_win,
+                   n_rep_scale, window):
+    """Phase 5 and the policies' part of phase 11: every GUS-cored policy's
+    kernel path against its plain version on the paper batch and the golden
+    frames, the sequential testbed's matrix on the card against the CPU
+    (its B=1 launches counted), a point of Fig. 1(e)-(h), the dense fleet
+    with the keyed and the ordered policy against the CPU and at
+    ``n_rep_scale`` replications (counted), then the timings: the ordered
+    policy at the paper batch, the scaled entry beside the plain one at the
+    fleet window, and one B=1 decision of ``simulate``.  Returns
+    ``(mismatch_count, launches_by_path, timings)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        CongestionConfig,
+        EngineOptions,
+        Policy,
+        SimConfig,
+        demo_cluster_spec,
+        fleet_policy_carry,
+        get_policy,
+        get_scenario,
+        gus_schedule_ordered,
+        list_policies,
+        list_scenarios,
+        prng,
+        simulate,
+        simulate_fleet,
+    )
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gus import gus_assign, gus_assign_ref
+    from repro_torch.kernels.hier import hier_cells
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    def others_idle(what):
+        check(hier_cells.launches == flash_attention.launches == decode_attention.launches
+              == ssd_scan.launches == 0, f"{what} launched another kernel")
+
+    # -- 5a. each GUS-cored policy's kernel path vs its plain version --------
+    mism_total = 0
+
+    def policy_calls(batch, seed):
+        B, N, M, _ = batch.acc.shape
+        rng = np.random.default_rng(seed)
+        keys = prng.split(prng.PRNGKey(seed), B)
+        prio = torch.from_numpy(rng.uniform(0.05, 4.0, (B, N)).astype(np.float32)).to(dev)
+        carry = fleet_policy_carry(B, M, device=dev)
+        up = torch.ones((B, M), dtype=torch.float32)
+        up[:, 1] = 0.0  # server 1 reported down
+        carry = dataclasses.replace(
+            carry, server_up=up.to(dev),
+            ema_util=torch.from_numpy(rng.uniform(0.0, 2.5, (B, M)).astype(np.float32)).to(dev))
+
+        def bind(name):
+            return get_policy(name).bind(M - 1, M)
+
+        return {
+            "gus-ordered": lambda: bind("gus-ordered")(batch),
+            "gus-ordered priority": lambda: gus_schedule_ordered(batch, prio, device=dev),
+            "random": lambda: bind("random")(batch, keys),
+            "offload_all": lambda: bind("offload_all")(batch),
+            "local_all": lambda: bind("local_all")(batch),
+            "gus-adaptive": lambda: bind("gus-adaptive")(batch, carry)[0],
+        }
+
+    def compare_policies(label, batch, seed=0):
+        nonlocal mism_total
+        for name, call in policy_calls(batch, seed).items():
+            n0 = gus_assign.launches
+            a = call()
+            launched = gus_assign.launches - n0
+            with plain_gus():
+                b = call()
+            sync(dev)
+            mism = int((a.j != b.j).sum()) + int((a.l != b.l).sum())
+            mism_total += mism
+            served = float((a.j >= 0).float().mean())
+            print(f"compare policy {name} on {label}: B={batch.A.shape[0]} N={batch.A.shape[1]} "
+                  f"kernel launches={launched} mismatches={mism} served={served:.4f}")
+            check(mism == 0, f"policy {name}'s kernel path != its plain version on {label}")
+            check(launched == 1, f"policy {name} did not launch the GUS kernel once")
+
+    t0 = time.perf_counter()
+    compare_policies("paper batch N=100 M=10 L=10", paper)
+    for stem, one in golden:
+        compare_policies(stem, one, seed=1)
+    print(f"policy comparisons: {time.perf_counter() - t0:.3f} s")
+
+    # -- 5b. the sequential testbed's matrix: card vs CPU, B=1 launches ------
+    seq_spec = demo_cluster_spec(n_edge=3, n_cloud=1)
+    seq_cfg = SimConfig(**SEQ_CFG)
+    dense = [s for s in list_scenarios() if get_scenario(s).dense_sweep]
+    runs = [(pol, scn, CongestionConfig()) for scn in dense for pol in list_policies()]
+    drain = CongestionConfig(enabled=True, drain=0.5)
+    runs += [(pol, scn, drain) for pol in ("gus", "gus-adaptive")
+             for scn in ("paper-default", "sustained-overload")]
+    per_pol = {}
+    cpu_s = 0.0
+    zero_counts()
+    sync(dev)
+    t_seq = time.perf_counter()
+    for pol, scn, cong in runs:
+        cfg = dataclasses.replace(seq_cfg, congestion=cong)
+        n0 = gus_assign.launches
+        g = simulate(seq_spec, cfg, policy=pol, scenario=scn, seed=0, device=dev)
+        launched = gus_assign.launches - n0
+        t0 = time.perf_counter()
+        c = simulate(seq_spec, cfg, policy=pol, scenario=scn, seed=0, device="cpu")
+        cpu_s += time.perf_counter() - t0
+        same = (g.as_dict() == c.as_dict() and g.bandwidth_estimates == c.bandwidth_estimates
+                and g.congestion_stats == c.congestion_stats)
+        check(same, f"simulate on the card != on the CPU ({pol}, {scn}, congestion "
+                    f"{cong.enabled})")
+        host = not get_policy(pol).vmappable
+        check((launched == 0) if host else (launched > 0),
+              f"simulate {pol}: {launched} GUS launches")
+        key = pol + (" congested" if cong.enabled else "")
+        agg = per_pol.setdefault(key, dict(runs=0, requests=0, launches=0, sched_s=0.0,
+                                           build_s=0.0, realize_s=0.0, total_s=0.0, sat=[]))
+        agg["runs"] += 1
+        agg["requests"] += g.n_requests
+        agg["launches"] += launched
+        for k in ("sched_s", "build_s", "realize_s", "total_s"):
+            agg[k] += g.timings[k]
+        agg["sat"].append(g.satisfied_pct)
+    seq_wall = time.perf_counter() - t_seq - cpu_s
+    seq_launches = gus_assign.launches
+    others_idle("the sequential main path")
+    for key, a in per_pol.items():
+        per = f"{a['sched_s'] / a['launches'] * 1e3:.4f} ms" if a["launches"] else "host"
+        print(f"simulate {key}: {a['runs']} runs equal to the CPU; "
+              f"requests={a['requests']} B=1 launches={a['launches']} sched_s "
+              f"{a['sched_s']:.4f} ({per} per decision) build_s {a['build_s']:.4f} "
+              f"realize_s {a['realize_s']:.4f} total_s {a['total_s']:.4f} mean satisfied "
+              f"{np.mean(a['sat']):.3f}%")
+    print(f"sequential main path: {len(runs)} simulate runs on the card in {seq_wall:.3f} s "
+          f"(the CPU's {cpu_s:.3f} s aside), gus_assign launches={seq_launches} (B=1)")
+    check(seq_launches > 0, "the sequential main path never launched the GUS kernel")
+    gus_seq = per_pol["gus"]
+
+    # -- 5c. one point of Fig. 1(e)-(h): every batched policy, timed --------
+    fig_spec = demo_cluster_spec()
+    fig_cfg = SimConfig(**FIG1_CFG)
+    for pol in [p for p in list_policies() if get_policy(p).vmappable]:
+        n0 = gus_assign.launches
+        t0 = time.perf_counter()
+        g = simulate(fig_spec, fig_cfg, policy=pol, seed=0, n_requests=FIG1_REQUESTS, device=dev)
+        wall = time.perf_counter() - t0
+        c = simulate(fig_spec, fig_cfg, policy=pol, seed=0, n_requests=FIG1_REQUESTS,
+                     device="cpu")
+        check(g.as_dict() == c.as_dict(), f"Fig. 1 point {pol}: card != CPU")
+        print(f"fig1 num-users n={FIG1_REQUESTS} {pol}: satisfied {g.satisfied_pct:.3f}% "
+              f"mean_us {g.mean_us:.5f} wall {wall:.4f} s ({gus_assign.launches - n0} launches) "
+              "timings " + json.dumps({k: round(v, 4) for k, v in g.timings.items()}))
+
+    # -- 5d. the dense fleet with the keyed and the ordered policy -----------
+    launches_by_path = {"sequential simulate (B=1)": seq_launches}
+    for pol in ("random", "gus-ordered"):
+        def run(n_rep, device, **opt):
+            return simulate_fleet(fleet_spec, fleet_cfg, policy=pol, scenario="paper-default",
+                                  n_rep=n_rep, seed=0, device=device,
+                                  options=EngineOptions(rng_mode="vectorized", **opt))
+
+        g, c = run(64, dev), run(64, "cpu")
+        same = (g.n_requests == c.n_requests and g.n_served == c.n_served
+                and np.array_equal(g.satisfied_per_rep, c.satisfied_per_rep))
+        us_err = float(np.abs(g.mean_us_per_rep - c.mean_us_per_rep).max())
+        print(f"fleet {pol} n_rep=64: requests={g.n_requests} served={g.n_served} "
+              f"integer_fields_equal={same} mean_us_max_abs_diff={us_err}")
+        check(same and np.allclose(g.mean_us_per_rep, c.mean_us_per_rep, rtol=US_RTOL,
+                                   atol=US_ATOL), f"fleet {pol} on the card != the CPU")
+        zero_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        fr = run(n_rep_scale, dev, window=window)
+        wall = time.perf_counter() - t0
+        n = gus_assign.launches
+        others_idle(f"the {pol} fleet")
+        check(n > 0 and 0 < fr.n_served <= fr.n_requests
+              and np.isfinite(fr.mean_us_per_rep).all(), f"fleet {pol} scale run malformed")
+        check(np.array_equal(fr.satisfied_per_rep[:64], g.satisfied_per_rep),
+              f"fleet {pol}: the scale run's first 64 replications disagree")
+        launches_by_path[f"dense fleet {pol} ({n_rep_scale} reps)"] = n
+        print(f"fleet {pol} n_rep={fr.n_rep} window={fr.window}: wall {wall:.3f} s dispatch_s "
+              f"{fr.dispatch_s:.3f} gen_s {fr.gen_s:.3f} requests={fr.n_requests} "
+              f"requests/s {fr.n_requests / wall:.1f} satisfied={fr.satisfied_pct:.4f}% "
+              f"gus_assign launches={n}")
+
+    # -- 11 (policies). timings ---------------------------------------------
+    timings = {}
+    ordered = get_policy("gus-ordered").bind(9, 10)
+    timings["gus_ordered_paper_ms"] = time_events(lambda: ordered(paper), 5)
+    with plain_gus():
+        timings["gus_ordered_paper_plain_ms"] = time_events(lambda: ordered(paper), 1, warmup=1)
+    print(f"time gus-ordered policy at the paper batch B=20000 N=100 (sort, permute, kernel, "
+          f"scatter): {timings['gus_ordered_paper_ms']:.4f} ms, plain "
+          f"{timings['gus_ordered_paper_plain_ms']:.4f} ms")
+
+    args = gus_kernel_args(fleet_win)
+    B, N = fleet_win.A.shape
+    prio = torch.from_numpy(
+        np.random.default_rng(0).uniform(0.5, 2.0, (B, N)).astype(np.float32)).to(dev)
+    got, want = gus_assign(*args, prio), gus_assign_ref(*args, prio)
+    sync(dev)
+    mism = sum(int((g_ != w_).sum()) for g_, w_ in zip(got, want))
+    mism_total += mism
+    check(mism == 0, "the scaled entry != its plain version at the fleet window")
+    calls = {"plain entry": lambda: gus_assign(*args), "scaled entry": lambda: gus_assign(*args, prio)}
+    t = {"plain entry": [], "scaled entry": []}
+    for name in ("plain entry", "scaled entry", "scaled entry", "plain entry"):
+        t[name].append(time_events(calls[name], 10))
+    timings["window_plain_entry_ms"] = t["plain entry"]
+    timings["window_scaled_entry_ms"] = t["scaled entry"]
+    print(f"time gus_assign at the fleet window B={B} N={N} M=10 L=10, in turns: plain entry "
+          f"{t['plain entry'][0]:.4f} / {t['plain entry'][1]:.4f} ms, scaled entry "
+          f"{t['scaled entry'][0]:.4f} / {t['scaled entry'][1]:.4f} ms (scaled == plain "
+          f"version: 0 mismatches)")
+
+    # one B=1 decision of simulate, as the main path hands it over
+    frames = []
+    gus = get_policy("gus")
+    capture = Policy(name="gus-capture", description="gus, keeping its frames", kind="greedy",
+                     make=lambda n_edge, n_servers: lambda b: (frames.append(b),
+                                                                gus.bind(n_edge, n_servers)(b))[1])
+    simulate(seq_spec, seq_cfg, policy=capture, scenario="paper-default", seed=0, device=dev)
+    one = max(frames, key=lambda b: b.A.shape[1])
+    args1 = gus_kernel_args(one)
+    timings["b1_eager_ms"] = time_events(lambda: gus_assign(*args1), 200)
+    timings["b1_device_ms"] = time_graph(lambda: gus_assign(*args1), 50)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        j, _, _, _ = gus_assign(*args1)
+        j.cpu()
+    timings["b1_host_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+    timings["b1_sched_ms_per_decision"] = gus_seq["sched_s"] / max(gus_seq["launches"], 1) * 1e3
+    print(f"time gus_assign one simulate decision (B=1 N={one.A.shape[1]} M={one.acc.shape[2]} "
+          f"L={one.acc.shape[3]}): {timings['b1_device_ms']:.4f} ms device (CUDA-graph replay), "
+          f"{timings['b1_eager_ms']:.4f} ms eager, {timings['b1_host_ms']:.4f} ms with the "
+          f"wrapper's host time and the copy back; simulate's sched_s per decision "
+          f"{timings['b1_sched_ms_per_decision']:.4f} ms (padding, H2D, launch, D2H)")
+    return mism_total, launches_by_path, timings
+
+
 def main() -> int:
     import torch
 
@@ -1117,14 +1423,6 @@ def main() -> int:
     # -- 2. kernel vs plain version on the card -----------------------------
     max_err = 0.0
 
-    def kernel_args(batch):
-        B = batch.A.shape[0]
-        return tuple(
-            getattr(batch, f).expand(B).contiguous() if f in ("max_as", "max_cs")
-            else getattr(batch, f).contiguous()
-            for f in fields
-        )
-
     def compare(label, batch, **relax):
         nonlocal max_err
         a = gus_schedule_batch(batch, backend="cuda", device=dev, **relax)
@@ -1150,9 +1448,11 @@ def main() -> int:
         one = FlatInstance.from_numpy(d, dev)
         return FlatInstance(**{f: getattr(one, f)[None] for f in fields})
 
+    golden = []
     for path in sorted((ROOT / "tests" / "fixtures").glob("gus_golden_*.npz")):
         d = np.load(path)
-        a = compare(path.stem, batch_of_one(d))
+        golden.append((path.stem, batch_of_one(d)))
+        a = compare(path.stem, golden[-1][1])
         check(
             np.array_equal(a.j[0].cpu().numpy(), d["exp_j"])
             and np.array_equal(a.l[0].cpu().numpy(), d["exp_l"]),
@@ -1488,18 +1788,23 @@ def main() -> int:
     )
     check(int(n_arr.sum()) < fh.n_requests, "the compared window is not the main path's")
 
-    # -- 5.-6. attention kernels, the small model, the serving main path,
+    # -- 5. every policy on the GUS kernel, the sequential testbed (B=1
+    #       launches), the keyed and ordered dense fleets; their timings ----
+    pol_mism, pol_launches, pol_times = policies_smoke(
+        dev, zero_counts, paper, golden, spec, cfg, fleet_win, n_rep_scale, window)
+
+    # -- 6.-7. attention kernels, the small model, the serving main path,
     #         attention timing ---------------------------------------------
     attn = serving_smoke(dev, zero_counts, get_config(SERVE_ARCH))
 
-    # -- 7.-10. the SSD kernel, the ssm and hybrid models, their main paths,
+    # -- 8.-10. the SSD kernel, the ssm and hybrid models, their main paths,
     #          SSD timing ---------------------------------------------------
     ssd, hybrid_attn = ssm_smoke(dev, zero_counts, get_config(SSM_HYBRID_ARCH),
                                  get_config(SSM_ARCH))
     for name in ("flash_attention", "decode_attention"):
         attn[name][SSM_HYBRID_ARCH] = hybrid_attn[name]  # the same kernel on the hybrid's path
 
-    # -- 10. kernel timing (the scheduler kernels) ---------------------------
+    # -- 11. kernel timing (the scheduler kernels) ---------------------------
     def time_kernel(args, reps):
         for _ in range(2):
             gus_assign(*args)
@@ -1540,7 +1845,7 @@ def main() -> int:
         ("fleet window launch B=5120 N=256 M=10 L=10", fleet_win),
         ("chain floor: fleet window, every budget spent", fleet_spent),
     ):
-        args = kernel_args(batch)
+        args = gus_kernel_args(batch)
         ms = time_kernel(args, 10)
         plain_ms = time_plain(args)
         b_ms, b_by = bound(batch)
@@ -1555,7 +1860,7 @@ def main() -> int:
     gus_floor_ms = timing["chain floor: fleet window, every budget spent"][0]
     # one frame is short enough for the wrapper's host time to show in eager
     # timing: its device time too, by one replay of a captured CUDA graph
-    first_args = kernel_args(fleet_first)
+    first_args = gus_kernel_args(fleet_first)
     first_dev_ms = time_graph(lambda: gus_assign(*first_args), 50)
     print(f"time gus_assign fleet first frame B=1: {first_dev_ms:.4f} ms device "
           f"(CUDA-graph replay), {timing['fleet first frame B=1 N=256 M=10 L=10'][0]:.4f} ms eager")
@@ -1609,6 +1914,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/gus_pallas.py:155",
         "launches": launches,
         "max_abs_err": max_err,
+        "policy_mismatches": pol_mism,
         "ms": main_ms,
         "plain_ms": main_plain,
         "bound_ms": main_bound,
@@ -1616,6 +1922,8 @@ def main() -> int:
         "library_ms": None,
         "chain_floor_ms": gus_floor_ms,
         "single_frame_ms": first_dev_ms,
+        "launches_by_path": {f"dense fleet gus ({n_rep_scale} reps)": launches, **pol_launches},
+        **pol_times,
     }, {
         "name": "hier_cells",
         "route": "cuda",

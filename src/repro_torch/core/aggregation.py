@@ -17,12 +17,17 @@ requests, each class's members consumed in ascending request index.
   :func:`class_keys` — the fleet path, which never builds a dense
   ``N x M x L`` grid;
 * :func:`aggregate_instance` keys the rows of an already-built
-  :class:`~repro_torch.core.instance.FlatInstance` on exact grid content
-  (lossless classes) — the tests build class grids with it.
-
-The per-frame ``gus-hier`` policy of the sequential ``simulate``
-(``hier_assign``, ``make_gus_hier``, ``hier_schedule_np``) is not ported
-yet (ROADMAP.md §1, item 1).
+  :class:`~repro_torch.core.instance.FlatInstance` on its grid content
+  (exact values, or ``ctime``/``u`` rounded to ``decimals``) — the per-frame
+  ``gus-hier`` policy and the tests build class grids with it;
+* :func:`hier_assign` is the global pass over one frame's classes: in
+  ``exact`` mode it consumes members one at a time with float32 budgets,
+  the reference's host loop, so lossless classes reproduce dense GUS bit
+  for bit; otherwise it sizes chunks analytically through the class
+  allocator's plain version (:func:`repro_torch.kernels.hier.hier_cells_ref`
+  on the CPU), the fleet's op sequence;
+* :func:`make_gus_hier` / :func:`hier_schedule_np` are the per-frame
+  ``gus-hier`` scheduler: host-side numpy in both packages.
 """
 from __future__ import annotations
 
@@ -32,6 +37,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels.hier import NEG, hier_cells_ref
+
+from .gus import Assignment
 from .instance import FlatInstance, resolve_device
 from .satisfaction import hard_feasible, us_tensor
 
@@ -43,6 +51,9 @@ __all__ = [
     "class_batch",
     "class_keys",
     "deaggregate",
+    "hier_assign",
+    "hier_schedule_np",
+    "make_gus_hier",
 ]
 
 
@@ -101,20 +112,25 @@ def _group(inv: np.ndarray, n_classes: int):
     return count, first_idx, members, offsets
 
 
-def aggregate_instance(inst: FlatInstance) -> AggregateClasses:
+def aggregate_instance(inst: FlatInstance, decimals: Optional[int] = None) -> AggregateClasses:
     """Bucket an unbatched :class:`FlatInstance`'s rows into QoS classes.
 
     Two requests share a class iff their scheduling problem is identical:
     same covering edge, same QoS (``A``, ``C``, weights) and the same
-    ``ctime``/``v``/``u``/``acc``/``avail`` rows, keyed on exact values
-    (lossless classes).  The representative of each class is its
-    lowest-index member.
+    ``ctime``/``v``/``u``/``acc``/``avail`` rows.  ``decimals=None`` keys on
+    exact values (lossless classes); an integer rounds ``ctime`` and ``u``
+    first (``numpy.round``), merging near-identical requests.  The
+    representative of each class is its lowest-index member, whose
+    *unrounded* rows feed utility and feasibility.
     """
     a = inst.numpy()
     A = a["A"]
     N = A.shape[0]
     ct = a["ctime"].astype(np.float64)
     uu = a["u"].astype(np.float64)
+    if decimals is not None:
+        ct = np.round(ct, decimals)
+        uu = np.round(uu, decimals)
     mat = np.concatenate(
         [
             a["cover"].astype(np.float64)[:, None],
@@ -310,3 +326,130 @@ def deaggregate(agg: AggregateClasses, chunks: np.ndarray, n_requests: int):
         out_l[sel] = l
         ptr[c] += take
     return out_j, out_l
+
+
+def hier_assign(
+    agg: AggregateClasses,
+    gamma: np.ndarray,
+    eta: np.ndarray,
+    *,
+    exact: bool = False,
+) -> np.ndarray:
+    """Global pass: chunked greedy over one frame's class aggregates.
+
+    Classes are taken in first-request-index order (the order dense GUS
+    visits their members).  Each class repeats: pick the feasible
+    utility-argmax cell (first occurrence on the flat ``j * L + l`` axis),
+    fit as many members as the ``gamma``/``eta`` budgets allow, commit,
+    until the class is exhausted or nothing fits.  Local cells charge only
+    the server's ``gamma``; offload cells also the covering edge's ``eta``.
+
+    ``exact=True`` consumes members one at a time with float32 budget
+    subtraction (the reference's loop, op for op), reproducing dense GUS on
+    lossless classes; ``exact=False`` sizes chunks analytically through the
+    class allocator's plain version on the CPU, the fleet's op sequence.
+
+    Returns an ``(n_chunks, 4)`` int64 array of ``(class, j, l, take)`` in
+    allocation order.
+    """
+    if agg.n_classes == 0:
+        return np.zeros((0, 4), np.int64)
+
+    if not exact:  # analytic mode: the class allocator's cells, one frame
+        order_all = np.argsort(agg.first_idx, kind="stable")
+
+        def one(x, dtype):
+            return torch.from_numpy(np.ascontiguousarray(np.asarray(x)[order_all], dtype))[None]
+
+        take, start = hier_cells_ref(
+            one(agg.us, np.float32), one(agg.feas, bool), one(agg.v, np.float32),
+            one(agg.u, np.float32), one(agg.cover, np.int32), one(agg.count, np.int32),
+            torch.tensor(np.asarray(gamma, np.float32))[None],
+            torch.tensor(np.asarray(eta, np.float32))[None],
+        )
+        take, start = take[0].numpy(), start[0].numpy()
+        ci, jj, ll = np.nonzero(take > 0)
+        if ci.size == 0:
+            return np.zeros((0, 4), np.int64)
+        # classes allocate strictly in order and within a class ``start`` is
+        # the running member offset, so (class position, start) IS the
+        # allocation order
+        o = np.lexsort((start[ci, jj, ll], ci))
+        return np.column_stack(
+            [order_all[ci], jj, ll, take[ci, jj, ll]]
+        )[o].astype(np.int64)
+
+    gamma = np.asarray(gamma, np.float32).copy()
+    eta = np.asarray(eta, np.float32).copy()
+    M = gamma.shape[0]
+    L = agg.us.shape[-1]
+    server = np.arange(M)
+
+    # pass-1 screening: classes infeasible everywhere never enter the queue
+    alive = agg.feas.any(axis=(1, 2))
+    order = np.argsort(agg.first_idx, kind="stable")
+    order = order[alive[order]]
+
+    chunks = []
+    for c in order:
+        rem = int(agg.count[c])
+        s = int(agg.cover[c])
+        row_us = agg.us[c]
+        row_v = np.asarray(agg.v[c], np.float32)
+        row_u = np.asarray(agg.u[c], np.float32)
+        local = (server == s)[:, None]
+        feas = agg.feas[c]
+        while rem > 0:
+            ok = feas & (row_v <= gamma[:, None]) & (local | (row_u <= eta[s]))
+            if not ok.any():
+                break
+            flat = int(np.argmax(np.where(ok, row_us, NEG)))
+            j, l = divmod(flat, L)
+            vv = row_v[j, l]
+            uv = row_u[j, l]
+            take = 0
+            while take < rem:
+                if vv > gamma[j] or (j != s and uv > eta[s]):
+                    break
+                gamma[j] -= vv
+                if j != s:
+                    eta[s] -= uv
+                take += 1
+            if take <= 0:
+                break  # float edge: argmax cell passed ``ok`` but fits zero
+            chunks.append((int(c), j, l, take))
+            rem -= take
+    if not chunks:
+        return np.zeros((0, 4), np.int64)
+    return np.asarray(chunks, np.int64)
+
+
+def make_gus_hier(decimals: Optional[int] = None):
+    """A scheduler callable running GUS over one frame's class aggregates
+    (host-side numpy; the frame's tensors are read on the CPU).
+
+    ``decimals=None`` (the registered ``gus-hier`` default) keys classes on
+    exact row content and allocates in exact mode — bit-parity with dense
+    GUS on every frame whose classes are index-contiguous, which includes
+    all frames with singleton classes.  Pass ``decimals`` to merge
+    near-identical requests (lossy, bounded satisfaction drift).
+    """
+
+    def schedule(inst: FlatInstance) -> Assignment:
+        n = int(inst.A.shape[0])
+        if n == 0:
+            z = torch.zeros(0, dtype=torch.int32)
+            return Assignment(z, z)
+        agg = aggregate_instance(inst, decimals=decimals)
+        chunks = hier_assign(
+            agg, inst.gamma.cpu().numpy(), inst.eta.cpu().numpy(), exact=True
+        )
+        out_j, out_l = deaggregate(agg, chunks, n)
+        return Assignment(torch.from_numpy(out_j), torch.from_numpy(out_l))
+
+    return schedule
+
+
+def hier_schedule_np(inst: FlatInstance) -> Assignment:
+    """Module-level exact-mode entry point (see :func:`make_gus_hier`)."""
+    return make_gus_hier()(inst)

@@ -111,7 +111,9 @@ def _relaxed_budgets(inst: FlatInstance, relax_compute: bool, relax_comm: bool):
     return gamma0, eta0
 
 
-def _run_batch(batch: FlatInstance, backend: str, relax_compute: bool, relax_comm: bool):
+def _run_batch(
+    batch: FlatInstance, backend: str, relax_compute: bool, relax_comm: bool, prio=None
+):
     B = batch.A.shape[0]
     gamma0, eta0 = _relaxed_budgets(batch, relax_compute, relax_comm)
     fn = gus_assign if backend == "cuda" else gus_assign_ref
@@ -121,6 +123,7 @@ def _run_batch(batch: FlatInstance, backend: str, relax_compute: bool, relax_com
         batch.ctime.contiguous(), batch.v.contiguous(), batch.u.contiguous(),
         batch.avail.contiguous(), gamma0.contiguous(), eta0.contiguous(),
         batch.max_as.expand(B).contiguous(), batch.max_cs.expand(B).contiguous(),
+        None if prio is None else prio.contiguous(),
     )
     return Assignment(j, l, (w, c))
 
@@ -130,16 +133,21 @@ def gus_schedule_batch(
     *,
     relax_compute: bool = False,
     relax_comm: bool = False,
+    prio=None,
     backend: Optional[str] = None,
     device=None,
 ) -> Assignment:
     """GUS over a leading instance-batch axis (one kernel launch for the
     whole batch on the ``"cuda"`` backend).  ``relax_*`` implement the
-    paper's Happy-Computation / Happy-Communication baselines."""
+    paper's Happy-Computation / Happy-Communication baselines; ``prio``
+    (``(B, N)`` float32, optional) scales each request's utility once
+    (the reference's priority weights)."""
     dev = resolve_device(device)
     batch = batch.to(dev)
+    if prio is not None:
+        prio = prio.to(device=dev, dtype=torch.float32)
     return _run_batch(
-        batch, resolve_backend(backend, dev), relax_compute, relax_comm
+        batch, resolve_backend(backend, dev), relax_compute, relax_comm, prio
     )
 
 

@@ -4,8 +4,8 @@ Only the two configuration dataclasses of ``repro.core.impairments`` are
 ported in this slice, so a :class:`~repro_torch.core.simulator.SimConfig`
 carries the same fields as the reference's.  The link traces, outage
 streams and admission control are not ported yet (ROADMAP.md §1, still to
-port: resilience): ``simulate_fleet`` raises ``NotImplementedError`` when
-either switch is on.
+port: resilience): ``simulate`` and ``simulate_fleet`` raise
+``NotImplementedError`` when either switch is on.
 """
 from __future__ import annotations
 

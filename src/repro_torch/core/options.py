@@ -24,9 +24,10 @@ dispatch (:func:`resolve_backend`).  With no explicit or environment
 choice the backend follows the device: ``"cuda"`` (the kernel) for CUDA
 tensors, ``"torch"`` (the plain loop) for CPU tensors.
 
-``simulate_fleet`` runs the dense and the hierarchical fleet, streamed or
-materialized; it raises ``NotImplementedError`` for the fields it does not
-honour yet (:func:`check_ported`).  The reference's ``rep_group`` is a JAX device-mesh
+``simulate`` and ``simulate_fleet`` raise ``NotImplementedError`` for the
+fields they do not honour yet (:func:`check_ported`); ``simulate`` ignores
+the fleet-only fields (``window``, ``prefetch``, ``devices``), as the
+reference does, so one options value can drive both.  The reference's ``rep_group`` is a JAX device-mesh
 setting and has no counterpart here.
 """
 from __future__ import annotations
@@ -63,7 +64,7 @@ ENV_SCHEDULER = "REPRO_SCHEDULER"
 
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
-    """Execution options of ``simulate_fleet``.
+    """Execution options of ``simulate`` and ``simulate_fleet``.
 
     Every field defaults to "unset" (``None``) where an environment or
     scenario default exists; :func:`resolve_options` fills those in.
@@ -182,10 +183,11 @@ def resolve_options(
     )
 
 
-def check_ported(opts: EngineOptions) -> None:
+def check_ported(opts: EngineOptions, fleet: bool = True) -> None:
     """Raise ``NotImplementedError`` for a resolved option this slice does
-    not run yet, naming the ``ROADMAP.md`` item that brings it."""
-    if opts.devices not in (None, 1):
+    not run yet, naming the ``ROADMAP.md`` item that brings it.  ``fleet``:
+    the caller is ``simulate_fleet`` (``simulate`` ignores ``devices``)."""
+    if fleet and opts.devices not in (None, 1):
         raise NotImplementedError(
             f"devices={opts.devices}: the replication axis over several CUDA "
             "devices is not ported yet (ROADMAP.md §1 item 9, still to port: "

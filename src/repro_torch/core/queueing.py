@@ -22,13 +22,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from . import prng
 from .instance import FlatInstance, resolve_device
 
 __all__ = [
     "CongestionConfig",
     "PolicyCarry",
+    "init_policy_carry",
     "fleet_policy_carry",
     "compute_inflation",
     "comm_inflation",
@@ -67,17 +70,21 @@ class CongestionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PolicyCarry:
-    """Per-replication state threaded across frames, the reference's layout
-    with a leading ``(R,)`` replication axis (``M`` = number of servers).
+    """Policy/simulator state threaded across frames, the reference's
+    layout: unbatched for one run (:func:`init_policy_carry`), or with a
+    leading ``(R,)`` replication axis on every field for the fleet
+    (:func:`fleet_policy_carry`).  ``M`` = number of servers.
 
-    * ``key`` — ``(R, 2)`` uint32.  Kept for the layout and not used: only
-      keyed policies read it, and they are not ported yet (ROADMAP.md §1
-      decides threefry against distributional parity).  All zeros.
-    * ``backlog_gamma`` / ``backlog_eta`` — ``(R, M)`` carried compute
+    * ``key`` — ``(..., 2)`` uint32 threefry key chain, bit for bit the
+      reference's (:mod:`.prng`).  It lives on the host (a CPU tensor)
+      whatever the device: keys are split and hashed there.
+      Simulator-owned for ``needs_key`` policies; a ``stateful`` policy
+      owns it.
+    * ``backlog_gamma`` / ``backlog_eta`` — ``(..., M)`` carried compute
       (chip-ms) and communication (KB) backlog.
-    * ``ema_util`` — ``(R, M)`` EMA of committed compute utilization.
-    * ``bw_prev`` / ``bw_cur`` — ``(R,)`` bandwidth-estimator state.
-    * ``link_bw`` / ``server_up`` — ``(R, M)`` resilience-engine vectors,
+    * ``ema_util`` — ``(..., M)`` EMA of committed compute utilization.
+    * ``bw_prev`` / ``bw_cur`` — ``(...)`` bandwidth-estimator state.
+    * ``link_bw`` / ``server_up`` — ``(..., M)`` resilience-engine vectors,
       all ones (impairments are not ported yet).
     """
 
@@ -91,15 +98,39 @@ class PolicyCarry:
     server_up: torch.Tensor
 
 
-def fleet_policy_carry(
-    n_rep: int, n_servers: int, *, bandwidth_init: float = 0.0, device=None
+def init_policy_carry(
+    n_servers: int, *, seed: int = 0, bandwidth_init: float = 0.0, device=None
 ) -> PolicyCarry:
-    """A fresh batched carry: empty backlogs, zero EMA, on ``device``
-    (:func:`resolve_device`: ``None`` means the card)."""
+    """A fresh single-run carry: empty backlogs, zero EMA, key chain
+    ``PRNGKey(seed)``, on ``device`` (:func:`resolve_device`: ``None``
+    means the card; the key stays on the host)."""
     device = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     return PolicyCarry(
-        key=torch.zeros((n_rep, 2), dtype=torch.uint32, device=device),
+        key=torch.from_numpy(prng.PRNGKey(seed)),
+        backlog_gamma=torch.zeros((n_servers,), **f32),
+        backlog_eta=torch.zeros((n_servers,), **f32),
+        ema_util=torch.zeros((n_servers,), **f32),
+        bw_prev=torch.tensor(bandwidth_init, **f32),
+        bw_cur=torch.tensor(bandwidth_init, **f32),
+        link_bw=torch.ones((n_servers,), **f32),
+        server_up=torch.ones((n_servers,), **f32),
+    )
+
+
+def fleet_policy_carry(
+    n_rep: int, n_servers: int, *, seed: int = 0, bandwidth_init: float = 0.0, device=None
+) -> PolicyCarry:
+    """A fresh batched carry: one :class:`PolicyCarry` per replication,
+    stacked on a leading ``(R,)`` axis, on ``device``
+    (:func:`resolve_device`: ``None`` means the card).  Replication ``r``'s
+    key chain is ``fold_in(PRNGKey(seed), r)``, the reference's."""
+    device = resolve_device(device)
+    f32 = dict(dtype=torch.float32, device=device)
+    root = prng.PRNGKey(seed)
+    keys = np.stack([prng.fold_in(root, r) for r in range(n_rep)]).reshape(n_rep, 2)
+    return PolicyCarry(
+        key=torch.from_numpy(keys),
         backlog_gamma=torch.zeros((n_rep, n_servers), **f32),
         backlog_eta=torch.zeros((n_rep, n_servers), **f32),
         ema_util=torch.zeros((n_rep, n_servers), **f32),

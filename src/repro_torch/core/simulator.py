@@ -1,8 +1,24 @@
-"""Monte-Carlo fleet simulator — the paper's numerical testbed on the card.
+"""Time-slotted edge-cluster simulators: the paper's sequential testbed
+(:func:`simulate`) and the Monte-Carlo fleet (:func:`simulate_fleet`).
 
-The PyTorch counterpart of ``repro.core.simulator.simulate_fleet``: R
-independent replications of a scenario, each a sequence of T
-frame-synchronous decisions, in one of two scheduling layouts.
+The PyTorch counterpart of ``repro.core.simulator``.
+
+**The sequential testbed** (:func:`simulate`, the reference's
+``simulate``) replays the paper's Sec. IV protocol one decision at a time:
+arrivals queue at their covering edge (``queue_cap`` each; a full queue
+fires the decision early), budgets deplete within a wall-clock frame, the
+scheduler sees an EMA estimate of the bandwidth, and realized delays draw
+from a lognormal channel.  All of that accounting stays on the host in
+numpy float64, op for op the reference's, with one ``default_rng(seed)``
+drawing trace, mobility and channel in the reference's order.  Only the
+decision goes to ``device``: each frame, padded to a power-of-two bucket,
+is one B=1 launch of the GUS kernel for every GUS-cored policy, and its
+``j``/``l`` come back once per decision.  The host policies (``ilp``,
+``lp-bound``, ``gus-hier``) schedule the unpadded frame on the CPU.
+
+**The fleet** (:func:`simulate_fleet`): R independent replications of a
+scenario, each a sequence of T frame-synchronous decisions, in one of two
+scheduling layouts.
 
 **Dense** (the default):
 
@@ -13,11 +29,15 @@ frame-synchronous decisions, in one of two scheduling layouts.
    (N requests x M servers x L variants) candidate grid, built on the host
    for a whole window of frames at once (:func:`_build_frame_batch`) and
    moved to the card once per window from pinned memory.
-3. The scheduler runs over the replication batch.  With congestion on, a
-   Python loop over the window's frames applies the backlog-reduced budgets,
-   calls the policy and updates the carry (:func:`_step`); with it off the
-   carry is inert, and one call schedules all R x W frames of the window —
-   the same assignments, because no frame then depends on another.
+3. The scheduler runs over the replication batch.  With congestion on (or
+   a ``stateful`` policy), a Python loop over the window's frames applies
+   the backlog-reduced budgets, calls the policy and updates the carry
+   (:func:`_step`); otherwise the carry is inert, and one call schedules
+   all R x W frames of the window — the same assignments, because no frame
+   then depends on another.  A ``needs_key`` policy gets the reference's
+   key for each (replication, frame).  The host policies run on
+   :func:`_simulate_fleet_host` instead: unpadded frames scheduled on the
+   CPU one by one, re-padded with drops.
 4. Satisfaction and mean US are scored on the card per frame and only the
    per-frame counts come back to the host.
 
@@ -39,8 +59,8 @@ work in the same order inline or on the producer, so results are identical
 either way.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): the sequential ``simulate``, impairments and admission
-control, the metric stream and ``devices>1``.
+ROADMAP.md item): impairments and admission control, the metric stream and
+``devices>1``.
 """
 from __future__ import annotations
 
@@ -49,7 +69,8 @@ import functools
 import queue as queue_mod
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Union
+from collections import deque
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -58,13 +79,16 @@ from repro_torch.obs.trace import Stopwatch
 
 from repro_torch.kernels.hier import hier_cells
 
+from . import prng
 from .aggregation import QuantizationConfig, aggregate_requests
+from .extensions import apply_mobility, as_batch
 from .impairments import AdmissionConfig, ImpairmentConfig
-from .instance import FlatInstance, resolve_device
+from .instance import FlatInstance, pad_instance, resolve_device, stack_instances
 from .options import EngineOptions, check_ported, resolve_options
 from .policies import Policy, get_policy
 from .queueing import (
     CongestionConfig,
+    PolicyCarry,
     comm_inflation,
     committed_loads,
     compute_inflation,
@@ -72,6 +96,7 @@ from .queueing import (
     effective_capacity,
     ema_update,
     fleet_policy_carry,
+    init_policy_carry,
     step_backlog,
 )
 from .satisfaction import hard_feasible, mean_us, satisfied_mask, us_tensor
@@ -87,8 +112,10 @@ from .streaming import ArrivalStream, max_frame_arrivals, stream_trace, stream_t
 __all__ = [
     "ClusterSpec",
     "SimConfig",
+    "SimResult",
     "FleetResult",
     "EngineOptions",
+    "simulate",
     "simulate_fleet",
     "demo_cluster_spec",
 ]
@@ -144,6 +171,68 @@ class SimConfig:
     congestion: CongestionConfig = dataclasses.field(default_factory=CongestionConfig)
     impairments: ImpairmentConfig = dataclasses.field(default_factory=ImpairmentConfig)
     admission: AdmissionConfig = dataclasses.field(default_factory=AdmissionConfig)
+
+
+@dataclasses.dataclass
+class SimResult:
+    """The sequential testbed's result, field for field the reference's
+    (the per-decision metric stream is not ported yet: ROADMAP.md §1
+    item 5)."""
+
+    n_requests: int
+    n_served: int
+    n_satisfied: int
+    n_local: int
+    n_cloud: int
+    n_edge_offload: int
+    n_dropped: int
+    mean_us: float
+    mean_completion_ms: float
+    mean_queue_ms: float
+    bandwidth_estimates: List[float]
+    #: work accounting of the congestion model (None when disabled)
+    congestion_stats: Optional[Dict[str, float]] = None
+    #: fault-injection accounting (None: impairments and admission control
+    #: are not ported, so always None here)
+    resilience_stats: Optional[Dict[str, float]] = None
+    #: wall-clock seconds per phase: ``gen_s`` arrival generation / stream
+    #: pulls, ``build_s`` frame building, ``sched_s`` scheduler calls (on
+    #: the card: the H2D copy, the launch and the wait for ``j``/``l``),
+    #: ``realize_s`` realized-delay accounting, ``total_s`` end to end
+    timings: Optional[Dict[str, float]] = None
+
+    @property
+    def satisfied_pct(self) -> float:
+        return 100.0 * self.n_satisfied / max(self.n_requests, 1)
+
+    @property
+    def local_pct(self) -> float:
+        return 100.0 * self.n_local / max(self.n_requests, 1)
+
+    @property
+    def cloud_pct(self) -> float:
+        return 100.0 * self.n_cloud / max(self.n_requests, 1)
+
+    @property
+    def edge_offload_pct(self) -> float:
+        return 100.0 * self.n_edge_offload / max(self.n_requests, 1)
+
+    def as_dict(self) -> Dict[str, float]:
+        d = {
+            "n_requests": self.n_requests,
+            "satisfied_pct": self.satisfied_pct,
+            "local_pct": self.local_pct,
+            "cloud_pct": self.cloud_pct,
+            "edge_offload_pct": self.edge_offload_pct,
+            "dropped_pct": 100.0 * self.n_dropped / max(self.n_requests, 1),
+            "mean_us": self.mean_us,
+            "mean_completion_ms": self.mean_completion_ms,
+            "mean_queue_ms": self.mean_queue_ms,
+        }
+        if self.congestion_stats is not None:
+            d["mean_compute_inflation"] = self.congestion_stats["mean_compute_inflation"]
+            d["final_backlog_gamma"] = self.congestion_stats["final_backlog_gamma"]
+        return d
 
 
 @dataclasses.dataclass
@@ -314,24 +403,17 @@ def _build_frame_batch(
     return out
 
 
-def _apply_mobility(cover: np.ndarray, n_edge: int, move_prob: float, rng) -> np.ndarray:
-    """Each user re-attaches to a random edge with probability ``move_prob``."""
-    move = rng.random(cover.shape[0]) < move_prob
-    new = rng.integers(0, n_edge, size=cover.shape[0]).astype(cover.dtype)
-    return np.where(move, new, cover)
-
-
 def _apply_mobility_inplace(reqs, n_edge: int, move_prob: float, rng) -> None:
     """Re-attach each pending request's covering edge with prob ``move_prob``
     (two draws of ``len(reqs)``, none when the frame is empty, either layout)."""
     if move_prob <= 0 or not reqs:
         return
     if isinstance(reqs, RequestColumns):
-        reqs.cover = _apply_mobility(
+        reqs.cover = apply_mobility(
             reqs.cover.astype(np.int32), n_edge, move_prob, rng
         ).astype(np.int64)
         return
-    cov = _apply_mobility(np.array([r.cover for r in reqs], np.int32), n_edge, move_prob, rng)
+    cov = apply_mobility(np.array([r.cover for r in reqs], np.int32), n_edge, move_prob, rng)
     for r, c in zip(reqs, cov):
         r.cover = int(c)
 
@@ -350,6 +432,44 @@ def _frame_budgets_batch(
         g = g * scale
         e = e * scale
     return g, e
+
+
+def _frame_budgets(spec: ClusterSpec, cfg: SimConfig, scn: Scenario, frame_start_ms: float):
+    """Fresh float64 ``(gamma, eta)`` budgets of one frame: the window
+    version at one frame start, which the reference's docstring states is
+    bit-identical to its scalar ``_frame_budgets``."""
+    g, e = _frame_budgets_batch(spec, cfg, scn, np.array([frame_start_ms], np.float64))
+    return g[0].copy(), e[0].copy()
+
+
+def _build_frame_instance(
+    reqs, spec: ClusterSpec, cfg: SimConfig, now_ms: float, bw_est: float, max_cs: float,
+    gamma, eta,
+) -> FlatInstance:
+    """The unpadded ``FlatInstance`` of the requests pending at ``now_ms``,
+    on the CPU, priced with the scheduler's bandwidth estimate ``bw_est``
+    (the reference's ``_build_frame_instance``: float64 host math narrowed
+    to float32 at the same points)."""
+    N = len(reqs)
+    arr = _frame_arrays(reqs, spec, cfg, now_ms, bw_est)
+    f32 = np.float32
+    return FlatInstance.from_numpy(dict(
+        cover=arr["cover"], A=arr["A"], C=arr["C"],
+        w_a=np.full((N,), cfg.w_a, f32), w_c=np.full((N,), cfg.w_c, f32),
+        acc=np.asarray(arr["acc"], f32), ctime=np.asarray(arr["ctime"], f32),
+        v=np.asarray(arr["v"], f32), u=np.asarray(arr["u"], f32), avail=arr["avail"],
+        gamma=np.asarray(gamma, f32), eta=np.asarray(eta, f32),
+        max_as=f32(cfg.max_as), max_cs=f32(max_cs),
+    ), "cpu")
+
+
+def _inflation_host(fn, load: np.ndarray, budget: np.ndarray, ccfg: CongestionConfig):
+    """A float32 inflation formula on host float64 loads and budgets, cast
+    to float32 where the reference's x32 arrays cast them."""
+    return fn(
+        torch.from_numpy(np.asarray(load, np.float32)),
+        torch.from_numpy(np.asarray(budget, np.float32)), ccfg,
+    ).numpy()
 
 
 class _RepFrameSource:
@@ -450,15 +570,21 @@ def _build_window(sources, spec, cfg, scn, t0: int, t1: int, n_pad: int, sw, pin
     return host, n_real
 
 
-def _step(fn, frame: FlatInstance, carry, ccfg: CongestionConfig):
-    """One congested frame over the replication batch: schedule against the
-    backlog-reduced budgets, then inflate and roll the backlog/EMA carry."""
+def _step(call, frame: FlatInstance, carry, ccfg: CongestionConfig, keys=None):
+    """One frame over the replication batch: schedule (against the
+    backlog-reduced budgets when congestion is on), then inflate and roll
+    the backlog/EMA carry.  ``call(run, carry, keys) -> (Assignment,
+    carry)`` is the bound policy in its mode.  Returns ``(carry, a, pc,
+    pe)``, the inflation factors ``None`` with congestion off."""
+    if not ccfg.enabled:
+        a, carry = call(frame, carry, keys)
+        return carry, a, None, None
     run = dataclasses.replace(
         frame,
         gamma=effective_capacity(frame.gamma, carry.backlog_gamma),
         eta=effective_capacity(frame.eta, carry.backlog_eta),
     )
-    a = fn(run)
+    a, carry = call(run, carry, keys)
     w, c = a.loads if a.loads is not None else committed_loads(frame, a.j, a.l)
     pc = compute_inflation(carry.backlog_gamma + w, frame.gamma, ccfg)
     pe = comm_inflation(carry.backlog_eta + c, frame.eta, ccfg)
@@ -538,16 +664,427 @@ class _WindowPipeline:
         self.thread.join()
 
 
-def _fold_hier_scheduler(policy) -> None:
+def _fold_hier_scheduler(policy, opts: EngineOptions, allow_backend: bool = False) -> Policy:
     """The hierarchical layout *is* the reference's ``gus-hier`` policy, so
-    it composes only with ``"gus"`` or ``"gus-hier"``; any other policy is
-    an error, not a silent override."""
-    name = policy.name if isinstance(policy, Policy) else policy
-    if name not in ("gus", "gus-hier"):
+    it composes only with ``"gus"`` or ``"gus-hier"`` (by name or as a
+    :class:`Policy`); any other policy is an error, not a silent override.
+    ``allow_backend=True`` (the fleet) lets ``backend=`` through, where it
+    picks the class allocator's implementation; :func:`simulate`'s per-frame
+    ``gus-hier`` is host-side, so there it raises.  Returns the policy."""
+    pol = get_policy(policy)
+    if opts.backend is not None and not allow_backend:
+        raise ValueError(
+            f"backend={opts.backend!r} with EngineOptions(scheduler='hierarchical') "
+            "selects the device allocator, which only the fleet path runs — use "
+            "simulate_fleet (simulate's hier path is host-side)"
+        )
+    if pol.name not in ("gus", "gus-hier"):
         raise ValueError(
             "EngineOptions(scheduler='hierarchical') maps to the 'gus-hier' "
-            f"policy; it does not compose with policy {name!r}"
+            f"policy; it does not compose with policy {pol.name!r}"
         )
+    return get_policy("gus-hier")
+
+
+def _bind_policy(pol: Policy, spec: ClusterSpec, backend: Optional[str]) -> Callable:
+    """``pol.bind`` with ``backend=`` folded in: it picks the GUS
+    implementation and composes only with the ``"gus"`` policy (the other
+    GUS-cored policies follow ``REPRO_TORCH_GUS_BACKEND``)."""
+    fn = pol.bind(spec.n_edge, spec.n_servers)
+    if backend is None:
+        return fn
+    if pol.name != "gus":
+        raise ValueError(
+            f"backend={backend!r} selects the GUS implementation; policy {pol.name!r} "
+            "does not take it (set REPRO_TORCH_GUS_BACKEND to steer GUS-cored "
+            "policies process-wide)"
+        )
+    return functools.partial(fn, backend=backend)
+
+
+def _carry_to_device(carry: PolicyCarry, dev) -> PolicyCarry:
+    """The host carry on ``dev`` with a leading batch axis of one, in one
+    host-to-device copy: the float fields travel packed and come out as
+    views.  The key stays on the host."""
+    names = [f.name for f in dataclasses.fields(carry) if f.name != "key"]
+    parts = [getattr(carry, n) for n in names]
+    packed = torch.cat([x.reshape(-1) for x in parts]).to(dev)
+    out = {"key": carry.key[None]}
+    for n, x, y in zip(names, parts, packed.split([x.numel() for x in parts])):
+        out[n] = y.view((1,) + tuple(x.shape))
+    return PolicyCarry(**out)
+
+
+def _carry_from_device(host: PolicyCarry, c_in: PolicyCarry, c_out: PolicyCarry) -> PolicyCarry:
+    """The policy's carry ``c_out`` back on the host without its batch
+    axis; a field the policy handed back as it got it (``c_in``) keeps the
+    host's tensor and makes no copy."""
+    out = {}
+    for f in dataclasses.fields(host):
+        x = getattr(c_out, f.name)
+        out[f.name] = getattr(host, f.name) if x is getattr(c_in, f.name) else x[0].cpu()
+    return PolicyCarry(**out)
+
+
+class _ArrivalSource:
+    """Uniform pull interface over the two arrival engines: the materialized
+    trace (drawn up front from the simulator's own generator) or an
+    :class:`~repro_torch.core.streaming.ArrivalStream` (``n_total`` counts
+    submissions as they are emitted)."""
+
+    def __init__(self, reqs=None, stream: Optional[ArrivalStream] = None,
+                 limit: Optional[int] = None):
+        self._reqs = reqs
+        self._idx = 0
+        self._stream = stream
+        self._limit = limit
+        self._emitted = 0
+
+    def pull(self, t_ms: float) -> List:
+        """All not-yet-pulled arrivals with ``arrival_ms < t_ms``."""
+        if self._stream is None:
+            out = []
+            while self._idx < len(self._reqs) and self._reqs[self._idx].arrival_ms < t_ms:
+                out.append(self._reqs[self._idx])
+                self._idx += 1
+            return out
+        if self._limit is not None and self._emitted >= self._limit:
+            return []
+        out = self._stream.take_until(t_ms)
+        if self._limit is not None and self._emitted + len(out) > self._limit:
+            out = out[: self._limit - self._emitted]
+        self._emitted += len(out)
+        return out
+
+    @property
+    def exhausted(self) -> bool:
+        if self._stream is None:
+            return self._idx >= len(self._reqs)
+        return self._stream.exhausted or (
+            self._limit is not None and self._emitted >= self._limit
+        )
+
+    @property
+    def n_total(self) -> int:
+        """Total submissions (call after the run for the streaming source)."""
+        return len(self._reqs) if self._stream is None else self._emitted
+
+
+def simulate(
+    spec: ClusterSpec,
+    cfg: SimConfig,
+    *,
+    policy: Union[str, Policy] = "gus",
+    scenario: Union[str, Scenario] = "paper-default",
+    seed: int = 0,
+    n_requests: Optional[int] = None,
+    options: Optional[EngineOptions] = None,
+    device=None,
+) -> SimResult:
+    """Run the virtual testbed (the reference's ``simulate``), deciding on
+    ``device``.
+
+    The signature mirrors :func:`simulate_fleet`: ``policy`` names a
+    registered :class:`~repro_torch.core.policies.Policy` (or passes one)
+    and ``options`` carries the engine options.  The reference's deprecated
+    per-call keywords (``streaming=``, ``rng_mode=``, ``backend=``,
+    ``metrics=``) and its raw scheduler callables are not taken: pass
+    ``EngineOptions`` and a ``Policy``.  Fleet-only options are ignored.
+
+    Everything but the decision runs on the host in numpy float64, op for
+    op the reference's: queue-cap admission with early decisions, budgets
+    that deplete within a wall-clock frame, the EMA bandwidth estimator,
+    mobility, the congestion backlogs and inflation, and one
+    ``default_rng(seed)`` for trace, mobility and channel in the reference's
+    draw order.  Each decision pads the frame to a power-of-two bucket,
+    moves it to ``device`` and makes one B=1 call of the policy (the GUS
+    kernel for the GUS-cored policies); its ``j``/``l`` come back to the
+    host.  ``random`` gets a fresh key per decision split from the carry's
+    threefry chain (seeded by ``seed``), ``gus-adaptive`` the carry, and the
+    host policies (``ilp``, ``lp-bound``, ``gus-hier``) the unpadded frame
+    on the CPU.  ``EngineOptions(scheduler="hierarchical")`` maps to
+    ``gus-hier``.
+
+    ``device=None`` means ``"cuda"`` (raises without a CUDA device).
+    Impairments and admission control (ROADMAP.md §1 item 3) and
+    ``metrics=True`` (item 5) raise ``NotImplementedError``.  If
+    ``n_requests`` is given, arrivals stop after that many submissions (the
+    x-axis of the paper's Fig. 1(e)-(h)).
+    """
+    dev = resolve_device(device)
+    scn = get_scenario(scenario)
+    opts = resolve_options(options, scenario=scn)
+    check_ported(opts, fleet=False)
+    _not_ported(cfg)
+    if opts.scheduler == "hierarchical":
+        pol = _fold_hier_scheduler(policy, opts)
+        scheduler = pol.bind(spec.n_edge, spec.n_servers)
+    else:
+        pol = get_policy(policy)
+        scheduler = _bind_policy(pol, spec, opts.backend)
+    stateful = pol.stateful
+    needs_key = pol.needs_key and not pol.stateful
+    on_device = pol.vmappable
+    ccfg = cfg.congestion
+    rng = np.random.default_rng(seed)
+    M, K, L = spec.proc_ms.shape
+    move_prob = cfg.move_prob if scn.move_prob is None else scn.move_prob
+
+    sw = Stopwatch()
+    t_run0 = time.perf_counter()
+
+    if opts.streaming:
+        source = _ArrivalSource(
+            stream=ArrivalStream(scn, seed, spec.n_edge, K, cfg, rng_mode=opts.rng_mode),
+            limit=n_requests,
+        )
+    else:
+        with sw.span("sim/generate_trace"):
+            reqs = scn.generate_arrivals(rng, spec.n_edge, K, cfg, rng_mode=opts.rng_mode)
+        if n_requests is not None:
+            reqs = reqs[:n_requests]
+        source = _ArrivalSource(reqs=reqs)
+
+    # the carry lives on the host; a stateful policy gets it on the device
+    carry = init_policy_carry(M, seed=seed, bandwidth_init=cfg.bandwidth_init, device="cpu")
+    bw_prev = bw_cur = cfg.bandwidth_init
+    bw_log = [bw_cur]
+    max_cs = cfg.max_cs
+
+    n_served = n_sat = n_local = n_cloud = n_eo = n_drop = 0
+    us_sum = 0.0
+    comp_sum = 0.0
+    q_sum = 0.0
+    pending: List = []
+    buffer: deque = deque()
+    t = 0.0
+    is_cloud = spec.is_cloud()
+
+    # congestion state (numpy, float64 like the budgets)
+    backlog_g = np.zeros(M)
+    backlog_e = np.zeros(M)
+    committed_g = np.zeros(M)
+    committed_e = np.zeros(M)
+    drained_g = drained_e = 0.0
+    infl_sum = 0.0
+    infl_max = 1.0
+    infl_n = 0
+
+    def _drain(backlog, committed, budget):
+        """One frame-boundary backlog step in float64: ``(new_backlog,
+        drained)``, the fleet's :func:`step_backlog` formula."""
+        new = np.maximum(backlog + committed - budget * ccfg.drain, 0.0)
+        return new, float(np.sum(backlog + committed - new))
+
+    # capacity budgets deplete WITHIN a wall-clock frame (queue-full decisions
+    # fire early but do not refresh gamma/eta — they share the frame budget)
+    frame_budget_g, frame_budget_e = _frame_budgets(spec, cfg, scn, 0.0)
+    rem_gamma = frame_budget_g.copy()
+    rem_eta = frame_budget_e.copy()
+    frame_boundary = cfg.frame_ms
+
+    while t < cfg.horizon_ms + 10 * cfg.frame_ms:
+        frame_end = t + cfg.frame_ms
+        # admit arrivals in this frame; queue_cap per covering server
+        qlen = {e: sum(1 for r in pending if r.cover == e) for e in range(spec.n_edge)}
+        early_close = None
+        with sw.span("sim/arrival_pull"):
+            buffer.extend(source.pull(frame_end))
+        while buffer:
+            r = buffer[0]
+            if qlen.get(r.cover, 0) >= cfg.queue_cap:
+                # queue full -> decision fires early (paper testbed behaviour)
+                early_close = r.arrival_ms
+                break
+            pending.append(buffer.popleft())
+            qlen[r.cover] = qlen.get(r.cover, 0) + 1
+        decision_time = early_close if early_close is not None else frame_end
+        if decision_time >= frame_boundary:  # new wall-clock frame: budgets refresh
+            frame_boundary += cfg.frame_ms * np.ceil(
+                (decision_time - frame_boundary + 1e-9) / cfg.frame_ms
+            )
+            if ccfg.enabled:
+                ema = ema_update(
+                    carry.ema_util, torch.from_numpy(committed_g.astype(np.float32)),
+                    torch.from_numpy(frame_budget_g.astype(np.float32)), ccfg,
+                )
+                backlog_g, dg = _drain(backlog_g, committed_g, frame_budget_g)
+                backlog_e, de = _drain(backlog_e, committed_e, frame_budget_e)
+                drained_g += dg
+                drained_e += de
+                committed_g = np.zeros(M)
+                committed_e = np.zeros(M)
+                carry = dataclasses.replace(
+                    carry,
+                    backlog_gamma=torch.from_numpy(backlog_g.astype(np.float32)),
+                    backlog_eta=torch.from_numpy(backlog_e.astype(np.float32)),
+                    ema_util=ema,
+                )
+            frame_budget_g, frame_budget_e = _frame_budgets(
+                spec, cfg, scn, frame_boundary - cfg.frame_ms
+            )
+            if ccfg.enabled:
+                rem_gamma = np.maximum(frame_budget_g - backlog_g, 0.0)
+                rem_eta = np.maximum(frame_budget_e - backlog_e, 0.0)
+            else:
+                rem_gamma = frame_budget_g.copy()
+                rem_eta = frame_budget_e.copy()
+
+        if pending:
+            _apply_mobility_inplace(pending, spec.n_edge, move_prob, rng)
+            bw_est = 0.5 * (bw_cur + bw_prev)  # E[B_{t+1}] = (B_t + B_{t-1})/2
+            n_real = len(pending)
+            with sw.span("sim/frame_build"):
+                inst = _build_frame_instance(
+                    pending, spec, cfg, decision_time, bw_est, max_cs,
+                    gamma=rem_gamma, eta=rem_eta,
+                )
+                # padded rows are infeasible -> dropped; the host policies
+                # see the raw frame
+                frame_inst = pad_instance(inst, _pad_bucket(n_real)) if pol.pad else inst
+            with sw.span("sim/schedule"):
+                # a batched policy takes the frame as a batch of one on the
+                # device; a host policy the frame itself
+                frame = as_batch(frame_inst)[0].to(dev) if on_device else frame_inst
+                if stateful:
+                    c_in = _carry_to_device(carry, dev) if on_device else carry
+                    assign, c_out = scheduler(frame, c_in)
+                    carry = _carry_from_device(carry, c_in, c_out) if on_device else c_out
+                elif needs_key:
+                    # split order matches the reference's chain:
+                    # (next, sub) = split(key)
+                    nxt, sub = prng.split(carry.key.numpy(), 2)
+                    carry = dataclasses.replace(carry, key=torch.from_numpy(nxt))
+                    assign = scheduler(frame, sub[None] if on_device else sub)
+                else:
+                    assign = scheduler(frame)
+                aj, al = (assign.j[0], assign.l[0]) if on_device else (assign.j, assign.l)
+                # the copy back waits for the card, so the span times the
+                # decision itself, not just its launch
+                jv = aj.cpu().numpy()[:n_real]
+                lv = al.cpu().numpy()[:n_real]
+
+            with sw.span("sim/realize"):
+                # pass 1 — capacity commit (shared frame budget + backlog
+                # growth)
+                for idx, r in enumerate(pending):
+                    j, l = int(jv[idx]), int(lv[idx])
+                    if j < 0:
+                        continue
+                    local = j == r.cover
+                    rem_gamma[j] -= spec.proc_ms[j, r.service, l]
+                    committed_g[j] += spec.proc_ms[j, r.service, l]
+                    if not local:
+                        rem_eta[r.cover] -= r.size_bytes / 1024.0
+                        committed_e[r.cover] += r.size_bytes / 1024.0
+
+                # the whole decision batch shares one inflation factor,
+                # computed from the wall-clock frame's committed-so-far load
+                if ccfg.enabled:
+                    phi_c = _inflation_host(
+                        compute_inflation, backlog_g + committed_g, frame_budget_g, ccfg
+                    )
+                    phi_e = _inflation_host(
+                        comm_inflation, backlog_e + committed_e, frame_budget_e, ccfg
+                    )
+                    infl_sum += float(phi_c.sum())
+                    infl_max = max(infl_max, float(phi_c.max()), float(phi_e.max()))
+                    infl_n += M
+
+                # pass 2 — realized delays and stats (the reference's RNG
+                # draw order)
+                observed_bw = []
+                for idx, r in enumerate(pending):
+                    j, l = int(jv[idx]), int(lv[idx])
+                    if j < 0:
+                        n_drop += 1
+                        continue
+                    n_served += 1
+                    local = j == r.cover
+                    proc = spec.proc_ms[j, r.service, l] * rng.lognormal(0.0, cfg.proc_sigma)
+                    if local:
+                        comm = 0.0
+                    else:
+                        bw_real = spec.bandwidth_true * rng.lognormal(0.0, cfg.channel_sigma)
+                        extra = 0.0
+                        comm = r.size_bytes / bw_real + extra + (
+                            spec.cloud_extra_delay if is_cloud[j] else 0.0
+                        )
+                        # the estimator observes the *channel* (uninflated
+                        # transfer)
+                        observed_bw.append(r.size_bytes / max(comm - extra - (spec.cloud_extra_delay if is_cloud[j] else 0.0), 1e-6))
+                    if ccfg.enabled:
+                        proc = proc * phi_c[j]
+                        comm = comm * phi_e[r.cover]
+                    tq = decision_time - r.arrival_ms
+                    ct = tq + proc + comm
+                    acc = spec.acc[r.service, l]
+                    sat = (ct <= r.C) and (acc >= r.A)
+                    n_sat += int(sat)
+                    n_local += int(local)
+                    n_cloud += int((not local) and is_cloud[j])
+                    n_eo += int((not local) and (not is_cloud[j]))
+                    us_sum += cfg.w_a * (acc - r.A) / cfg.max_as + cfg.w_c * (r.C - ct) / max_cs
+                    comp_sum += ct
+                    q_sum += tq
+                    if cfg.adapt_max_cs:
+                        max_cs = max(max_cs, ct)
+                pending = []
+                if observed_bw:
+                    bw_prev, bw_cur = bw_cur, float(np.mean(observed_bw))
+                    bw_log.append(0.5 * (bw_cur + bw_prev))
+                    carry = dataclasses.replace(
+                        carry,
+                        bw_prev=torch.tensor(bw_prev, dtype=torch.float32),
+                        bw_cur=torch.tensor(bw_cur, dtype=torch.float32),
+                    )
+
+        t = decision_time if early_close is not None else frame_end
+        if source.exhausted and not buffer and not pending:
+            break
+
+    congestion_stats = None
+    if ccfg.enabled:
+        # flush the last frame's committed work through one more drain step so
+        # the conservation identity (enqueued == drained + carried) closes
+        backlog_g, dg = _drain(backlog_g, committed_g, frame_budget_g)
+        backlog_e, de = _drain(backlog_e, committed_e, frame_budget_e)
+        drained_g += dg
+        drained_e += de
+        congestion_stats = {
+            "work_enqueued_gamma": drained_g + float(backlog_g.sum()),
+            "work_drained_gamma": drained_g,
+            "work_enqueued_eta": drained_e + float(backlog_e.sum()),
+            "work_drained_eta": drained_e,
+            "final_backlog_gamma": float(backlog_g.sum()),
+            "final_backlog_eta": float(backlog_e.sum()),
+            "mean_compute_inflation": (infl_sum / infl_n) if infl_n else 1.0,
+            "max_inflation": infl_max,
+        }
+
+    n_total = source.n_total
+    timings = {
+        "gen_s": sw.total("sim/generate_trace", "sim/arrival_pull"),
+        "build_s": sw.total("sim/frame_build"),
+        "sched_s": sw.total("sim/schedule"),
+        "realize_s": sw.total("sim/realize"),
+        "total_s": time.perf_counter() - t_run0,
+    }
+    return SimResult(
+        n_requests=n_total,
+        n_served=n_served,
+        n_satisfied=n_sat,
+        n_local=n_local,
+        n_cloud=n_cloud,
+        n_edge_offload=n_eo,
+        n_dropped=n_total - n_served,
+        mean_us=us_sum / max(n_total, 1),
+        mean_completion_ms=comp_sum / max(n_served, 1),
+        mean_queue_ms=q_sum / max(n_served, 1),
+        bandwidth_estimates=bw_log,
+        congestion_stats=congestion_stats,
+        timings=timings,
+    )
 
 
 def simulate_fleet(
@@ -573,6 +1110,12 @@ def simulate_fleet(
     ``EngineOptions(scheduler="hierarchical")`` runs the class-aggregate
     fleet instead (:func:`_simulate_fleet_hier`).
 
+    Every registered policy runs: a ``needs_key`` policy (``random``) gets
+    the reference's key for each (replication, frame), ``split(PRNGKey(
+    seed), n_rep * T)``; a ``stateful`` one (``gus-adaptive``) the carry,
+    frame by frame; the host policies (``ilp``, ``lp-bound``, ``gus-hier``)
+    run on :func:`_simulate_fleet_host`, on the CPU.
+
     ``device=None`` means ``"cuda"`` (raises without a CUDA device);
     ``options`` takes the fields :func:`~repro_torch.core.options.
     resolve_options` resolves.  ``options.backend`` picks the GUS
@@ -586,25 +1129,20 @@ def simulate_fleet(
     _not_ported(cfg)
     hier = opts.scheduler == "hierarchical"
     if hier:
-        _fold_hier_scheduler(policy)
+        pol = _fold_hier_scheduler(policy, opts, allow_backend=True)
     else:
         pol = get_policy(policy)
-        fn = pol.bind(spec.n_edge, spec.n_servers)
-        if opts.backend is not None:
-            if pol.name != "gus":
-                raise ValueError(
-                    f"backend={opts.backend!r} selects the GUS implementation; "
-                    f"policy {pol.name!r} does not take it"
-                )
-            fn = functools.partial(fn, backend=opts.backend)
+        fn = _bind_policy(pol, spec, opts.backend)
+    host_side = not hier and (not pol.vmappable or not pol.pad)
     ccfg = cfg.congestion
     T = max(1, int(np.ceil(cfg.horizon_ms / cfg.frame_ms)))
     K = spec.proc_ms.shape[1]
     M = spec.n_servers
     W = T if opts.window is None else max(1, min(int(opts.window), T))
     # a streamed trace is drawn a window at a time when windows are shorter
-    # than the horizon, and materialized in one drain otherwise
-    lazy = opts.streaming and W < T
+    # than the horizon (the host policies' loop takes every frame at once),
+    # and materialized in one drain otherwise
+    lazy = opts.streaming and W < T and not host_side
     pin = dev.type == "cuda"
 
     sw = Stopwatch()
@@ -635,7 +1173,27 @@ def simulate_fleet(
             spec, cfg, scn, sources, n_rep=n_rep, T=T, W=W, opts=opts, dev=dev,
             gen_s=gen_s, sw=sw, t_run0=t_run0,
         )
-    carry = fleet_policy_carry(n_rep, M, bandwidth_init=spec.bandwidth_true, device=dev)
+    if host_side:
+        return _simulate_fleet_host(
+            spec, cfg, scn, pol, sources, n_rep=n_rep, T=T, n_pad=n_pad, seed=seed,
+            gen_s=gen_s, sw=sw, t_run0=t_run0,
+        )
+    carry = fleet_policy_carry(
+        n_rep, M, seed=seed, bandwidth_init=spec.bandwidth_true, device=dev
+    )
+    stateful = pol.stateful
+    needs_key = pol.needs_key and not stateful
+    # one key per (replication, frame), the reference's grid
+    keys_all = (
+        prng.split(prng.PRNGKey(seed), n_rep * T).reshape(n_rep, T, 2) if needs_key else None
+    )
+
+    def call(run, carry, keys):
+        if stateful:
+            return fn(run, carry)
+        if needs_key:
+            return fn(run, keys), carry
+        return fn(run), carry
 
     sat_frames = np.zeros((n_rep, T), np.int64)
     served_frames = np.zeros((n_rep, T), np.int64)
@@ -658,19 +1216,25 @@ def simulate_fleet(
                 inst = FlatInstance(
                     **{k: host[k].to(dev, non_blocking=True) for k in _FIELDS}
                 )
-                if ccfg.enabled:
+                if ccfg.enabled or stateful:
                     js, ls, pcs, pes = [], [], [], []
                     for k in range(Tc):
                         sl = slice(k * n_rep, (k + 1) * n_rep)
                         frame = FlatInstance(**{f: getattr(inst, f)[sl] for f in _FIELDS})
-                        carry, a, pc, pe = _step(fn, frame, carry, ccfg)
+                        carry, a, pc, pe = _step(
+                            call, frame, carry, ccfg,
+                            None if keys_all is None else keys_all[:, t0 + k],
+                        )
                         js.append(a.j)
                         ls.append(a.l)
                         pcs.append(pc)
                         pes.append(pe)
                     aj, al = torch.cat(js), torch.cat(ls)
                 else:
-                    a = fn(inst)
+                    # frame-major rows: frame t0 + k of replication r at k * n_rep + r
+                    keys = (None if keys_all is None
+                            else keys_all[:, t0:t1].transpose(1, 0, 2).reshape(-1, 2))
+                    a, _ = call(inst, carry, keys)
                     aj, al = a.j, a.l
                 if pin:
                     torch.cuda.synchronize(dev)
@@ -730,6 +1294,138 @@ def simulate_fleet(
         prefetch=opts.prefetch if pipe.thread is not None else 0,
         timings=timings,
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    )
+
+
+def _simulate_fleet_host(
+    spec: ClusterSpec,
+    cfg: SimConfig,
+    scn: Scenario,
+    pol: Policy,
+    sources: List[_RepFrameSource],
+    *,
+    n_rep: int,
+    T: int,
+    n_pad: int,
+    seed: int,
+    gen_s: float,
+    sw: Stopwatch,
+    t_run0: float,
+) -> FleetResult:
+    """The fleet for the host policies (``vmappable=False`` or
+    ``pad=False``: ``ilp``, ``lp-bound``, ``gus-hier``), the reference's
+    ``_simulate_fleet_host``: each *unpadded* frame is scheduled on the CPU
+    in a Python loop that threads each replication's carry frame by frame,
+    and the assignments are re-padded with drops so the scoring is the
+    dense path's.  Everything runs on the host; rows are replication-major
+    (row ``rep * T + frame``)."""
+    ccfg = cfg.congestion
+    M = spec.n_servers
+    fleet_frames = []
+    with sw.span("fleet/arrivals"):
+        for src in sources:
+            fleet_frames.extend(src.take(T))
+    raw_insts = []
+    n_real = np.array([len(b) for b in fleet_frames], np.int32)
+    tq_flat = np.zeros((len(fleet_frames), n_pad), np.float32)
+    with sw.span("fleet/grid_build"):
+        for i, bucket in enumerate(fleet_frames):
+            frame_start = (i % T) * cfg.frame_ms
+            gamma, eta = _frame_budgets(spec, cfg, scn, frame_start)
+            raw_insts.append(_build_frame_instance(
+                bucket, spec, cfg, frame_start + cfg.frame_ms, spec.bandwidth_true,
+                cfg.max_cs, gamma=gamma, eta=eta,
+            ))
+            if len(bucket):
+                if isinstance(bucket, RequestColumns):
+                    tq_flat[i, : len(bucket)] = frame_start + cfg.frame_ms - bucket.arrival_ms
+                else:
+                    tq_flat[i, : len(bucket)] = [
+                        frame_start + cfg.frame_ms - r.arrival_ms for r in bucket
+                    ]
+        batch = stack_instances([pad_instance(r, n_pad) for r in raw_insts])
+
+    fn = pol.bind(spec.n_edge, spec.n_servers)
+    keys = (
+        prng.split(prng.PRNGKey(seed), len(raw_insts))
+        if pol.needs_key and not pol.stateful else None
+    )
+    jv = np.full((len(raw_insts), n_pad), -1, np.int32)
+    lv = np.full((len(raw_insts), n_pad), -1, np.int32)
+    phi_c = np.ones((len(raw_insts), M), np.float32)
+    phi_e = np.ones((len(raw_insts), M), np.float32)
+    final_backlog = np.zeros((n_rep, M), np.float32)
+    with sw.span("fleet/schedule_host"):
+        for rep in range(n_rep):
+            carry = init_policy_carry(
+                M, seed=seed + rep, bandwidth_init=spec.bandwidth_true, device="cpu"
+            )
+            for tf in range(T):
+                i = rep * T + tf
+                inst, n = raw_insts[i], n_real[i]
+                if ccfg.enabled:
+                    run_inst = dataclasses.replace(
+                        inst,
+                        gamma=effective_capacity(inst.gamma, carry.backlog_gamma),
+                        eta=effective_capacity(inst.eta, carry.backlog_eta),
+                    )
+                else:
+                    run_inst = inst
+                if pol.stateful:
+                    a, carry = fn(run_inst, carry)
+                elif keys is not None:
+                    a = fn(run_inst, keys[i])
+                else:
+                    a = fn(run_inst)
+                jv[i, :n] = a.j.cpu().numpy()
+                lv[i, :n] = a.l.cpu().numpy()
+                if ccfg.enabled:
+                    w, c = committed_loads(inst, a.j.cpu(), a.l.cpu())
+                    phi_c[i] = compute_inflation(
+                        carry.backlog_gamma + w, inst.gamma, ccfg).numpy()
+                    phi_e[i] = comm_inflation(carry.backlog_eta + c, inst.eta, ccfg).numpy()
+                    carry = dataclasses.replace(
+                        carry,
+                        backlog_gamma=step_backlog(carry.backlog_gamma, w, inst.gamma, ccfg),
+                        backlog_eta=step_backlog(carry.backlog_eta, c, inst.eta, ccfg),
+                        ema_util=ema_update(carry.ema_util, w, inst.gamma, ccfg),
+                    )
+            final_backlog[rep] = carry.backlog_gamma.numpy()
+
+    aj, al = torch.from_numpy(jv), torch.from_numpy(lv)
+    if ccfg.enabled:
+        mbatch = dataclasses.replace(
+            batch,
+            ctime=congested_ctime(
+                batch, torch.from_numpy(tq_flat), torch.from_numpy(phi_c),
+                torch.from_numpy(phi_e),
+            ),
+        )
+    else:
+        mbatch = batch
+    real = np.arange(n_pad)[None, :] < n_real[:, None]
+    sat = satisfied_mask(mbatch, aj, al).numpy() & real      # (R*T, n_pad)
+    us = mean_us(mbatch, aj, al).numpy()                      # (R*T,)
+    served = (jv >= 0) & real
+
+    timings = sw.as_dict()
+    timings["total_s"] = time.perf_counter() - t_run0
+    reqs_per_rep = n_real.reshape(n_rep, T).sum(1)
+    sat_per_rep = sat.reshape(n_rep, T, n_pad).sum((1, 2))
+    us_sum_per_rep = (us * n_pad).reshape(n_rep, T).sum(1)
+    return FleetResult(
+        n_rep=n_rep,
+        n_frames=T,
+        n_requests=int(reqs_per_rep.sum()),
+        n_served=int(served.sum()),
+        satisfied_per_rep=100.0 * sat_per_rep / np.maximum(reqs_per_rep, 1),
+        mean_us_per_rep=us_sum_per_rep / np.maximum(reqs_per_rep, 1),
+        final_backlog_per_rep=final_backlog if ccfg.enabled else None,
+        mean_compute_inflation=float(np.mean(phi_c)) if ccfg.enabled else 1.0,
+        n_devices=1,
+        window=T,
+        gen_s=gen_s,
+        timings=timings,
     )
 
 

@@ -54,6 +54,14 @@
 //     gamma[j] and eta[s] reach every lane by __shfl_sync.  With M > 32 they
 //     live in shared memory, lane 0 commits between two __syncwarp.
 //
+// Priority (the second entry, gus_assign_launch_scaled): a per-row weight p
+// scales the row's utility once, us * p as one __fmul_rn after us is formed
+// exactly as above, before the key and the NEG test: the reference's
+// us_tensor(inst) * priority[:, None, None]
+// (repro/core/extensions.py::gus_schedule_ordered).  It stages with the
+// other row scalars.  The plain entry is the same template with the scale
+// compiled out, and its shared-memory layout is unchanged.
+//
 // Width limit.  A stage must hold at least one row (17 B a cell), STAGES
 // times, beside 16 B a server of budgets: rows of at most MAX_CELLS = 4096
 // cells and MAX_SERVERS = 1024 servers, which the wrapper (kernels/gus.py)
@@ -115,12 +123,13 @@ __host__ __device__ __forceinline__ size_t pad16(size_t n) { return (n + 15) & ~
 struct Layout {
   size_t f32_cells, u8_cells, row, stage, scratch, bars, total;
 
-  __host__ __device__ Layout(int tr, int ml, int m) {
+  __host__ __device__ Layout(int tr, int ml, int m, bool scaled) {
     f32_cells = pad16((size_t)tr * ml * 4) + 16;
     u8_cells = pad16((size_t)tr * ml) + 16;
     row = pad16((size_t)tr * 4);
     // acc (then the keys), ctime, v, u, avail; cover, A, C, w_a, w_c, usable
-    stage = 4 * f32_cells + u8_cells + 6 * row;
+    // and, with a scale, prio
+    stage = 4 * f32_cells + u8_cells + (scaled ? 7 : 6) * row;
     scratch = STAGES * stage;  // budgets and loads (M > 32)
     bars = scratch + pad16((size_t)4 * m * 4);
     total = bars + 8 * 3 * STAGES;
@@ -260,7 +269,8 @@ struct Budgets {
 
 // REG: budgets in lane registers (M <= 32).  SMALL: rows of at most
 // SMALL_CELLS cells, each lane's 4 cells loaded and tested unrolled.
-template <bool REG, bool SMALL>
+// SCALED: each row's utility is scaled by prio[row].
+template <bool REG, bool SMALL, bool SCALED>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 gus_assign_kernel(
     const int32_t* __restrict__ cover, const float* __restrict__ A,
@@ -270,12 +280,13 @@ gus_assign_kernel(
     const float* __restrict__ u, const uint8_t* __restrict__ avail,
     const float* __restrict__ gamma, const float* __restrict__ eta,
     const float* __restrict__ max_as, const float* __restrict__ max_cs,
+    const float* __restrict__ prio,
     int32_t* __restrict__ out_j, int32_t* __restrict__ out_l,
     float* __restrict__ out_w, float* __restrict__ out_c,
     int N, int M, int L, int tr) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int ML = M * L;
-  const Layout lay(tr, ML, M);
+  const Layout lay(tr, ML, M, SCALED);
   const int b = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_tiles = (N + tr - 1) / tr;
@@ -302,6 +313,7 @@ gus_assign_kernel(
     int32_t* cover;
     float *A, *C, *wa, *wc;
     int32_t* usable;  // whether the row has a usable cell
+    float* prio;      // the rows' utility scales (SCALED)
     uint64_t r0;
     int n;
   };
@@ -321,7 +333,8 @@ gus_assign_kernel(
                  reinterpret_cast<float*>(rows + 2 * lay.row),
                  reinterpret_cast<float*>(rows + 3 * lay.row),
                  reinterpret_cast<float*>(rows + 4 * lay.row),
-                 reinterpret_cast<int32_t*>(rows + 5 * lay.row), r0, n};
+                 reinterpret_cast<int32_t*>(rows + 5 * lay.row),
+                 reinterpret_cast<float*>(rows + 6 * lay.row), r0, n};
   };
 
   if (warp == 1) {
@@ -334,13 +347,14 @@ gus_assign_kernel(
       const bool has_row = lane < tl.n;
       const uint64_t row = tl.r0 + lane;
       int32_t r_cover = 0;
-      float r_A = 0.f, r_C = 0.f, r_wa = 0.f, r_wc = 0.f;
+      float r_A = 0.f, r_C = 0.f, r_wa = 0.f, r_wc = 0.f, r_p = 1.f;
       if (has_row) {
         r_cover = cover[row];
         r_A = A[row];
         r_C = C[row];
         r_wa = w_a[row];
         r_wc = w_c[row];
+        if (SCALED) r_p = prio[row];
       }
       const auto e0 = tl.acc.load_ends(lane);
       const auto e1 = tl.ctime.load_ends(lane);
@@ -370,6 +384,7 @@ gus_assign_kernel(
         tl.wa[lane] = r_wa;
         tl.wc[lane] = r_wc;
         tl.usable[lane] = 0;
+        if (SCALED) tl.prio[lane] = r_p;
       }
       fence_proxy_async();
       mbar_arrive(bar);  // after the lane's plain copies (release)
@@ -400,7 +415,8 @@ gus_assign_kernel(
         const float ct = t_ct[e];
         const float acc_term = __fdiv_rn(__fsub_rn(a, Ai), mas);
         const float time_term = __fdiv_rn(__fsub_rn(Ci, ct), mcs);
-        const float us = __fadd_rn(__fmul_rn(tl.wa[k], acc_term), __fmul_rn(tl.wc[k], time_term));
+        float us = __fadd_rn(__fmul_rn(tl.wa[k], acc_term), __fmul_rn(tl.wc[k], time_term));
+        if (SCALED) us = __fmul_rn(us, tl.prio[k]);
         const bool ok = t_av[e] != 0 && a >= Ai && ct <= Ci && us > NEG;
         keys[e] = ok ? score_key(us) : 0u;
         if (ok) tl.usable[k] = 1;
@@ -492,20 +508,46 @@ gus_assign_kernel(
   bud.store(out_w + (size_t)b * M, out_c + (size_t)b * M);
 }
 
-template <bool REG, bool SMALL>
+// p: the 14 inputs, prio (nullptr unless SCALED), the 4 outputs
+template <bool REG, bool SMALL, bool SCALED>
 int launch(const void* const* p, int B, int N, int M, int L, int tr, size_t smem,
            cudaStream_t stream) {
-  const void* kernel = (const void*)gus_assign_kernel<REG, SMALL>;
+  const void* kernel = (const void*)gus_assign_kernel<REG, SMALL, SCALED>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  gus_assign_kernel<REG, SMALL><<<B, THREADS, smem, stream>>>(
+  gus_assign_kernel<REG, SMALL, SCALED><<<B, THREADS, smem, stream>>>(
       (const int32_t*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
       (const float*)p[4], (const float*)p[5], (const float*)p[6], (const float*)p[7],
       (const float*)p[8], (const uint8_t*)p[9], (const float*)p[10], (const float*)p[11],
-      (const float*)p[12], (const float*)p[13], (int32_t*)p[14], (int32_t*)p[15],
-      (float*)p[16], (float*)p[17], N, M, L, tr);
+      (const float*)p[12], (const float*)p[13], (const float*)p[14], (int32_t*)p[15],
+      (int32_t*)p[16], (float*)p[17], (float*)p[18], N, M, L, tr);
   return (int)cudaGetLastError();
+}
+
+template <bool SCALED>
+int launch_any(const void* const* p, int B, int N, int M, int L, void* stream) {
+  const int ML = M * L;
+  if (ML > MAX_CELLS || M > MAX_SERVERS) return ERR_TOO_WIDE;
+  int dev = 0, max_smem = 0, sm_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  // the largest tile with which MIN_BLOCKS blocks share an SM (1 KB of each
+  // block's share is the system's), else the largest one block can hold
+  const size_t share = (size_t)sm_smem / MIN_BLOCKS - 1024;
+  int tr = MAX_TILE;
+  while (tr > 1 && Layout(tr, ML, M, SCALED).total > share) --tr;
+  if (Layout(tr, ML, M, SCALED).total > share)
+    while (tr > 1 && Layout(tr, ML, M, SCALED).total > (size_t)max_smem) --tr;
+  const size_t smem = Layout(tr, ML, M, SCALED).total;
+  if (smem > (size_t)max_smem) return ERR_TOO_WIDE;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool reg = M <= 32, small = ML <= SMALL_CELLS;
+  if (reg) return small ? launch<true, true, SCALED>(p, B, N, M, L, tr, smem, st)
+                        : launch<true, false, SCALED>(p, B, N, M, L, tr, smem, st);
+  return small ? launch<false, true, SCALED>(p, B, N, M, L, tr, smem, st)
+               : launch<false, false, SCALED>(p, B, N, M, L, tr, smem, st);
 }
 
 }  // namespace
@@ -521,29 +563,21 @@ int gus_assign_launch(
     const void* u, const void* avail, const void* gamma, const void* eta,
     const void* max_as, const void* max_cs, void* out_j, void* out_l,
     void* out_w, void* out_c, int B, int N, int M, int L, void* stream) {
-  const int ML = M * L;
-  if (ML > MAX_CELLS || M > MAX_SERVERS) return ERR_TOO_WIDE;
-  int dev = 0, max_smem = 0, sm_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  // the largest tile with which MIN_BLOCKS blocks share an SM (1 KB of each
-  // block's share is the system's), else the largest one block can hold
-  const size_t share = (size_t)sm_smem / MIN_BLOCKS - 1024;
-  int tr = MAX_TILE;
-  while (tr > 1 && Layout(tr, ML, M).total > share) --tr;
-  if (Layout(tr, ML, M).total > share)
-    while (tr > 1 && Layout(tr, ML, M).total > (size_t)max_smem) --tr;
-  const size_t smem = Layout(tr, ML, M).total;
-  if (smem > (size_t)max_smem) return ERR_TOO_WIDE;
-  const void* const p[18] = {cover, A, C, w_a, w_c, acc, ctime, v, u, avail,
-                             gamma, eta, max_as, max_cs, out_j, out_l, out_w, out_c};
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool reg = M <= 32, small = ML <= SMALL_CELLS;
-  if (reg) return small ? launch<true, true>(p, B, N, M, L, tr, smem, st)
-                        : launch<true, false>(p, B, N, M, L, tr, smem, st);
-  return small ? launch<false, true>(p, B, N, M, L, tr, smem, st)
-               : launch<false, false>(p, B, N, M, L, tr, smem, st);
+  const void* const p[19] = {cover, A, C, w_a, w_c, acc, ctime, v, u, avail, gamma, eta,
+                             max_as, max_cs, nullptr, out_j, out_l, out_w, out_c};
+  return launch_any<false>(p, B, N, M, L, stream);
+}
+
+// gus_assign_launch with each row's utility scaled by prio (B*N float32)
+int gus_assign_launch_scaled(
+    const void* cover, const void* A, const void* C, const void* w_a,
+    const void* w_c, const void* acc, const void* ctime, const void* v,
+    const void* u, const void* avail, const void* gamma, const void* eta,
+    const void* max_as, const void* max_cs, const void* prio, void* out_j,
+    void* out_l, void* out_w, void* out_c, int B, int N, int M, int L, void* stream) {
+  const void* const p[19] = {cover, A, C, w_a, w_c, acc, ctime, v, u, avail, gamma, eta,
+                             max_as, max_cs, prio, out_j, out_l, out_w, out_c};
+  return launch_any<true>(p, B, N, M, L, stream);
 }
 
 const char* gus_error_string(int err) {

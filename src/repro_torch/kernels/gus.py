@@ -9,6 +9,13 @@ it runs :func:`gus_assign_ref`, the plain version.  There is no fallback
 from the kernel to the plain version.  ``gus_assign.launches`` counts the
 kernel launches.
 
+Both take an optional per-row ``prio`` ``(B, N)`` float32: each row's
+utility is multiplied by it once, after it is formed and before the argmax
+(the reference's ``us * priority[:, None, None]`` in
+``repro.core.extensions.gus_schedule_ordered``).  On the card that is a
+second C entry, ``gus_assign_launch_scaled``, the same kernel template with
+the scale compiled in; ``gus_assign_launch`` keeps its interface.
+
 Both return ``(j, l, w, c)``: int32 ``(B, N)`` assignments with -1 = drop,
 and float32 ``(B, M)`` per-server committed compute ``w`` and offloaded
 uplink ``c``, each summed in request order.  That order is the reference's
@@ -33,7 +40,7 @@ __all__ = ["MAX_CELLS", "MAX_SERVERS", "NEG", "gus_assign", "gus_assign_ref"]
 #: the masked-out candidate score; served iff the best score is > NEG
 NEG = -1e30
 
-_N_ARGS = 18  # pointers passed to gus_assign_launch before the sizes
+_N_ARGS = 18  # pointers passed to gus_assign_launch before the sizes (one more when scaled)
 #: the widest request row the kernel's shared-memory ring takes (one row per
 #: stage), as MAX_CELLS and MAX_SERVERS in csrc/gus_assign.cu
 MAX_CELLS = 4096
@@ -41,13 +48,14 @@ MAX_SERVERS = 1024
 
 
 def gus_assign_ref(
-    cover, A, C, w_a, w_c, acc, ctime, v, u, avail, gamma, eta, max_as, max_cs
+    cover, A, C, w_a, w_c, acc, ctime, v, u, avail, gamma, eta, max_as, max_cs, prio=None
 ):
     """Plain PyTorch GUS over a batch of frames, on the tensors' device.
 
     A Python loop over the N requests, each step a masked first-occurrence
     argmax over the (M, L) slab of every frame at once — the reference's
-    ``_gus_body`` with a batch axis written out.
+    ``_gus_body`` with a batch axis written out.  ``prio`` (optional,
+    ``(B, N)``) scales each row's utility once.
     """
     B, N, M, L = acc.shape
     dev = acc.device
@@ -60,6 +68,8 @@ def gus_assign_ref(
     acc_term = (acc - A[..., :, None, None]) / max_as[:, None, None, None]
     time_term = (C[..., :, None, None] - ctime) / max_cs[:, None, None, None]
     us = w_a[..., :, None, None] * acc_term + w_c[..., :, None, None] * time_term
+    if prio is not None:
+        us = us * prio[..., :, None, None]
     feas = avail & (acc >= A[..., :, None, None]) & (ctime <= C[..., :, None, None])
 
     gamma = gamma.clone()
@@ -98,10 +108,10 @@ def gus_assign_ref(
 def _library() -> ctypes.CDLL:
     lib = load_library("gus_assign")
     if not getattr(lib, "_argtypes_set", False):
-        lib.gus_assign_launch.argtypes = (
-            [ctypes.c_void_p] * _N_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        )
-        lib.gus_assign_launch.restype = ctypes.c_int
+        for fn, n_ptr in ((lib.gus_assign_launch, _N_ARGS),
+                          (lib.gus_assign_launch_scaled, _N_ARGS + 1)):
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.gus_error_string.argtypes = [ctypes.c_int]
         lib.gus_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -120,7 +130,7 @@ def _check(name, t, dtype, shape, device):
 
 
 def gus_assign(
-    cover, A, C, w_a, w_c, acc, ctime, v, u, avail, gamma, eta, max_as, max_cs
+    cover, A, C, w_a, w_c, acc, ctime, v, u, avail, gamma, eta, max_as, max_cs, prio=None
 ):
     """GUS over a batch of frames: the Hopper kernel on CUDA tensors, the
     plain version on CPU tensors.
@@ -128,14 +138,15 @@ def gus_assign(
     Shapes: ``cover/A/C/w_a/w_c`` ``(B, N)`` (cover int32, the rest
     float32); ``acc/ctime/v/u`` ``(B, N, M, L)`` float32; ``avail``
     ``(B, N, M, L)`` bool; ``gamma/eta`` ``(B, M)`` and ``max_as/max_cs``
-    ``(B,)`` float32.  Every tensor is contiguous and on one device.  The
+    ``(B,)`` float32; ``prio`` ``None`` or ``(B, N)`` float32.  Every tensor
+    is contiguous and on one device.  The
     kernel takes rows of at most ``MAX_CELLS`` cells and ``MAX_SERVERS``
     servers and raises ``RuntimeError`` on a wider one before the launch.
     """
     dev = acc.device
     if dev.type == "cpu":
         return gus_assign_ref(
-            cover, A, C, w_a, w_c, acc, ctime, v, u, avail, gamma, eta, max_as, max_cs
+            cover, A, C, w_a, w_c, acc, ctime, v, u, avail, gamma, eta, max_as, max_cs, prio
         )
     if dev.type != "cuda":
         raise ValueError(f"gus_assign runs on CUDA or CPU tensors, not {dev.type}")
@@ -149,7 +160,7 @@ def gus_assign(
         ("avail", avail, torch.bool, (B, N, M, L)),
         ("gamma", gamma, f32, (B, M)), ("eta", eta, f32, (B, M)),
         ("max_as", max_as, f32, (B,)), ("max_cs", max_cs, f32, (B,)),
-    ):
+    ) + ((("prio", prio, f32, (B, N)),) if prio is not None else ()):
         _check(name, t, dtype, shape, dev)
     if M * L > MAX_CELLS or M > MAX_SERVERS:
         raise RuntimeError(
@@ -165,12 +176,19 @@ def gus_assign(
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gus_assign_launch(
+        ins = [
             cover.data_ptr(), A.data_ptr(), C.data_ptr(), w_a.data_ptr(),
             w_c.data_ptr(), acc.data_ptr(), ctime.data_ptr(), v.data_ptr(),
             u.data_ptr(), avail.view(torch.uint8).data_ptr(), gamma.data_ptr(),
             eta.data_ptr(), max_as.data_ptr(), max_cs.data_ptr(),
-            out_j.data_ptr(), out_l.data_ptr(), w.data_ptr(), c.data_ptr(),
+        ]
+        if prio is None:
+            entry = lib.gus_assign_launch
+        else:
+            entry = lib.gus_assign_launch_scaled
+            ins.append(prio.data_ptr())
+        err = entry(
+            *ins, out_j.data_ptr(), out_l.data_ptr(), w.data_ptr(), c.data_ptr(),
             B, N, M, L, stream,
         )
     if err != 0:

@@ -190,8 +190,11 @@ def test_unported_options_raise(case, item):
 def test_unknown_policy_and_backend_errors():
     spec = P.demo_cluster_spec()
     cfg = P.SimConfig(**BASE)
-    with pytest.raises(KeyError, match="not ported yet"):
-        P.simulate_fleet(spec, cfg, policy="random", n_rep=2, device="cpu")
+    with pytest.raises(KeyError, match="unknown policy 'no-such-policy'"):
+        P.simulate_fleet(spec, cfg, policy="no-such-policy", n_rep=2, device="cpu")
+    with pytest.raises(ValueError, match="does not take it"):
+        P.simulate_fleet(spec, cfg, policy="random", n_rep=2, device="cpu",
+                         options=P.EngineOptions(backend="torch"))
     with pytest.raises(ValueError, match="unknown GUS backend"):
         P.simulate_fleet(spec, cfg, n_rep=2, device="cpu",
                          options=P.EngineOptions(backend="pallas"))

@@ -87,22 +87,31 @@ def test_entry_points_without_device_raise_instead_of_running_on_cpu(no_cuda):
         lambda: P.gus_schedule(inst),
         lambda: P.gus_schedule_batch(batch),
         lambda: P.simulate_fleet(P.demo_cluster_spec(), P.SimConfig(horizon_ms=3000.0), n_rep=1),
+        lambda: P.simulate(P.demo_cluster_spec(), P.SimConfig(horizon_ms=3000.0)),
+        lambda: P.simulate(P.demo_cluster_spec(), P.SimConfig(horizon_ms=3000.0), policy="ilp"),
+        lambda: P.gus_schedule_ordered(inst),
+        lambda: P.random_assignment(inst, np.zeros(2, np.uint32)),
+        lambda: P.offload_all(batch, np.arange(10) >= 9),
+        lambda: P.local_all(inst),
+        lambda: P.happy_computation(batch),
+        lambda: P.happy_communication(inst),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
 
-@pytest.mark.parametrize("helper", ["class_batch", "fleet_policy_carry"])
+@pytest.mark.parametrize("helper", ["class_batch", "fleet_policy_carry", "init_policy_carry"])
 def test_input_helpers_without_device_raise(no_cuda, helper):
     """The exported input builders resolve ``device=None`` to the card, as
     every entry point does; ``device="cpu"`` still builds on the CPU."""
     from repro_torch.core.aggregation import class_batch
-    from repro_torch.core.queueing import fleet_policy_carry
+    from repro_torch.core.queueing import fleet_policy_carry, init_policy_carry
 
     call = {
         "class_batch": lambda **kw: class_batch([P.generate_instance(0, device="cpu")], **kw),
         "fleet_policy_carry": lambda **kw: fleet_policy_carry(2, 3, **kw),
+        "init_policy_carry": lambda **kw: init_policy_carry(3, **kw),
     }[helper]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

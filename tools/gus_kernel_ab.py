@@ -15,6 +15,11 @@ shapes are those of ``chip_smoke.py`` phase 10: the dense fleet's first frame of
 (B=1), its frame step (B=1024) and window (B=5120) at N=256, M=L=10, the
 window with every budget spent (the chain's floor), and the paper batch
 (B=20000, N=100).  The card's name and power limit are printed first.
+
+``--scaled`` also times the kernel's scaled entry (``gus_assign_launch_scaled``,
+per-row priority weights drawn from a seed) in the same turns, after holding
+it against the plain version with the same weights.  The baseline needs only
+``gus_assign_launch``, so a build from before the scaled entry still loads.
 """
 from __future__ import annotations
 
@@ -77,9 +82,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, required=True)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--scaled", action="store_true",
+                    help="time the scaled entry (priority weights) beside the plain one")
     opt = ap.parse_args()
 
     import dataclasses
+
+    import numpy as np
 
     from chip_smoke import dense_fleet_window, time_events, time_graph
     from repro_torch.core import FlatInstance, generate_batch
@@ -116,20 +125,29 @@ def main() -> int:
         ("paper batch B=20000 N=100 M=10 L=10", args_of(generate_batch(0, 20000, device=dev))),
     ]
     for label, args in shapes:
+        B, N = args[1].shape
+        prio = torch.from_numpy(
+            np.random.default_rng(0).uniform(0.5, 2.0, (B, N)).astype(np.float32)).to(dev)
         want = gus_assign_ref(*args)
-        for name, got in (("kernel", gus_assign(*args)), ("baseline", baseline_call(base, args))):
+        checks = [("kernel", gus_assign(*args), want),
+                  ("baseline", baseline_call(base, args), want)]
+        if opt.scaled:
+            checks.append(("scaled", gus_assign(*args, prio), gus_assign_ref(*args, prio)))
+        for name, got, ref in checks:
             torch.cuda.synchronize()
-            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            same = all(torch.equal(g, w) for g, w in zip(got, ref))
             print(f"{label}: {name} == plain: {same}")
             if not same:
                 return 1
-        calls = {"kernel": lambda: gus_assign(*args), "baseline": lambda: baseline_call(base, args)}
+        calls = {"kernel": lambda: gus_assign(*args), "baseline": lambda: baseline_call(base, args),
+                 "scaled": lambda: gus_assign(*args, prio)}
+        names = ("baseline", "kernel", "scaled") if opt.scaled else ("baseline", "kernel")
         for timer, how in ((time_events, "eager"), (time_graph, "device")):
-            t = {"baseline": [], "kernel": []}
-            for name in ("baseline", "kernel", "kernel", "baseline"):
+            t = {name: [] for name in names}
+            for name in names + names[::-1]:
                 t[name].append(timer(calls[name], opt.reps))
-            print(f"time {label} ({how}): kernel {t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} ms, "
-                  f"baseline {t['baseline'][0]:.4f} / {t['baseline'][1]:.4f} ms")
+            print(f"time {label} ({how}): " + ", ".join(
+                f"{name} {t[name][0]:.4f} / {t[name][1]:.4f} ms" for name in names))
     return 0
 
 
