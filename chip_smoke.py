@@ -111,7 +111,25 @@ any phase fails:
    the wrapper's host time and the copy back); the class allocator's chain
    floor (the same window with every budget spent, so each class takes the
    shortest step);
-12. prints one JSON line listing every ported kernel, then the contract line
+12. runs the resilience layer (link traces, outage streams, admission
+   control) on every scheduler path, each run on the card equal to the same
+   call on the CPU: the sequential testbed under the five regimes of
+   ``benchmarks/paper_figures.py::fig_resilience`` (disconnect-reconnect,
+   satellite, handoff, outage stream, the flash-crowd + outage composite
+   with congestion on), bare and with ``PROTECTED_ADMISSION``, every
+   registered policy on ``demo_cluster_spec()`` at 12 s (B=1 launches
+   counted); the dense fleet of phase 3 with ``gus``, ``gus-adaptive`` and
+   ``happy_computation`` at 64 replications under the composite + protection,
+   then ``gus`` at 1024 replications under disconnect-reconnect +
+   protection (congestion off: one launch per window, as phase 3) and under
+   the composite (one launch per frame); the hierarchical fleet of phase 4
+   with the users sweep's admission and impairments
+   (``benchmarks/fleet_scale.py::run_users_sweep``) at ~10^3 users per
+   frame, congestion off and on, then at the scenario's defaults, 4
+   replications, ``window=1``, ``prefetch=2`` — the resilient hierarchical
+   main path, whose launches are counted; each scale run's wall, ``gen_s``
+   and ``dispatch_s`` printed beside its unimpaired phase;
+13. prints one JSON line listing every ported kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device,
@@ -1357,6 +1375,238 @@ def policies_smoke(dev, zero_counts, paper, golden, fleet_spec, fleet_cfg, fleet
     return mism_total, launches_by_path, timings
 
 
+#: the sequential testbed's resilience matrix: benchmarks/paper_figures.py::
+#: fig_resilience's regimes on demo_cluster_spec(), cut to a 12 s horizon
+RES_SEQ_CFG = dict(horizon_ms=12_000.0, delay_req_ms=6000.0, acc_req_mean=50.0,
+                   acc_req_std=10.0)
+#: the composite regime's scenario (paper_figures.py::_resilience_regimes)
+COMPOSITE_SCN = dict(burst_mult=3.0, burst_start_frac=0.2, burst_end_frac=0.4,
+                     outage_start_frac=0.2, outage_end_frac=0.4)
+#: replications of the resilient hierarchical main path: 4, as the script
+#: ran past its time budget at 8 (PERF.md, PR 19)
+N_REP_CITY_RES = 4
+
+
+def resilience_regimes():
+    """``benchmarks/paper_figures.py::_resilience_regimes`` (full size): name
+    -> ``(scenario, ImpairmentConfig, CongestionConfig, rate per edge)``,
+    and the ``PROTECTED_ADMISSION`` setting."""
+    from repro_torch.core import (
+        AdmissionConfig, CongestionConfig, HandoffLink, ImpairmentConfig, IntermittentLink,
+        SatelliteLink,
+    )
+    from repro_torch.core.scenarios import FlashCrowdOutageScenario
+
+    off, on = CongestionConfig(), CongestionConfig(enabled=True)
+    composite_imp = ImpairmentConfig(
+        enabled=True, link_profiles=(IntermittentLink(),), seed=0, outage_mtbf_frames=6.0,
+        outage_mttr_frames=3.0, outage_servers=(1,))
+    regimes = {
+        "disconnect-reconnect": ("paper-default", ImpairmentConfig(
+            enabled=True, link_profiles=(IntermittentLink(),), seed=0), off, 2.0),
+        "satellite": ("paper-default", ImpairmentConfig(
+            enabled=True, link_profiles=(SatelliteLink(),), seed=0), off, 2.0),
+        "flash-crowd-outage": (FlashCrowdOutageScenario(**COMPOSITE_SCN), composite_imp, on, 4.0),
+        "handoff": ("paper-default", ImpairmentConfig(
+            enabled=True, link_profiles=(HandoffLink(period_frames=4, period_jitter=1),),
+            seed=0), off, 2.0),
+        "outage-stream": ("paper-default", ImpairmentConfig(
+            enabled=True, outage_mtbf_frames=6.0, outage_mttr_frames=3.0, outage_servers=(1, 3),
+            seed=0), off, 2.0),
+    }
+    return regimes, AdmissionConfig(enabled=True, queue_cap_mult=1.0, shed=True)
+
+
+def resilience_smoke(dev, zero_counts, fleet_spec, fleet_cfg, n_rep_scale, window, dense_base,
+                     city, city_cfg, mega, small_city, hier_base):
+    """Phase 12: the resilience layer on every scheduler path — the
+    sequential testbed's resilience matrix on the card against the CPU (its
+    B=1 launches counted), the dense fleet under the composite regime
+    against the CPU and at ``n_rep_scale`` replications under
+    disconnect-reconnect + protection (one launch per window) and under the
+    composite (one launch per frame), and the hierarchical fleet with the
+    users sweep's admission and impairments against the CPU, then at full
+    width (the resilient main path, counted).  ``dense_base`` and
+    ``hier_base`` are phases 3 and 4's unimpaired scale runs, printed
+    beside.  Returns ``(gus launches by path, hier launches by path)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        AdmissionConfig, BurstyLossLink, CongestionConfig, EngineOptions, ImpairmentConfig,
+        IntermittentLink, SimConfig, demo_cluster_spec, get_policy, list_policies, simulate,
+        simulate_fleet,
+    )
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gus import gus_assign
+    from repro_torch.kernels.hier import hier_cells
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    regimes, protected = resilience_regimes()
+    gus_paths, hier_paths = {}, {}
+
+    def wall_line(label, fr, wall, launches, kernel):
+        print(f"{label}: wall {wall:.3f} s dispatch_s {fr.dispatch_s:.3f} gen_s {fr.gen_s:.3f} "
+              f"requests={fr.n_requests} requests/s {fr.n_requests / wall:.1f} "
+              f"served={fr.n_served} satisfied={fr.satisfied_pct:.4f}% {kernel} "
+              f"launches={launches}")
+
+    # -- 12a. the sequential testbed: every policy x regime x mechanism ------
+    seq_spec = demo_cluster_spec()
+    totals = dict(n_shed=0.0, n_refused=0.0, frames_with_down_server=0.0)
+    n_runs = 0
+    zero_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    cpu_s = 0.0
+    for name, (scn, imp, cc, rate) in regimes.items():
+        for mech, acfg in (("none", AdmissionConfig()), ("protected", protected)):
+            cfg = SimConfig(**RES_SEQ_CFG, arrival_rate_per_s=rate, congestion=cc,
+                            impairments=imp, admission=acfg)
+            for pol in list_policies():
+                n0 = gus_assign.launches
+                g = simulate(seq_spec, cfg, policy=pol, scenario=scn, seed=0, device=dev)
+                launched = gus_assign.launches - n0
+                n_runs += 1
+                for k in totals:
+                    totals[k] += g.resilience_stats[k]
+                if not get_policy(pol).vmappable:
+                    # host policies schedule on the CPU either way (held
+                    # against the reference by the CPU tests)
+                    check(launched == 0, f"simulate {pol} under {name} launched GUS")
+                    continue
+                t1 = time.perf_counter()
+                c = simulate(seq_spec, cfg, policy=pol, scenario=scn, seed=0, device="cpu")
+                cpu_s += time.perf_counter() - t1
+                check(launched > 0, f"simulate {pol} under {name}/{mech}: no GUS launch")
+                check(g.as_dict() == c.as_dict() and g.resilience_stats == c.resilience_stats
+                      and g.bandwidth_estimates == c.bandwidth_estimates
+                      and g.congestion_stats == c.congestion_stats,
+                      f"simulate on the card != on the CPU ({pol}, {name}, {mech})")
+    seq_wall = time.perf_counter() - t0 - cpu_s
+    seq_launches = gus_assign.launches
+    check(hier_cells.launches == flash_attention.launches == decode_attention.launches
+          == ssd_scan.launches == 0, "the resilient sequential runs launched another kernel")
+    print(f"resilience sequential matrix: {n_runs} simulate runs ({len(regimes)} regimes x 2 "
+          f"mechanisms x {len(list_policies())} policies) on the card in {seq_wall:.3f} s (the "
+          f"CPU's {cpu_s:.3f} s aside), equal to the CPU; gus_assign launches={seq_launches} "
+          f"(B=1); totals {json.dumps(totals)}")
+    check(all(v > 0 for v in totals.values()),
+          "the matrix never shed, refused or took a server down")
+    gus_paths["resilient sequential simulate (B=1)"] = seq_launches
+
+    # -- 12b. the dense fleet -----------------------------------------------
+    comp_scn, comp_imp, comp_cc, _ = regimes["flash-crowd-outage"]
+    comp_cfg = dataclasses.replace(fleet_cfg, congestion=comp_cc, impairments=comp_imp,
+                                   admission=protected)
+
+    def dense(pol, cfg, scn, n_rep, device, **opt):
+        return simulate_fleet(fleet_spec, cfg, policy=pol, scenario=scn, n_rep=n_rep, seed=0,
+                              options=EngineOptions(rng_mode="vectorized", **opt), device=device)
+
+    for pol in ("gus", "gus-adaptive", "happy_computation"):
+        n0 = gus_assign.launches
+        t0 = time.perf_counter()
+        g = dense(pol, comp_cfg, comp_scn, 64, dev)
+        t_gpu = time.perf_counter() - t0
+        launched = gus_assign.launches - n0
+        c = dense(pol, comp_cfg, comp_scn, 64, "cpu")
+        us_err = float(np.abs(g.mean_us_per_rep - c.mean_us_per_rep).max())
+        same = (g.n_requests == c.n_requests and g.n_served == c.n_served
+                and np.array_equal(g.satisfied_per_rep, c.satisfied_per_rep)
+                and g.mean_compute_inflation == c.mean_compute_inflation
+                and np.array_equal(g.final_backlog_per_rep, c.final_backlog_per_rep))
+        print(f"resilient fleet parity {pol} n_rep=64 composite+protected: cuda {t_gpu:.3f} s "
+              f"({launched} launches); requests={g.n_requests} served={g.n_served} "
+              f"satisfied={g.satisfied_pct:.4f}% inflation={g.mean_compute_inflation} "
+              f"final_backlog_sum={float(g.final_backlog_per_rep.sum())} "
+              f"integer_fields_equal={same} mean_us_max_abs_diff={us_err}")
+        check(same and np.allclose(g.mean_us_per_rep, c.mean_us_per_rep, rtol=US_RTOL,
+                                   atol=US_ATOL),
+              f"resilient fleet {pol} on the card != on the CPU")
+        check(launched == g.n_frames, f"resilient fleet {pol}: {launched} launches")
+
+    print(f"dense fleet unimpaired (phase 3): n_rep={dense_base[0].n_rep} window={window}: "
+          f"wall {dense_base[1]:.3f} s dispatch_s {dense_base[0].dispatch_s:.3f} gen_s "
+          f"{dense_base[0].gen_s:.3f} gus_assign launches={dense_base[2]}")
+    dr_scn, dr_imp, _, _ = regimes["disconnect-reconnect"]
+    for label, cfg, scn, expect in (
+        ("disconnect-reconnect+protected", dataclasses.replace(
+            fleet_cfg, impairments=dr_imp, admission=protected), dr_scn, dense_base[2]),
+        ("composite+protected", comp_cfg, comp_scn, None),
+    ):
+        zero_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        fr = dense("gus", cfg, scn, n_rep_scale, dev, window=window)
+        wall = time.perf_counter() - t0
+        n = gus_assign.launches
+        check(hier_cells.launches == 0, f"the resilient dense fleet ({label}) launched hier_cells")
+        wall_line(f"resilient dense fleet {label} n_rep={fr.n_rep} window={fr.window}", fr,
+                  wall, n, "gus_assign")
+        print(f"resilient dense fleet {label} timings "
+              + json.dumps({k: round(v, 4) for k, v in fr.timings.items()}))
+        check(n == (fr.n_frames if expect is None else expect),
+              f"resilient dense fleet {label}: {n} launches")
+        check(0 < fr.n_served <= fr.n_requests and np.isfinite(fr.mean_us_per_rep).all(),
+              f"resilient dense fleet {label} malformed")
+        gus_paths[f"resilient dense fleet gus {label} ({n_rep_scale} reps)"] = n
+
+    # -- 12c. the hierarchical fleet with the users sweep's resilience -------
+    users_cfg = dataclasses.replace(
+        city_cfg, admission=AdmissionConfig(enabled=True, shed=True),
+        impairments=ImpairmentConfig(enabled=True, seed=7,
+                                     link_profiles=(IntermittentLink(), BurstyLossLink())))
+
+    def city_fleet(n_rep, device, scenario, congestion=CongestionConfig()):
+        return simulate_fleet(
+            city, dataclasses.replace(users_cfg, congestion=congestion), scenario=scenario,
+            n_rep=n_rep, seed=0, device=device,
+            options=EngineOptions(scheduler="hierarchical", window=1, prefetch=2))
+
+    for label, congestion in (("off", CongestionConfig()),
+                              ("on drain=0.5", CongestionConfig(enabled=True, drain=0.5))):
+        n0 = hier_cells.launches
+        g = city_fleet(4, dev, small_city, congestion)
+        launched = hier_cells.launches - n0
+        c = city_fleet(4, "cpu", small_city, congestion)
+        same = (g.n_requests == c.n_requests and g.n_served == c.n_served
+                and np.array_equal(g.satisfied_per_rep, c.satisfied_per_rep)
+                and np.array_equal(g.mean_us_per_rep, c.mean_us_per_rep)
+                and g.mean_compute_inflation == c.mean_compute_inflation
+                and (not congestion.enabled
+                     or np.array_equal(g.final_backlog_per_rep, c.final_backlog_per_rep)))
+        print(f"resilient hier fleet parity n_rep=4 congestion {label}: {launched} launches; "
+              f"requests={g.n_requests} served={g.n_served} satisfied={g.satisfied_pct:.4f}% "
+              f"all_fields_equal={same}")
+        check(same, f"resilient hier fleet on the card != on the CPU (congestion {label})")
+        check(launched == g.n_frames, "the resilient hier fleet did not launch once per window")
+
+    fh0, hier_wall0 = hier_base
+    print(f"hier main path unimpaired (phase 4): n_rep={fh0.n_rep}: wall {hier_wall0:.3f} s "
+          f"dispatch_s {fh0.dispatch_s:.3f} gen_s {fh0.gen_s:.3f} requests={fh0.n_requests}")
+    zero_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    fh = city_fleet(N_REP_CITY_RES, dev, mega)
+    wall = time.perf_counter() - t0
+    n = hier_cells.launches
+    check(gus_assign.launches == flash_attention.launches == decode_attention.launches
+          == ssd_scan.launches == 0, "the resilient hierarchical main path launched another kernel")
+    wall_line(f"resilient hier main path mega-city n_rep={fh.n_rep} frames={fh.n_frames} "
+              f"window={fh.window} prefetch={fh.prefetch}", fh, wall, n, "hier_cells")
+    print("resilient hier main path timings "
+          + json.dumps({k: round(v, 4) for k, v in fh.timings.items()}))
+    check(n == fh.n_frames, "the resilient hier main path must launch once per window")
+    check(np.isfinite(fh.satisfied_per_rep).all() and np.isfinite(fh.mean_us_per_rep).all()
+          and 0 < fh.n_served < fh.n_requests
+          and fh.n_requests > 1e5 * N_REP_CITY_RES * fh.n_frames,
+          "resilient hier main path results malformed")
+    hier_paths[f"resilient hier mega-city ({N_REP_CITY_RES} reps, full width)"] = n
+    return gus_paths, hier_paths
+
+
 def main() -> int:
     import torch
 
@@ -1707,7 +1957,7 @@ def main() -> int:
                         True, True, "vectorized")
         for r in range(n_rep_city)
     ]
-    _, _, host, _, n_arr = _build_hier_window(
+    _, _, host, _, n_arr, _ = _build_hier_window(
         city_sources, city, city_cfg, mega, 0, 1, QuantizationConfig(), Stopwatch(), True
     )
     city_inst, city_us, city_feas, city_count = _hier_device_inputs(host, dev)
@@ -1907,6 +2157,11 @@ def main() -> int:
         f"{hier_plain_ms:.4f} ms, bound {hb_ms:.4f} ms ({hb_by}), kernel/bound "
         f"{hier_ms / hb_ms:.2f}x; library: none (no single PyTorch call computes the allocator)"
     )
+    # -- 12. the resilience layer on every scheduler path --------------------
+    res_gus, res_hier = resilience_smoke(
+        dev, zero_counts, spec, cfg, n_rep_scale, window, (fr, wall, launches), city, city_cfg,
+        mega, small_city, (fh, hier_wall))
+
     kernels = {"kernels": [{
         "name": "gus_assign",
         "route": "cuda",
@@ -1922,7 +2177,8 @@ def main() -> int:
         "library_ms": None,
         "chain_floor_ms": gus_floor_ms,
         "single_frame_ms": first_dev_ms,
-        "launches_by_path": {f"dense fleet gus ({n_rep_scale} reps)": launches, **pol_launches},
+        "launches_by_path": {f"dense fleet gus ({n_rep_scale} reps)": launches, **pol_launches,
+                             **res_gus},
         **pol_times,
     }, {
         "name": "hier_cells",
@@ -1937,6 +2193,8 @@ def main() -> int:
         "bound_by": hb_by,
         "library_ms": None,
         "chain_floor_ms": floor_ms,
+        "launches_by_path": {f"hier mega-city ({n_rep_city} reps, full width)": hier_launches,
+                             **res_hier},
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -84,8 +84,9 @@ class PolicyCarry:
       (chip-ms) and communication (KB) backlog.
     * ``ema_util`` — ``(..., M)`` EMA of committed compute utilization.
     * ``bw_prev`` / ``bw_cur`` — ``(...)`` bandwidth-estimator state.
-    * ``link_bw`` / ``server_up`` — ``(..., M)`` resilience-engine vectors,
-      all ones (impairments are not ported yet).
+    * ``link_bw`` / ``server_up`` — ``(..., M)`` the resilience engine's
+      per-server link bandwidth scale and up vector of the current frame
+      (all ones when impairments are off).
     """
 
     key: torch.Tensor

@@ -50,6 +50,19 @@ computed on the card, the class allocator
 class, and the members are accounted one by one on the host, one window
 behind the card.
 
+**Resilience** (``cfg.impairments``, ``cfg.admission``): a
+:class:`~repro_torch.core.impairments.ResilienceEngine`, built once per run
+and the same for every replication, gives each frame its per-edge link
+draw (scaling and delaying the transfer times in float64 on the host,
+before the float32 narrowing) and its server up vector (masking the
+budgets); both ride the carry.  Admission control sheds requests that
+cannot meet their deadline under the pre-frame inflation estimate (their
+candidates masked before the scheduler) and refuses assignments to servers
+over their backlog cap (after it, before the committed work enters the
+backlog), on every path: the sequential testbed, the dense fleet (one
+launch per window while no frame depends on another), the host policies'
+loop and the hierarchical fleet (at class level).
+
 ``window=`` bounds memory (frames are built and scheduled ``window`` at a
 time, the carry threaded between windows; on a streaming scenario the
 arrivals themselves are drawn a window at a time) and ``prefetch=``
@@ -59,8 +72,7 @@ work in the same order inline or on the producer, so results are identical
 either way.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): impairments and admission control, the metric stream and
-``devices>1``.
+ROADMAP.md item): the metric stream and ``devices>1``.
 """
 from __future__ import annotations
 
@@ -77,12 +89,20 @@ import torch
 
 from repro_torch.obs.trace import Stopwatch
 
-from repro_torch.kernels.hier import hier_cells
+from repro_torch.kernels.hier import class_loads, hier_cells
 
 from . import prng
 from .aggregation import QuantizationConfig, aggregate_requests
 from .extensions import apply_mobility, as_batch
-from .impairments import AdmissionConfig, ImpairmentConfig
+from .gus import Assignment
+from .impairments import (
+    AdmissionConfig,
+    ImpairmentConfig,
+    ResilienceEngine,
+    admission_keep,
+    apply_queue_cap,
+    predicted_inflation,
+)
 from .instance import FlatInstance, pad_instance, resolve_device, stack_instances
 from .options import EngineOptions, check_ported, resolve_options
 from .policies import Policy, get_policy
@@ -192,8 +212,9 @@ class SimResult:
     bandwidth_estimates: List[float]
     #: work accounting of the congestion model (None when disabled)
     congestion_stats: Optional[Dict[str, float]] = None
-    #: fault-injection accounting (None: impairments and admission control
-    #: are not ported, so always None here)
+    #: fault-injection accounting: ``n_shed``, ``n_refused``,
+    #: ``frames_with_down_server`` (None when both resilience switches are
+    #: off)
     resilience_stats: Optional[Dict[str, float]] = None
     #: wall-clock seconds per phase: ``gen_s`` arrival generation / stream
     #: pulls, ``build_s`` frame building, ``sched_s`` scheduler calls (on
@@ -295,10 +316,15 @@ def _pad_bucket_fine(n: int) -> int:
 
 
 def _frame_arrays(
-    reqs, spec: ClusterSpec, cfg: SimConfig, now_ms, bw_est: float
+    reqs, spec: ClusterSpec, cfg: SimConfig, now_ms, bw_est: float, link=None
 ) -> Dict[str, np.ndarray]:
     """Numpy request-row tensors for the given requests (a Request list or a
     :class:`RequestColumns` view), with ``now_ms`` a scalar or per request.
+
+    ``link`` is an optional pair of per-request float64 ``(bandwidth_scale,
+    extra_latency_ms)`` arrays from the resilience engine, gathered by each
+    request's covering edge: the transfer time becomes ``size / bw /
+    scale + lat`` (at identity values both operations are exact).
 
     The same elementwise float64 arithmetic as the reference, narrowed to
     float32 at the same points, so the tensors are bit-identical."""
@@ -324,6 +350,10 @@ def _frame_arrays(
 
     local = cover[:, None] == np.arange(M)[None, :]
     transfer = size[:, None] / bw_est
+    if link is not None:
+        bw_scale, extra_lat = link
+        transfer = transfer / np.asarray(bw_scale, np.float64)[:, None] \
+            + np.asarray(extra_lat, np.float64)[:, None]
     comm = transfer + np.where(is_cloud[None, :], spec.cloud_extra_delay, 0.0)
     comm = np.where(local, 0.0, comm)
 
@@ -345,8 +375,13 @@ def _build_frame_batch(
     frame_starts: Sequence[float],
     budgets,
     n_pad: int,
+    links=None,
 ) -> Dict[str, np.ndarray]:
     """Padded numpy leaves of a ``FlatInstance`` for a list of frames.
+
+    ``links`` (optional, aligned with ``frames`` like ``budgets``) holds each
+    frame's per-server ``(bandwidth_scale, extra_latency_ms)`` pair from the
+    resilience engine; each request takes its covering edge's.
 
     Pad rows follow :func:`repro_torch.core.instance.pad_instance`'s
     contract (infeasible and free).  A fully columnar list (the vectorized
@@ -388,7 +423,13 @@ def _build_frame_batch(
         if lengths.sum():
             cat = RequestColumns.concatenate(frames)
             now = np.repeat(np.asarray(frame_starts, np.float64) + cfg.frame_ms, lengths)
-            arr = _frame_arrays(cat, spec, cfg, now, spec.bandwidth_true)
+            link = None
+            if links is not None:
+                row = np.repeat(np.arange(F), lengths)
+                cov = cat.cover.astype(np.intp)
+                link = (np.stack([lk[0] for lk in links])[row, cov],
+                        np.stack([lk[1] for lk in links])[row, cov])
+            arr = _frame_arrays(cat, spec, cfg, now, spec.bandwidth_true, link=link)
             starts = np.cumsum(lengths) - lengths
             for i in range(F):
                 n = int(lengths[i])
@@ -398,9 +439,23 @@ def _build_frame_batch(
         for i, (reqs, t0) in enumerate(zip(frames, frame_starts)):
             n = len(reqs)
             if n:
-                arr = _frame_arrays(reqs, spec, cfg, t0 + cfg.frame_ms, spec.bandwidth_true)
+                link = None
+                if links is not None:
+                    sc, la = links[i]
+                    cov = _covers(reqs)
+                    link = (sc[cov], la[cov])
+                arr = _frame_arrays(
+                    reqs, spec, cfg, t0 + cfg.frame_ms, spec.bandwidth_true, link=link
+                )
                 put(i, arr, slice(None), n)
     return out
+
+
+def _covers(reqs) -> np.ndarray:
+    """The covering edges of a frame's requests (either layout) as indices."""
+    if isinstance(reqs, RequestColumns):
+        return reqs.cover.astype(np.intp)
+    return np.array([r.cover for r in reqs], np.intp)
 
 
 def _apply_mobility_inplace(reqs, n_edge: int, move_prob: float, rng) -> None:
@@ -419,10 +474,13 @@ def _apply_mobility_inplace(reqs, n_edge: int, move_prob: float, rng) -> None:
 
 
 def _frame_budgets_batch(
-    spec: ClusterSpec, cfg: SimConfig, scn: Scenario, frame_starts_ms: np.ndarray
+    spec: ClusterSpec, cfg: SimConfig, scn: Scenario, frame_starts_ms: np.ndarray,
+    engine: Optional[ResilienceEngine] = None,
 ):
     """``(F, M)`` float64 gamma and eta budgets for a window of frame starts,
-    masked by the scenario's capacity stream (outages)."""
+    masked by the scenario's capacity stream (outages) and then, with a
+    resilience engine, by its outage stream (frame ``round(start /
+    frame_ms)``)."""
     t = np.asarray(frame_starts_ms, np.float64)
     F = t.size
     g = np.repeat(spec.gamma_frame.astype(np.float64)[None, :], F, axis=0)
@@ -431,27 +489,37 @@ def _frame_budgets_batch(
     if scale is not None:
         g = g * scale
         e = e * scale
+    if engine is not None:
+        for i in range(F):
+            up = engine.capacity_scale(int(round(t[i] / cfg.frame_ms)))
+            if up is not None:
+                g[i] = g[i] * up
+                e[i] = e[i] * up
     return g, e
 
 
-def _frame_budgets(spec: ClusterSpec, cfg: SimConfig, scn: Scenario, frame_start_ms: float):
+def _frame_budgets(spec: ClusterSpec, cfg: SimConfig, scn: Scenario, frame_start_ms: float,
+                   engine: Optional[ResilienceEngine] = None):
     """Fresh float64 ``(gamma, eta)`` budgets of one frame: the window
     version at one frame start, which the reference's docstring states is
     bit-identical to its scalar ``_frame_budgets``."""
-    g, e = _frame_budgets_batch(spec, cfg, scn, np.array([frame_start_ms], np.float64))
+    g, e = _frame_budgets_batch(
+        spec, cfg, scn, np.array([frame_start_ms], np.float64), engine=engine
+    )
     return g[0].copy(), e[0].copy()
 
 
 def _build_frame_instance(
     reqs, spec: ClusterSpec, cfg: SimConfig, now_ms: float, bw_est: float, max_cs: float,
-    gamma, eta,
+    gamma, eta, link=None,
 ) -> FlatInstance:
     """The unpadded ``FlatInstance`` of the requests pending at ``now_ms``,
     on the CPU, priced with the scheduler's bandwidth estimate ``bw_est``
-    (the reference's ``_build_frame_instance``: float64 host math narrowed
-    to float32 at the same points)."""
+    and the per-request ``link`` draw, if any (the reference's
+    ``_build_frame_instance``: float64 host math narrowed to float32 at the
+    same points)."""
     N = len(reqs)
-    arr = _frame_arrays(reqs, spec, cfg, now_ms, bw_est)
+    arr = _frame_arrays(reqs, spec, cfg, now_ms, bw_est, link=link)
     f32 = np.float32
     return FlatInstance.from_numpy(dict(
         cover=arr["cover"], A=arr["A"], C=arr["C"],
@@ -534,14 +602,18 @@ class _RepFrameSource:
         return out
 
 
-def _build_window(sources, spec, cfg, scn, t0: int, t1: int, n_pad: int, sw, pin: bool):
+def _build_window(sources, spec, cfg, scn, t0: int, t1: int, n_pad: int, sw, pin: bool,
+                  engine: Optional[ResilienceEngine] = None):
     """Host build of frames ``[t0, t1)`` of every replication, frame-major
     (row ``k * n_rep + rep``): pull the buckets, fill the queueing delays,
     assemble the padded grid and stage it in host tensors (pinned when
     ``pin``).  Returns ``(host, n_real)``: the ``FlatInstance`` leaves plus
-    ``tq`` as CPU tensors, and the real request count per row.  Pure numpy
-    and the sources' own RNGs, so it runs the same inline or on a producer
-    thread."""
+    ``tq`` as CPU tensors — and, with a resilience engine, ``link_up``, the
+    ``(2, Tc, M)`` float32 link scale and up vector of each frame, the
+    carry's per-frame values — and the real request count per row.  Pure
+    numpy, the sources' own RNGs and the engine's traces, so it runs the
+    same inline or on a producer thread (the only thread that extends the
+    engine then)."""
     n_rep = len(sources)
     Tc = t1 - t0
     with sw.span("fleet/arrivals"):
@@ -559,10 +631,21 @@ def _build_window(sources, spec, cfg, scn, t0: int, t1: int, n_pad: int, sw, pin
             else:
                 tq[i, :nb] = [fs + cfg.frame_ms - r.arrival_ms for r in bucket]
     with sw.span("fleet/grid_build"):
-        gb, eb = _frame_budgets_batch(spec, cfg, scn, (t0 + np.arange(Tc)) * cfg.frame_ms)
+        gb, eb = _frame_budgets_batch(
+            spec, cfg, scn, (t0 + np.arange(Tc)) * cfg.frame_ms, engine=engine
+        )
         budgets = [(gb[k], eb[k]) for k in range(Tc) for _ in range(n_rep)]
-        arrays = _build_frame_batch(frames, spec, cfg, frame_starts, budgets, n_pad)
+        links = None
+        if engine is not None:
+            links_by_k = [engine.link_frame(t0 + k) for k in range(Tc)]
+            links = [links_by_k[k] for k in range(Tc) for _ in range(n_rep)]
+        arrays = _build_frame_batch(frames, spec, cfg, frame_starts, budgets, n_pad, links=links)
         arrays["tq"] = tq
+        if engine is not None:
+            arrays["link_up"] = np.stack([
+                np.stack([lk[0] for lk in links_by_k]).astype(np.float32),
+                np.stack([engine.server_up(t0 + k) for k in range(Tc)]),
+            ])
         host = {k: torch.from_numpy(x) for k, x in arrays.items()}
     if pin:
         with sw.span("fleet/pin"):
@@ -570,21 +653,57 @@ def _build_window(sources, spec, cfg, scn, t0: int, t1: int, n_pad: int, sw, pin
     return host, n_real
 
 
-def _step(call, frame: FlatInstance, carry, ccfg: CongestionConfig, keys=None):
-    """One frame over the replication batch: schedule (against the
-    backlog-reduced budgets when congestion is on), then inflate and roll
-    the backlog/EMA carry.  ``call(run, carry, keys) -> (Assignment,
-    carry)`` is the bound policy in its mode.  Returns ``(carry, a, pc,
-    pe)``, the inflation factors ``None`` with congestion off."""
-    if not ccfg.enabled:
-        a, carry = call(frame, carry, keys)
-        return carry, a, None, None
-    run = dataclasses.replace(
-        frame,
-        gamma=effective_capacity(frame.gamma, carry.backlog_gamma),
-        eta=effective_capacity(frame.eta, carry.backlog_eta),
-    )
+def _shed(run: FlatInstance, tq, backlog_g, backlog_e, gamma, eta, ccfg: CongestionConfig):
+    """Deadline shedding: ``(run, keep)``, ``run`` with the candidates of
+    every request that cannot meet its deadline under the pre-frame
+    inflation estimate (the backlogs against the full budgets ``gamma``,
+    ``eta``) masked out."""
+    phi_pc, phi_pe = predicted_inflation(backlog_g, backlog_e, gamma, eta, ccfg)
+    keep = admission_keep(run, tq, phi_pc, phi_pe)
+    return dataclasses.replace(run, avail=run.avail & keep[..., None, None]), keep
+
+
+def _cap(a: Assignment, frame: FlatInstance, backlog_g, backlog_e,
+         acfg: AdmissionConfig, loads: bool) -> Assignment:
+    """The queue cap on ``a`` against the carried backlogs.  With ``loads``
+    the committed loads are needed: the scheduler's own sums stay when
+    nothing was refused, else :func:`committed_loads` adds the survivors
+    again in request order."""
+    if not acfg.enabled:
+        return a
+    j = apply_queue_cap(a.j, frame, backlog_g, backlog_e, acfg)
+    keep_loads = a.loads is not None and loads and not bool((j != a.j).any())
+    return Assignment(j, a.l, a.loads if keep_loads else None)
+
+
+def _step(call, frame: FlatInstance, carry, ccfg: CongestionConfig, acfg: AdmissionConfig,
+          keys=None, tq=None, link_up=None):
+    """One frame over the replication batch: shed (admission control), then
+    schedule (against the backlog-reduced budgets when congestion is on),
+    cap, then inflate and roll the backlog/EMA carry.  ``call(run, carry,
+    keys) -> (Assignment, carry)`` is the bound policy in its mode;
+    ``link_up`` the frame's ``(2, M)`` link scale and up vector, which a
+    stateful policy reads from the carry.  Returns ``(carry, a, pc, pe)``,
+    the inflation factors ``None`` with congestion off."""
+    if link_up is not None:
+        carry = dataclasses.replace(
+            carry, link_bw=link_up[0].expand_as(carry.link_bw),
+            server_up=link_up[1].expand_as(carry.server_up),
+        )
+    run = frame
+    if ccfg.enabled:
+        run = dataclasses.replace(
+            frame,
+            gamma=effective_capacity(frame.gamma, carry.backlog_gamma),
+            eta=effective_capacity(frame.eta, carry.backlog_eta),
+        )
+    if acfg.enabled and acfg.shed:
+        run, _ = _shed(run, tq, carry.backlog_gamma, carry.backlog_eta, frame.gamma, frame.eta,
+                       ccfg)
     a, carry = call(run, carry, keys)
+    a = _cap(a, frame, carry.backlog_gamma, carry.backlog_eta, acfg, ccfg.enabled)
+    if not ccfg.enabled:
+        return carry, a, None, None
     w, c = a.loads if a.loads is not None else committed_loads(frame, a.j, a.l)
     pc = compute_inflation(carry.backlog_gamma + w, frame.gamma, ccfg)
     pe = comm_inflation(carry.backlog_eta + c, frame.eta, ccfg)
@@ -595,14 +714,6 @@ def _step(call, frame: FlatInstance, carry, ccfg: CongestionConfig, keys=None):
         ema_util=ema_update(carry.ema_util, w, frame.gamma, ccfg),
     )
     return carry, a, pc, pe
-
-
-def _not_ported(cfg: SimConfig) -> None:
-    if cfg.impairments.enabled or cfg.admission.enabled:
-        raise NotImplementedError(
-            "impairments and admission control are not ported yet "
-            "(ROADMAP.md §1 item 3, still to port: resilience)"
-        )
 
 
 class _WindowPipeline:
@@ -805,17 +916,24 @@ def simulate(
     on the CPU.  ``EngineOptions(scheduler="hierarchical")`` maps to
     ``gus-hier``.
 
+    With ``cfg.impairments`` on, the wall-clock frame of each decision
+    (early-close decisions share it) indexes the resilience engine: its
+    link draw prices the frame and impairs the realized channel, its up
+    vector masks the budgets and both ride the carry.  With
+    ``cfg.admission`` on, hopeless requests are shed before the decision
+    and assignments to over-cap servers refused after it;
+    ``SimResult.resilience_stats`` counts both and the frames with a down
+    server.
+
     ``device=None`` means ``"cuda"`` (raises without a CUDA device).
-    Impairments and admission control (ROADMAP.md §1 item 3) and
-    ``metrics=True`` (item 5) raise ``NotImplementedError``.  If
-    ``n_requests`` is given, arrivals stop after that many submissions (the
-    x-axis of the paper's Fig. 1(e)-(h)).
+    ``metrics=True`` (ROADMAP.md §1 item 5) raises ``NotImplementedError``.
+    If ``n_requests`` is given, arrivals stop after that many submissions
+    (the x-axis of the paper's Fig. 1(e)-(h)).
     """
     dev = resolve_device(device)
     scn = get_scenario(scenario)
     opts = resolve_options(options, scenario=scn)
     check_ported(opts, fleet=False)
-    _not_ported(cfg)
     if opts.scheduler == "hierarchical":
         pol = _fold_hier_scheduler(policy, opts)
         scheduler = pol.bind(spec.n_edge, spec.n_servers)
@@ -826,9 +944,13 @@ def simulate(
     needs_key = pol.needs_key and not pol.stateful
     on_device = pol.vmappable
     ccfg = cfg.congestion
+    acfg = cfg.admission
     rng = np.random.default_rng(seed)
     M, K, L = spec.proc_ms.shape
     move_prob = cfg.move_prob if scn.move_prob is None else scn.move_prob
+    engine = (
+        ResilienceEngine(cfg.impairments, spec.n_edge, M) if cfg.impairments.enabled else None
+    )
 
     sw = Stopwatch()
     t_run0 = time.perf_counter()
@@ -878,10 +1000,12 @@ def simulate(
 
     # capacity budgets deplete WITHIN a wall-clock frame (queue-full decisions
     # fire early but do not refresh gamma/eta — they share the frame budget)
-    frame_budget_g, frame_budget_e = _frame_budgets(spec, cfg, scn, 0.0)
+    frame_budget_g, frame_budget_e = _frame_budgets(spec, cfg, scn, 0.0, engine=engine)
     rem_gamma = frame_budget_g.copy()
     rem_eta = frame_budget_e.copy()
     frame_boundary = cfg.frame_ms
+    n_shed = n_refused = 0
+    frames_down = 0
 
     while t < cfg.horizon_ms + 10 * cfg.frame_ms:
         frame_end = t + cfg.frame_ms
@@ -921,7 +1045,7 @@ def simulate(
                     ema_util=ema,
                 )
             frame_budget_g, frame_budget_e = _frame_budgets(
-                spec, cfg, scn, frame_boundary - cfg.frame_ms
+                spec, cfg, scn, frame_boundary - cfg.frame_ms, engine=engine
             )
             if ccfg.enabled:
                 rem_gamma = np.maximum(frame_budget_g - backlog_g, 0.0)
@@ -934,11 +1058,36 @@ def simulate(
             _apply_mobility_inplace(pending, spec.n_edge, move_prob, rng)
             bw_est = 0.5 * (bw_cur + bw_prev)  # E[B_{t+1}] = (B_t + B_{t-1})/2
             n_real = len(pending)
+            cov = _covers(pending)
+            link = None
+            if engine is not None:
+                # the wall-clock frame of the decision indexes the streams
+                # (early-close decisions share it)
+                fi = int(round(frame_boundary / cfg.frame_ms)) - 1
+                link_scale, link_lat = engine.link_frame(fi)
+                up_now = engine.server_up(fi)
+                frames_down += int((up_now < 1.0).any())
+                link = (link_scale[cov], link_lat[cov])
+                carry = dataclasses.replace(
+                    carry,
+                    link_bw=torch.from_numpy(link_scale.astype(np.float32)),
+                    server_up=torch.from_numpy(up_now),
+                )
             with sw.span("sim/frame_build"):
                 inst = _build_frame_instance(
                     pending, spec, cfg, decision_time, bw_est, max_cs,
-                    gamma=rem_gamma, eta=rem_eta,
+                    gamma=rem_gamma, eta=rem_eta, link=link,
                 )
+                if acfg.enabled and acfg.shed:
+                    # against the pre-frame (backlog-only) estimate and the
+                    # full budgets, in float32 as the reference's x32 arrays
+                    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32))  # noqa: E731
+                    inst, keep = _shed(
+                        inst, f32([decision_time - r.arrival_ms for r in pending]),
+                        f32(backlog_g), f32(backlog_e), f32(frame_budget_g),
+                        f32(frame_budget_e), ccfg,
+                    )
+                    n_shed += n_real - int(keep.sum())
                 # padded rows are infeasible -> dropped; the host policies
                 # see the raw frame
                 frame_inst = pad_instance(inst, _pad_bucket(n_real)) if pol.pad else inst
@@ -963,6 +1112,16 @@ def simulate(
                 # decision itself, not just its launch
                 jv = aj.cpu().numpy()[:n_real]
                 lv = al.cpu().numpy()[:n_real]
+            if acfg.enabled:
+                # queue cap against the full frame budgets, in float64 as
+                # the reference's (an inf cap times a zero budget is NaN and
+                # refuses nothing)
+                with np.errstate(invalid="ignore"):
+                    over_c = backlog_g >= acfg.queue_cap_mult * frame_budget_g
+                    over_e = backlog_e >= acfg.queue_cap_mult * frame_budget_e
+                refuse = (jv >= 0) & (over_c[np.maximum(jv, 0)] | ((jv != cov) & over_e[cov]))
+                n_refused += int(refuse.sum())
+                jv = np.where(refuse, -1, jv)
 
             with sw.span("sim/realize"):
                 # pass 1 — capacity commit (shared frame budget + backlog
@@ -1007,11 +1166,14 @@ def simulate(
                     else:
                         bw_real = spec.bandwidth_true * rng.lognormal(0.0, cfg.channel_sigma)
                         extra = 0.0
+                        if engine is not None:  # the realized channel is impaired too
+                            bw_real = bw_real * float(link_scale[r.cover])
+                            extra = float(link_lat[r.cover])
                         comm = r.size_bytes / bw_real + extra + (
                             spec.cloud_extra_delay if is_cloud[j] else 0.0
                         )
                         # the estimator observes the *channel* (uninflated
-                        # transfer)
+                        # transfer, net of the link's extra latency)
                         observed_bw.append(r.size_bytes / max(comm - extra - (spec.cloud_extra_delay if is_cloud[j] else 0.0), 1e-6))
                     if ccfg.enabled:
                         proc = proc * phi_c[j]
@@ -1062,6 +1224,14 @@ def simulate(
             "max_inflation": infl_max,
         }
 
+    resilience_stats = None
+    if engine is not None or acfg.enabled:
+        resilience_stats = {
+            "n_shed": float(n_shed),
+            "n_refused": float(n_refused),
+            "frames_with_down_server": float(frames_down),
+        }
+
     n_total = source.n_total
     timings = {
         "gen_s": sw.total("sim/generate_trace", "sim/arrival_pull"),
@@ -1083,6 +1253,7 @@ def simulate(
         mean_queue_ms=q_sum / max(n_served, 1),
         bandwidth_estimates=bw_log,
         congestion_stats=congestion_stats,
+        resilience_stats=resilience_stats,
         timings=timings,
     )
 
@@ -1116,6 +1287,16 @@ def simulate_fleet(
     frame by frame; the host policies (``ilp``, ``lp-bound``, ``gus-hier``)
     run on :func:`_simulate_fleet_host`, on the CPU.
 
+    Resilience composes with every layout.  The resilience engine is built
+    once and is the same for every replication: frame ``t`` of every
+    replication sees link draw and up vector ``t``.  On the dense layout
+    each window's ``(Tc, M)`` link scales and up vectors go to the card in
+    one copy; shedding masks ``avail`` before the policy and the queue cap
+    rewrites its ``j`` after it.  With congestion off the inflation
+    estimate is all ones and the backlog zero, so neither depends on the
+    carry, and a stateless policy still schedules a whole window in one
+    call.
+
     ``device=None`` means ``"cuda"`` (raises without a CUDA device);
     ``options`` takes the fields :func:`~repro_torch.core.options.
     resolve_options` resolves.  ``options.backend`` picks the GUS
@@ -1126,7 +1307,6 @@ def simulate_fleet(
     scn = get_scenario(scenario)
     opts = resolve_options(options, scenario=scn)
     check_ported(opts)
-    _not_ported(cfg)
     hier = opts.scheduler == "hierarchical"
     if hier:
         pol = _fold_hier_scheduler(policy, opts, allow_backend=True)
@@ -1135,6 +1315,7 @@ def simulate_fleet(
         fn = _bind_policy(pol, spec, opts.backend)
     host_side = not hier and (not pol.vmappable or not pol.pad)
     ccfg = cfg.congestion
+    acfg = cfg.admission
     T = max(1, int(np.ceil(cfg.horizon_ms / cfg.frame_ms)))
     K = spec.proc_ms.shape[1]
     M = spec.n_servers
@@ -1168,21 +1349,23 @@ def simulate_fleet(
         else:
             n_pad = _pad_bucket(max(src.max_bucket for src in sources))
     gen_s = sw.total("fleet/generate_traces")
+    engine = ResilienceEngine(cfg.impairments, spec.n_edge, M) if cfg.impairments.enabled else None
     if hier:
         return _simulate_fleet_hier(
             spec, cfg, scn, sources, n_rep=n_rep, T=T, W=W, opts=opts, dev=dev,
-            gen_s=gen_s, sw=sw, t_run0=t_run0,
+            gen_s=gen_s, sw=sw, t_run0=t_run0, engine=engine,
         )
     if host_side:
         return _simulate_fleet_host(
             spec, cfg, scn, pol, sources, n_rep=n_rep, T=T, n_pad=n_pad, seed=seed,
-            gen_s=gen_s, sw=sw, t_run0=t_run0,
+            gen_s=gen_s, sw=sw, t_run0=t_run0, engine=engine,
         )
     carry = fleet_policy_carry(
         n_rep, M, seed=seed, bandwidth_init=spec.bandwidth_true, device=dev
     )
     stateful = pol.stateful
     needs_key = pol.needs_key and not stateful
+    shed = acfg.enabled and acfg.shed
     # one key per (replication, frame), the reference's grid
     keys_all = (
         prng.split(prng.PRNGKey(seed), n_rep * T).reshape(n_rep, T, 2) if needs_key else None
@@ -1202,7 +1385,7 @@ def simulate_fleet(
     phi_frames = np.ones((n_rep, T, M), np.float32) if ccfg.enabled else None
 
     def build_window(t0: int):
-        return _build_window(sources, spec, cfg, scn, t0, min(t0 + W, T), n_pad, sw, pin)
+        return _build_window(sources, spec, cfg, scn, t0, min(t0 + W, T), n_pad, sw, pin, engine)
 
     window_starts = list(range(0, T, W))
     pipe = _WindowPipeline(build_window, window_starts, opts.prefetch, "fleet-window-producer")
@@ -1216,14 +1399,19 @@ def simulate_fleet(
                 inst = FlatInstance(
                     **{k: host[k].to(dev, non_blocking=True) for k in _FIELDS}
                 )
+                tq = host["tq"].to(dev, non_blocking=True) if ccfg.enabled or shed else None
+                link_up = (host["link_up"].to(dev, non_blocking=True)
+                           if engine is not None else None)
                 if ccfg.enabled or stateful:
                     js, ls, pcs, pes = [], [], [], []
                     for k in range(Tc):
                         sl = slice(k * n_rep, (k + 1) * n_rep)
                         frame = FlatInstance(**{f: getattr(inst, f)[sl] for f in _FIELDS})
                         carry, a, pc, pe = _step(
-                            call, frame, carry, ccfg,
+                            call, frame, carry, ccfg, acfg,
                             None if keys_all is None else keys_all[:, t0 + k],
+                            None if tq is None else tq[sl],
+                            None if link_up is None else link_up[:, k],
                         )
                         js.append(a.j)
                         ls.append(a.l)
@@ -1234,7 +1422,14 @@ def simulate_fleet(
                     # frame-major rows: frame t0 + k of replication r at k * n_rep + r
                     keys = (None if keys_all is None
                             else keys_all[:, t0:t1].transpose(1, 0, 2).reshape(-1, 2))
-                    a, _ = call(inst, carry, keys)
+                    # congestion off: unit inflation and an empty backlog, the
+                    # same for every frame, so admission needs no carry
+                    run = inst
+                    zero = torch.zeros_like(inst.gamma) if acfg.enabled else None
+                    if shed:
+                        run, _ = _shed(run, tq, zero, zero, inst.gamma, inst.eta, ccfg)
+                    a, _ = call(run, carry, keys)
+                    a = _cap(a, inst, zero, zero, acfg, False)
                     aj, al = a.j, a.l
                 if pin:
                     torch.cuda.synchronize(dev)
@@ -1242,10 +1437,7 @@ def simulate_fleet(
                 if ccfg.enabled:
                     phi_c = torch.cat(pcs)
                     mbatch = dataclasses.replace(
-                        inst,
-                        ctime=congested_ctime(
-                            inst, host["tq"].to(dev, non_blocking=True), phi_c, torch.cat(pes)
-                        ),
+                        inst, ctime=congested_ctime(inst, tq, phi_c, torch.cat(pes))
                     )
                     phi_frames[:, t0:t1] = (
                         phi_c.reshape(Tc, n_rep, M).transpose(0, 1).cpu().numpy()
@@ -1311,15 +1503,18 @@ def _simulate_fleet_host(
     gen_s: float,
     sw: Stopwatch,
     t_run0: float,
+    engine: Optional[ResilienceEngine] = None,
 ) -> FleetResult:
     """The fleet for the host policies (``vmappable=False`` or
     ``pad=False``: ``ilp``, ``lp-bound``, ``gus-hier``), the reference's
     ``_simulate_fleet_host``: each *unpadded* frame is scheduled on the CPU
     in a Python loop that threads each replication's carry frame by frame,
     and the assignments are re-padded with drops so the scoring is the
-    dense path's.  Everything runs on the host; rows are replication-major
-    (row ``rep * T + frame``)."""
+    dense path's.  Impairments and admission control follow the dense
+    step, in its order.  Everything runs on the host; rows are
+    replication-major (row ``rep * T + frame``)."""
     ccfg = cfg.congestion
+    acfg = cfg.admission
     M = spec.n_servers
     fleet_frames = []
     with sw.span("fleet/arrivals"):
@@ -1331,10 +1526,15 @@ def _simulate_fleet_host(
     with sw.span("fleet/grid_build"):
         for i, bucket in enumerate(fleet_frames):
             frame_start = (i % T) * cfg.frame_ms
-            gamma, eta = _frame_budgets(spec, cfg, scn, frame_start)
+            gamma, eta = _frame_budgets(spec, cfg, scn, frame_start, engine=engine)
+            link = None
+            if engine is not None and len(bucket):
+                sc, la = engine.link_frame(i % T)
+                cov = _covers(bucket)
+                link = (sc[cov], la[cov])
             raw_insts.append(_build_frame_instance(
                 bucket, spec, cfg, frame_start + cfg.frame_ms, spec.bandwidth_true,
-                cfg.max_cs, gamma=gamma, eta=eta,
+                cfg.max_cs, gamma=gamma, eta=eta, link=link,
             ))
             if len(bucket):
                 if isinstance(bucket, RequestColumns):
@@ -1363,6 +1563,12 @@ def _simulate_fleet_host(
             for tf in range(T):
                 i = rep * T + tf
                 inst, n = raw_insts[i], n_real[i]
+                if engine is not None:
+                    carry = dataclasses.replace(
+                        carry,
+                        link_bw=torch.from_numpy(engine.link_frame(tf)[0].astype(np.float32)),
+                        server_up=torch.from_numpy(engine.server_up(tf)),
+                    )
                 if ccfg.enabled:
                     run_inst = dataclasses.replace(
                         inst,
@@ -1371,12 +1577,19 @@ def _simulate_fleet_host(
                     )
                 else:
                     run_inst = inst
+                if acfg.enabled and acfg.shed and n:
+                    run_inst, _ = _shed(
+                        run_inst, torch.from_numpy(tq_flat[i, :n]), carry.backlog_gamma,
+                        carry.backlog_eta, inst.gamma, inst.eta, ccfg,
+                    )
                 if pol.stateful:
                     a, carry = fn(run_inst, carry)
                 elif keys is not None:
                     a = fn(run_inst, keys[i])
                 else:
                     a = fn(run_inst)
+                if n:
+                    a = _cap(a, inst, carry.backlog_gamma, carry.backlog_eta, acfg, False)
                 jv[i, :n] = a.j.cpu().numpy()
                 lv[i, :n] = a.l.cpu().numpy()
                 if ccfg.enabled:
@@ -1473,22 +1686,25 @@ def _aggregate_frame(bucket, frame_end: float, quant: QuantizationConfig):
         members_s=members_s,
         off_s=np.concatenate([[0], np.cumsum(count_s)]),
         count_s=count_s,
+        tq_s=repc["tq"][order],
         cov=cov, svc=svc, A=A_r, C=C_r, size=size, tq=tq,
     )
     return rep_cols, info
 
 
 def _member_accounting(spec: ClusterSpec, cfg: SimConfig, info, ci, jj, ll, lens, st,
-                       pc_k=None, pe_k=None):
+                       pc_k=None, pe_k=None, link=None):
     """Per-member satisfaction of one frame's allocated cells: ``(served,
     satisfied, sum of US)``.
 
     The allocated members of each cell are the class's members from its
     ``start`` offset on, and every member's realized accuracy and
-    completion time are recomputed from its *own* size and queueing delay
-    with the reference's op sequence (its float32/float64 mixing included);
-    the class mean only steered the allocation.  ``pc_k``/``pe_k`` are the
-    frame's congestion inflation factors, or ``None``.
+    completion time are recomputed from its *own* size, queueing delay and
+    covering edge's link draw with the reference's op sequence (its
+    float32/float64 mixing included); the class mean only steered the
+    allocation.  ``pc_k``/``pe_k`` are the frame's congestion inflation
+    factors, or ``None``; ``link`` the frame's per-server float64
+    ``(bandwidth_scale, extra_latency_ms)``, or ``None``.
     """
     tot = int(lens.sum())
     cellid = np.repeat(np.arange(ci.size), lens)
@@ -1507,6 +1723,9 @@ def _member_accounting(spec: ClusterSpec, cfg: SimConfig, info, ci, jj, ll, lens
     proc_m = spec.proc_ms[jm, svc_m, lm]
     local_m = jm == cov_m
     transfer = size_m / spec.bandwidth_true
+    if link is not None:  # the member's own link draw
+        sc, la = link
+        transfer = transfer / np.asarray(sc, np.float64)[cov_m] + np.asarray(la, np.float64)[cov_m]
     comm = transfer + np.where(jm >= spec.n_edge, spec.cloud_extra_delay, 0.0)
     comm = np.where(local_m, 0.0, comm)
     ct = ((Tq_m + proc_m) + comm).astype(np.float32)
@@ -1518,19 +1737,30 @@ def _member_accounting(spec: ClusterSpec, cfg: SimConfig, info, ci, jj, ll, lens
     return tot, int(sat_m.sum()), float(us_m.sum())
 
 
-def _build_hier_window(sources, spec, cfg, scn, t0: int, t1: int, quant, sw, pin: bool):
+def _build_hier_window(sources, spec, cfg, scn, t0: int, t1: int, quant, sw, pin: bool,
+                       engine: Optional[ResilienceEngine] = None):
     """Host build of frames ``[t0, t1)`` of every replication for the
     class-aggregate fleet, frame-major (row ``k * n_rep + rep``): pull the
     buckets, aggregate each frame into sorted QoS classes, assemble the
-    padded class grid with its member counts and stage it in host tensors
-    (pinned when ``pin``).  Returns ``(t0, Tc, host, infos, n_arr)``: the
-    leaves, the per-frame member bookkeeping (``None`` for an empty frame)
-    and the ``(n_rep, Tc)`` arrival counts.  Pure numpy and the sources' own
-    RNGs, so it runs the same inline or on a producer thread."""
+    padded class grid with its member counts and the classes' float32
+    queueing delays ``tq`` (which the congested shedding reads) and stage
+    it in host tensors (pinned when ``pin``).  Returns
+    ``(t0, Tc, host, infos, n_arr, links)``: the leaves, the per-frame
+    member bookkeeping (``None`` for an empty frame), the ``(n_rep, Tc)``
+    arrival counts and, with a resilience engine, each frame's link draw
+    (``None`` without), which travels with the window to the member
+    accounting.  Pure numpy, the sources' own RNGs and the engine's traces,
+    so it runs the same inline or on a producer thread (the only thread
+    that extends the engine then)."""
     n_rep = len(sources)
     Tc = t1 - t0
     with sw.span("fleet/hier_build"):
-        gb, eb = _frame_budgets_batch(spec, cfg, scn, (t0 + np.arange(Tc)) * cfg.frame_ms)
+        gb, eb = _frame_budgets_batch(
+            spec, cfg, scn, (t0 + np.arange(Tc)) * cfg.frame_ms, engine=engine
+        )
+        links_by_k = (
+            [engine.link_frame(t0 + k) for k in range(Tc)] if engine is not None else None
+        )
     with sw.span("fleet/arrivals"):
         per_rep = [src.take(t1) for src in sources]
     frames_rc, frame_starts, infos = [], [], []
@@ -1558,17 +1788,37 @@ def _build_hier_window(sources, spec, cfg, scn, t0: int, t1: int, quant, sw, pin
     Cp = _pad_bucket_fine(int(n_cls.max()))
     with sw.span("fleet/grid_build"):
         budgets = [(gb[k], eb[k]) for k in range(Tc) for _ in range(n_rep)]
-        arrays = _build_frame_batch(frames_rc, spec, cfg, frame_starts, budgets, Cp)
+        links = None if links_by_k is None else [
+            links_by_k[k] for k in range(Tc) for _ in range(n_rep)
+        ]
+        arrays = _build_frame_batch(frames_rc, spec, cfg, frame_starts, budgets, Cp, links=links)
         count = np.zeros((Tc * n_rep, Cp), np.int32)
+        tq = np.zeros((Tc * n_rep, Cp), np.float32)
         for i, info in enumerate(infos):
             if info is not None:
                 count[i, : info["count_s"].shape[0]] = info["count_s"]
+                tq[i, : info["tq_s"].shape[0]] = info["tq_s"]
         arrays["count"] = count
+        arrays["tq"] = tq
         host = {k: torch.from_numpy(x) for k, x in arrays.items()}
     if pin:
         with sw.span("fleet/pin"):
             host = {k: x.pin_memory() for k, x in host.items()}
-    return t0, Tc, host, infos, n_arr
+    return t0, Tc, host, infos, n_arr, links_by_k
+
+
+def _cap_cells(take, gamma, eta, cover, backlog_g, backlog_e, acfg: AdmissionConfig):
+    """The queue cap at class level: ``take`` ``(B, C, M, L)`` with the cells
+    on over-cap servers zeroed (compute side by the serving server, comm side
+    by the covering edge of offloaded cells), against the full budgets
+    ``gamma``/``eta`` ``(B, M)``."""
+    M = gamma.shape[-1]
+    over_c = backlog_g >= acfg.queue_cap_mult * gamma
+    over_e = backlog_e >= acfg.queue_cap_mult * eta
+    offl = torch.arange(M, device=take.device)[None, None, :, None] != cover[..., None, None]
+    over_e_cover = torch.gather(over_e, -1, cover.long())
+    refuse = (take > 0) & (over_c[:, None, :, None] | (offl & over_e_cover[..., None, None]))
+    return torch.where(refuse, 0, take)
 
 
 def _hier_device_inputs(host, dev):
@@ -1592,9 +1842,10 @@ def _simulate_fleet_hier(
     gen_s: float,
     sw: Stopwatch,
     t_run0: float,
+    engine: Optional[ResilienceEngine] = None,
 ) -> FleetResult:
     """Class-aggregate fleet for ``EngineOptions(scheduler="hierarchical")``,
-    the reference's ``_simulate_fleet_hier`` (without admission control).
+    the reference's ``_simulate_fleet_hier``.
 
     Per window, on the host (inline or on the producer thread): each
     (replication, frame)'s arrivals are bucketed into QoS classes
@@ -1611,8 +1862,24 @@ def _simulate_fleet_hier(
     behind the card, and every allocated member is accounted on the host
     (:func:`_member_accounting`) while the card runs the next window.
     Rows are frame-major (row ``k * n_rep + rep``).
+
+    Resilience: the engine's outage stream masks the budgets and its link
+    draws price the class grid and, at deaggregation, each member's own
+    transfer.  Admission control runs at class level, in the dense step's
+    order: shedding masks ``feas`` before the allocator, against the
+    pre-frame inflation estimate on the class representatives' queueing
+    delays; the queue cap zeroes the cells on over-cap servers after it,
+    before the committed loads (re-added in the allocator's fixed order
+    when a cell was refused) enter the backlog.  With congestion off the
+    estimate is unit inflation, where admission's candidate test is
+    exactly ``feas`` (the reference's own precomputed mask,
+    ``feas.any((-1, -2))``): shedding then leaves ``feas`` as it is, and
+    the window keeps its single launch.
     """
     ccfg = cfg.congestion
+    acfg = cfg.admission
+    # with congestion off shedding leaves feas as it is (see above)
+    congested_shed = acfg.enabled and acfg.shed and ccfg.enabled
     M = spec.n_servers
     quant = QuantizationConfig()
     pin = dev.type == "cuda"
@@ -1626,7 +1893,8 @@ def _simulate_fleet_hier(
     be = torch.zeros_like(bg)
 
     def build_window(t0: int):
-        return _build_hier_window(sources, spec, cfg, scn, t0, min(t0 + W, T), quant, sw, pin)
+        return _build_hier_window(sources, spec, cfg, scn, t0, min(t0 + W, T), quant, sw, pin,
+                                  engine)
 
     def dispatch(host, Tc):
         """Enqueue one window on the card; returns its device outputs."""
@@ -1637,16 +1905,30 @@ def _simulate_fleet_hier(
                 us, feas, inst.v, inst.u, inst.cover, count, inst.gamma, inst.eta,
                 backend=opts.backend,
             )
+            if acfg.enabled:
+                zero = torch.zeros_like(inst.gamma)
+                take = _cap_cells(take, inst.gamma, inst.eta, inst.cover, zero, zero, acfg)
             return take, start, None, None
+        tq = host["tq"].to(dev, non_blocking=True) if congested_shed else None
         takes, starts, pcs, pes = [], [], [], []
         for k in range(Tc):
             sl = slice(k * n_rep, (k + 1) * n_rep)
             g, e = inst.gamma[sl], inst.eta[sl]
+            feas_k = feas[sl]
+            if congested_shed:
+                frame = FlatInstance(**{f: getattr(inst, f)[sl] for f in _FIELDS})
+                _, keep = _shed(frame, tq[sl], bg, be, g, e, ccfg)
+                feas_k = feas_k & keep[..., None, None]
             t_k, s_k, w, c_load = hier_cells(
-                us[sl], feas[sl], inst.v[sl], inst.u[sl], inst.cover[sl], count[sl],
+                us[sl], feas_k, inst.v[sl], inst.u[sl], inst.cover[sl], count[sl],
                 effective_capacity(g, bg), effective_capacity(e, be),
                 backend=opts.backend, loads=True,
             )
+            if acfg.enabled:
+                capped = _cap_cells(t_k, g, e, inst.cover[sl], bg, be, acfg)
+                if bool((capped != t_k).any()):
+                    w, c_load = class_loads(capped, inst.v[sl], inst.u[sl], inst.cover[sl])
+                t_k = capped
             pcs.append(compute_inflation(bg + w, g, ccfg))
             pes.append(comm_inflation(be + c_load, e, ccfg))
             bg = step_backlog(bg, w, g, ccfg)
@@ -1667,7 +1949,7 @@ def _simulate_fleet_hier(
             None if pe is None else pe.cpu().numpy(),
         )
 
-    def post(Tc, infos, n_arr, fetched):
+    def post(Tc, infos, n_arr, links_by_k, fetched):
         nonlocal phi_sum, phi_cnt
         nz, vals, starts, pc, pe = fetched
         with sw.span("fleet/hier_post"):
@@ -1686,6 +1968,7 @@ def _simulate_fleet_hier(
                         spec, cfg, infos[i], nz[lo:hi, 1], nz[lo:hi, 2], nz[lo:hi, 3],
                         vals[lo:hi], starts[lo:hi],
                         None if pc is None else pc[rep, k], None if pe is None else pe[rep, k],
+                        None if links_by_k is None else links_by_k[k],
                     )
                     served_per_rep[rep] += tot
                     sat_per_rep[rep] += n_sat
@@ -1697,20 +1980,20 @@ def _simulate_fleet_hier(
     try:
         for wi_t0 in window_starts:
             with sw.span("fleet/window_wait"):
-                t0, Tc, host, infos, n_arr = pipe.next(wi_t0)
+                t0, Tc, host, infos, n_arr, links_by_k = pipe.next(wi_t0)
             with sw.span("fleet/dispatch"):
                 # the previous window's results first (this waits for the
                 # card), then the next window's work, so the card computes
                 # while the host accounts the previous window
-                fetched = fetch(pending[3]) if pending is not None else None
+                fetched = fetch(pending[4]) if pending is not None else None
                 outs = dispatch(host, Tc)
             if pending is not None:
-                post(*pending[:3], fetched)
-            pending = (Tc, infos, n_arr, outs)
+                post(*pending[:4], fetched)
+            pending = (Tc, infos, n_arr, links_by_k, outs)
         if pending is not None:
             with sw.span("fleet/dispatch"):
-                fetched = fetch(pending[3])
-            post(*pending[:3], fetched)
+                fetched = fetch(pending[4])
+            post(*pending[:4], fetched)
     finally:
         pipe.close()
 

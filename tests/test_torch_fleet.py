@@ -19,7 +19,6 @@ torch = pytest.importorskip("torch")
 import repro.core as R  # noqa: E402
 
 import repro_torch.core as P  # noqa: E402
-from repro_torch.core import impairments as PI  # noqa: E402
 
 US_TOL = dict(rtol=1e-5, atol=1e-6)
 BASE = dict(horizon_ms=15_000.0, arrival_rate_per_s=4.0, delay_req_ms=6000.0,
@@ -162,9 +161,8 @@ def test_demo_cluster_spec_matches_reference():
 
 
 @pytest.mark.parametrize("case,item", [
-    ("devices", "item 9"), ("metrics", "item 5"), ("impairments", "item 3"),
-    ("admission", "item 3"), ("hier-admission", "item 3"),
-    ("hier-impairments", "item 3"), ("hier-metrics", "item 5"), ("hier-devices", "item 9"),
+    ("devices", "item 9"), ("metrics", "item 5"), ("hier-metrics", "item 5"),
+    ("hier-devices", "item 9"),
 ])
 def test_unported_options_raise(case, item):
     """What this slice does not run raises NotImplementedError naming its
@@ -177,12 +175,8 @@ def test_unported_options_raise(case, item):
     opts = dict(scheduler="hierarchical") if hier else {}
     if what == "devices":
         opts["devices"] = 2
-    elif what == "metrics":
-        opts["metrics"] = True
-    elif what == "impairments":
-        cfg = dataclasses.replace(cfg, impairments=PI.ImpairmentConfig(enabled=True))
     else:
-        cfg = dataclasses.replace(cfg, admission=PI.AdmissionConfig(enabled=True))
+        opts["metrics"] = True
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
         P.simulate_fleet(spec, cfg, n_rep=2, options=P.EngineOptions(**opts), device="cpu")
 

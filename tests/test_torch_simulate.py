@@ -24,7 +24,6 @@ import repro.core as R  # noqa: E402
 from repro.core.scenarios import get_scenario as r_get_scenario  # noqa: E402
 
 import repro_torch.core as P  # noqa: E402
-from repro_torch.core import impairments as PI  # noqa: E402
 
 US_TOL = dict(rtol=1e-5, atol=1e-6)
 BASE = dict(horizon_ms=12_000.0, arrival_rate_per_s=2.0, delay_req_ms=6000.0,
@@ -163,12 +162,6 @@ def test_hierarchical_option_maps_to_gus_hier():
 
 def test_unported_options_raise():
     _, pc = configs()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        P.simulate(spec(), dataclasses.replace(pc, impairments=PI.ImpairmentConfig(enabled=True)),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        P.simulate(spec(), dataclasses.replace(pc, admission=PI.AdmissionConfig(enabled=True)),
-                   device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
         P.simulate(spec(), pc, options=P.EngineOptions(metrics=True), device="cpu")
     # fleet-only options are ignored, as in the reference
