@@ -125,11 +125,28 @@ any phase fails:
    the composite (one launch per frame); the hierarchical fleet of phase 4
    with the users sweep's admission and impairments
    (``benchmarks/fleet_scale.py::run_users_sweep``) at ~10^3 users per
-   frame, congestion off and on, then at the scenario's defaults, 4
-   replications, ``window=1``, ``prefetch=2`` — the resilient hierarchical
+   frame, congestion off and on, then at the scenario's defaults,
+   ``N_REP_CITY_RES`` replications, ``window=1``, ``prefetch=2`` — the resilient hierarchical
    main path, whose launches are counted; each scale run's wall, ``gen_s``
    and ``dispatch_s`` printed beside its unimpaired phase;
-13. prints one JSON line listing every ported kernel, then the contract line
+13. runs the telemetry layer on the card: ``metrics=True`` changes no
+   result field and no launch count of the phase-3 dense fleet at 64
+   replications (``gus``, ``random``, ``gus-adaptive``; congestion off, on
+   at a half drain, the composite with protection) and its rows equal the
+   same calls' rows on the CPU (integers exactly, floats within
+   ``US_RTOL``/``US_ATOL``) and sum to the results' totals; likewise one
+   ``simulate`` run and the 4-replication hierarchical fleet with the users
+   sweep's admission and impairments (rows exactly); the 1024-replication
+   fleet of phase 3 with metrics on (2 launches, as off) and under
+   ``recording()`` (a valid Chrome trace, at least 4 categories, the
+   producer's spans on its own thread), their walls beside phase 3's and
+   the disabled-span cost, reckoned as
+   ``benchmarks/telemetry_overhead.py`` reckons it; a ``torch.profiler``
+   trace of one fleet window (``profile_trace``) holding the ``gus_assign``
+   kernel and the ``fleet/window`` step annotation; and the scenario
+   runner (``python -m repro_torch.launch.run_scenario``) with ``--fleet
+   64 --metrics --trace`` on the card, whose JSONL rows sum to its results;
+14. prints one JSON line listing every ported kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device,
@@ -1382,9 +1399,10 @@ RES_SEQ_CFG = dict(horizon_ms=12_000.0, delay_req_ms=6000.0, acc_req_mean=50.0,
 #: the composite regime's scenario (paper_figures.py::_resilience_regimes)
 COMPOSITE_SCN = dict(burst_mult=3.0, burst_start_frac=0.2, burst_end_frac=0.4,
                      outage_start_frac=0.2, outage_end_frac=0.4)
-#: replications of the resilient hierarchical main path: 4, as the script
-#: ran past its time budget at 8 (PERF.md, PR 19)
-N_REP_CITY_RES = 4
+#: replications of the resilient hierarchical main path: 2, to keep the
+#: script within its time budget beside the telemetry phase (PERF.md, PRs
+#: 19-20: 8, then 4)
+N_REP_CITY_RES = 2
 
 
 def resilience_regimes():
@@ -1604,6 +1622,270 @@ def resilience_smoke(dev, zero_counts, fleet_spec, fleet_cfg, n_rep_scale, windo
           and fh.n_requests > 1e5 * N_REP_CITY_RES * fh.n_frames,
           "resilient hier main path results malformed")
     hier_paths[f"resilient hier mega-city ({N_REP_CITY_RES} reps, full width)"] = n
+    return gus_paths, hier_paths
+
+#: the telemetry phase's output (traces, JSONL rows), under the checkout
+TELEMETRY_OUT = ROOT / "chiprun_out" / "telemetry"
+
+
+def telemetry_smoke(dev, zero_counts, fleet_spec, fleet_cfg, n_rep_scale, window, dense_base,
+                    city, city_cfg, small_city, smi):
+    """Phase 13: the telemetry layer on the card — metrics on/off inertness
+    and the card's rows against the CPU's on the dense fleet, ``simulate``
+    and the hierarchical fleet; the 1024-replication fleet with metrics on
+    and under ``recording()`` (trace checks, walls, the disabled-span
+    cost); a ``torch.profiler`` trace of one window; the scenario runner.
+    ``dense_base`` is phase 3's ``(FleetResult, wall, launches)``.
+    Returns ``(gus launches by path, hier launches by path)``."""
+    import numpy as np
+
+    from repro_torch.core import (
+        AdmissionConfig, BurstyLossLink, CongestionConfig, EngineOptions, ImpairmentConfig,
+        IntermittentLink, SimConfig, demo_cluster_spec, simulate, simulate_fleet,
+    )
+    from repro_torch.kernels.gus import gus_assign
+    from repro_torch.kernels.hier import hier_cells
+    from repro_torch.launch import run_scenario
+    from repro_torch.obs import (
+        CAT_SCHED, MetricsFrame, profile_trace, recording, span, validate_chrome_trace,
+    )
+    from repro_torch.obs.profiler import TRACE_FILE
+
+    TELEMETRY_OUT.mkdir(parents=True, exist_ok=True)
+    ints = ("n_arrivals", "n_served", "n_satisfied", "n_shed", "n_refused", "tier_hist",
+            "qos_sat", "qos_count")
+    regimes, protected = resilience_regimes()
+    comp_scn, comp_imp, comp_cc, _ = regimes["flash-crowd-outage"]
+    gus_paths, hier_paths = {}, {}
+    t_phase = time.perf_counter()
+
+    def fields_equal(a, b):
+        return (a.n_requests == b.n_requests and a.n_served == b.n_served
+                and np.array_equal(a.satisfied_per_rep, b.satisfied_per_rep)
+                and np.array_equal(a.mean_us_per_rep, b.mean_us_per_rep)
+                and a.mean_compute_inflation == b.mean_compute_inflation
+                and (a.final_backlog_per_rep is None) == (b.final_backlog_per_rep is None)
+                and (a.final_backlog_per_rep is None
+                     or np.array_equal(a.final_backlog_per_rep, b.final_backlog_per_rep)))
+
+    def rows_err(label, g, c, exact_floats):
+        """The card's rows against the CPU's: integers exactly, floats
+        bitwise or within US_RTOL/US_ATOL; returns the largest float
+        difference."""
+        err = 0.0
+        for f in MetricsFrame._fields:
+            a, b = c.data[f], g.data[f]
+            check(a.shape == b.shape and a.dtype == b.dtype, f"{label}: rows' {f} malformed")
+            if f in ints or exact_floats:
+                check(np.array_equal(a, b), f"{label}: row field {f} on the card != the CPU's")
+            else:
+                check(np.allclose(b, a, rtol=US_RTOL, atol=US_ATOL),
+                      f"{label}: row field {f} out of tolerance")
+            if f not in ints:
+                err = max(err, float(np.abs(a.astype(np.float64) - b).max(initial=0.0)))
+        return err
+
+    def totals_ok(label, fr):
+        m = fr.metrics
+        agg = m.aggregate()
+        reqs = m.data["n_arrivals"].sum(1)
+        check(agg["n_arrivals"] == fr.n_requests and agg["n_served"] == fr.n_served
+              and np.array_equal(100.0 * m.data["n_satisfied"].sum(1) / np.maximum(reqs, 1),
+                                 fr.satisfied_per_rep)
+              and np.all(m.data["tier_hist"].sum(-1) == m.data["n_served"])
+              and np.all(m.data["qos_count"].sum(-1) == m.data["n_arrivals"]),
+              f"{label}: the rows do not sum to the result's totals")
+        return agg
+
+    def dense(pol, cfg, scn, n_rep, device, metrics=False, **opt):
+        return simulate_fleet(
+            fleet_spec, cfg, policy=pol, scenario=scn, n_rep=n_rep, seed=0, device=device,
+            options=EngineOptions(rng_mode="vectorized", metrics=metrics, **opt))
+
+    # -- 13a. the dense fleet: inert, the card's rows == the CPU's -----------
+    for label, cfg, scn in (
+        ("congestion off", fleet_cfg, "paper-default"),
+        ("congestion on drain=0.5", dataclasses.replace(
+            fleet_cfg, congestion=CongestionConfig(enabled=True, drain=0.5)), "paper-default"),
+        ("composite+protected", dataclasses.replace(
+            fleet_cfg, congestion=comp_cc, impairments=comp_imp, admission=protected), comp_scn),
+    ):
+        for pol in ("gus", "random", "gus-adaptive"):
+            n0 = gus_assign.launches
+            off = dense(pol, cfg, scn, 64, dev)
+            n_off = gus_assign.launches - n0
+            n0 = gus_assign.launches
+            on = dense(pol, cfg, scn, 64, dev, metrics=True)
+            n_on = gus_assign.launches - n0
+            cpu = dense(pol, cfg, scn, 64, "cpu", metrics=True)
+            check(on.metrics is not None and off.metrics is None, f"{pol} {label}: no rows")
+            check(fields_equal(off, on), f"telemetry {pol} {label}: metrics=True changed a field")
+            check(n_on == n_off > 0, f"telemetry {pol} {label}: {n_on} launches, {n_off} off")
+            err = rows_err(f"dense {pol} {label}", on.metrics, cpu.metrics, False)
+            agg = totals_ok(f"dense {pol} {label}", on)
+            print(f"telemetry dense {pol} n_rep=64 {label}: fields equal on/off, launches "
+                  f"{n_on} (off {n_off}); rows == CPU (float max diff {err}); shed="
+                  f"{agg['n_shed']} refused={agg['n_refused']} backlog_max="
+                  f"{float(on.metrics.data['backlog_gamma'].max())}")
+
+    # -- 13b. simulate and the hierarchical fleet: rows exactly the CPU's ---
+    seq_cfg = SimConfig(**RES_SEQ_CFG, arrival_rate_per_s=4.0, congestion=comp_cc,
+                        impairments=comp_imp, admission=protected)
+    seq_spec = demo_cluster_spec()
+    n0 = gus_assign.launches
+    s_off = simulate(seq_spec, seq_cfg, scenario=comp_scn, seed=0, device=dev)
+    n_off = gus_assign.launches - n0
+    n0 = gus_assign.launches
+    s_on = simulate(seq_spec, seq_cfg, scenario=comp_scn, seed=0, device=dev,
+                    options=EngineOptions(metrics=True))
+    n_on = gus_assign.launches - n0
+    s_cpu = simulate(seq_spec, seq_cfg, scenario=comp_scn, seed=0, device="cpu",
+                     options=EngineOptions(metrics=True))
+    check(s_off.as_dict() == s_on.as_dict() and s_off.resilience_stats == s_on.resilience_stats
+          and s_off.bandwidth_estimates == s_on.bandwidth_estimates and n_on == n_off > 0,
+          "telemetry simulate: metrics=True changed a field or the launch count")
+    rows_err("simulate", s_on.metrics, s_cpu.metrics, True)
+    agg = s_on.metrics.aggregate()
+    check(agg["n_arrivals"] == s_on.n_requests and agg["n_served"] == s_on.n_served
+          and agg["n_satisfied"] == s_on.n_satisfied and agg["n_local"] == s_on.n_local
+          and agg["n_cloud"] == s_on.n_cloud and agg["n_shed"] == s_on.resilience_stats["n_shed"],
+          "telemetry simulate: the rows do not sum to the result")
+    print(f"telemetry simulate (composite+protected, congestion on): {agg['n_frames']} rows "
+          f"exactly the CPU's, fields equal on/off, B=1 launches {n_on} (off {n_off})")
+
+    users_cfg = dataclasses.replace(
+        city_cfg, admission=AdmissionConfig(enabled=True, shed=True),
+        impairments=ImpairmentConfig(enabled=True, seed=7,
+                                     link_profiles=(IntermittentLink(), BurstyLossLink())))
+
+    def city_fleet(device, metrics):
+        return simulate_fleet(
+            city, users_cfg, scenario=small_city, n_rep=4, seed=0, device=device,
+            options=EngineOptions(scheduler="hierarchical", window=1, prefetch=2,
+                                  metrics=metrics))
+
+    n0 = hier_cells.launches
+    h_off = city_fleet(dev, False)
+    n_off = hier_cells.launches - n0
+    zero_counts()
+    h_on = city_fleet(dev, True)
+    n_on = hier_cells.launches
+    h_cpu = city_fleet("cpu", True)
+    check(fields_equal(h_off, h_on) and n_on == n_off == h_on.n_frames,
+          "telemetry hier: metrics=True changed a field or the launch count")
+    rows_err("hier", h_on.metrics, h_cpu.metrics, True)
+    agg = totals_ok("hier", h_on)
+    print(f"telemetry hier fleet n_rep=4 users-sweep admission+impairments: rows exactly the "
+          f"CPU's, fields equal on/off, launches {n_on} (off {n_off}); shed={agg['n_shed']} "
+          f"refused={agg['n_refused']}")
+    hier_paths["hier users-sweep metrics=True (4 reps, ~10^3 users)"] = n_on
+
+    t_sub = time.perf_counter()
+    print(f"telemetry phase 13a-b {t_sub - t_phase:.1f} s")
+
+    # -- 13c. the 1024-replication fleet: metrics off, on, recording on -----
+    fr_base, _, launches0 = dense_base
+    walls, runs = {}, {}
+    for label, metrics in (("off", False), ("metrics on", True)):
+        zero_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        f = dense("gus", fleet_cfg, "paper-default", n_rep_scale, dev, metrics=metrics,
+                  window=window)
+        walls[label] = time.perf_counter() - t0
+        check(gus_assign.launches == launches0,
+              f"1024-rep fleet, {label}: {gus_assign.launches} launches, phase 3 {launches0}")
+        check(fields_equal(fr_base, f), f"1024-rep fleet, {label}: a field changed")
+        runs[label] = f
+    fr0, fr_m, n_m = runs["off"], runs["metrics on"], gus_assign.launches
+    totals_ok("1024-rep fleet", fr_m)
+    gus_paths[f"dense fleet gus metrics=True ({n_rep_scale} reps)"] = n_m
+    zero_counts()
+    sync(dev)
+    with recording() as rec:
+        t0 = time.perf_counter()
+        fr_r = dense("gus", fleet_cfg, "paper-default", n_rep_scale, dev, window=window)
+        wall_r = walls["recording on"] = time.perf_counter() - t0
+    check(fields_equal(fr0, fr_r) and gus_assign.launches == launches0,
+          "1024-rep fleet under recording() changed a field or the launch count")
+    trace_path = TELEMETRY_OUT / "fleet_trace.json"
+    rec.save(trace_path)
+    obj = json.loads(trace_path.read_text())
+    errs = validate_chrome_trace(obj)
+    cats = sorted({e["cat"] for e in obj["traceEvents"] if e["ph"] != "M"})
+    names = {e["tid"]: e["args"]["name"] for e in obj["traceEvents"] if e["ph"] == "M"}
+    prod = [t for t, n in names.items() if n == "fleet-window-producer"]
+    prod_spans = {e["name"] for e in obj["traceEvents"] if e["ph"] == "X" and e["tid"] in prod}
+    check(errs == [] and len(cats) >= 4 and len(prod) == 1
+          and {"fleet/arrivals", "fleet/grid_build"} <= prod_spans
+          and "fleet/dispatch" not in prod_spans,
+          f"the fleet's trace is malformed: errors {errs[:3]}, categories {cats}, "
+          f"producer spans {sorted(prod_spans)}")
+    n_spans = sum(1 for e in obj["traceEvents"] if e["ph"] == "X")
+    iters = 200_000
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        with span("bench/disabled", CAT_SCHED):
+            pass
+    per_span_s = (time.perf_counter() - t0) / iters
+    print(f"telemetry overhead ({smi}), dense fleet gus n_rep={n_rep_scale} window={window}, "
+          f"in turns: wall off {walls['off']:.3f} s, metrics on {walls['metrics on']:.3f} s, "
+          f"recording on {wall_r:.3f} s; fleet/window_metrics "
+          f"{fr0.timings['fleet/window_metrics']:.4f} / {fr_m.timings['fleet/window_metrics']:.4f} / "
+          f"{fr_r.timings['fleet/window_metrics']:.4f} s, fleet/dispatch "
+          f"{fr0.dispatch_s:.4f} / {fr_m.dispatch_s:.4f} / {fr_r.dispatch_s:.4f} s; the trace "
+          f"{len(rec)} events, {n_spans} spans, categories {cats}, {len(names)} threads; "
+          f"launches {launches0} / {n_m} / {launches0}")
+    print(f"telemetry disabled-span cost ({smi}): {per_span_s * 1e9:.1f} ns a span x {n_spans} "
+          f"spans = {n_spans * per_span_s * 1e3:.4f} ms, {n_spans * per_span_s / walls['off']:.3e}"
+          f" of the untraced wall")
+    print(f"telemetry phase 13c {time.perf_counter() - t_sub:.1f} s")
+
+    # -- 13d. the profiler around one fleet window --------------------------
+    prof_dir = TELEMETRY_OUT / "profile"
+    dense("gus", fleet_cfg, "paper-default", 64, dev)  # the kernel built and loaded first
+    with profile_trace(prof_dir, device=dev):
+        pf = dense("gus", fleet_cfg, "paper-default", 64, dev)
+    check(pf.window == pf.n_frames, "the profiled fleet is not one window")
+    prof = json.loads((prof_dir / TRACE_FILE).read_text())
+    kern = [e for e in prof.get("traceEvents", []) if e.get("cat") == "kernel"
+            and "gus_assign" in e.get("name", "")]
+    steps = [e for e in prof.get("traceEvents", [])
+             if e.get("name", "").startswith("fleet/window#")]
+    annot = [e for e in prof.get("traceEvents", []) if e.get("name") == "gus/cuda_kernel_batch"]
+    print(f"telemetry profiler: {len(prof.get('traceEvents', []))} events; gus_assign kernel "
+          f"events {len(kern)} ({kern[0]['name'] if kern else None}, "
+          f"{kern[0].get('dur') if kern else None} us); fleet/window steps {len(steps)}; "
+          f"gus/cuda_kernel_batch ranges {len(annot)}")
+    check(kern, "the profiler trace holds no gus_assign kernel event")
+    check(steps, "the profiler trace holds no fleet/window step annotation")
+
+    # -- 13e. the scenario runner on the card -------------------------------
+    cli_trace = TELEMETRY_OUT / "cli_trace.json"
+    cli_rows = TELEMETRY_OUT / "cli.metrics.jsonl"
+    t0 = time.perf_counter()
+    r, fr = run_scenario.main([
+        "--scenario", "sustained-overload", "--congestion", "--metrics", "--trace",
+        str(cli_trace), "--metrics-out", str(cli_rows), "--horizon-s", "6", "--fleet", "64",
+        "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    rows = [json.loads(x) for x in cli_rows.read_text().splitlines()]
+    frows = [json.loads(x) for x in Path(str(cli_rows) + ".fleet").read_text().splitlines()]
+    obj = json.loads(cli_trace.read_text())
+    cats = {e["cat"] for e in obj["traceEvents"] if e["ph"] != "M"}
+    check(sum(x["n_satisfied"] for x in rows) == r.n_satisfied
+          and sum(x["n_arrivals"] for x in rows) == r.n_requests
+          and sum(x["n_arrivals"] for x in frows) == fr.n_requests
+          and sum(x["n_served"] for x in frows) == fr.n_served
+          and len(frows) == fr.n_rep * fr.n_frames,
+          "the scenario runner's JSONL rows do not sum to its results")
+    check(validate_chrome_trace(obj) == [] and len(cats) >= 4
+          and len({e["tid"] for e in obj["traceEvents"]}) >= 2,
+          "the scenario runner's trace is malformed")
+    check(fr.device != "cpu", "the scenario runner's fleet did not run on the card")
+    print(f"telemetry scenario runner --fleet 64 --metrics --trace on {fr.device}: {cli_s:.3f} s; "
+          f"{len(rows)} + {len(frows)} rows sum to the results; trace categories {sorted(cats)}")
+    print(f"telemetry phase {time.perf_counter() - t_phase:.1f} s")
     return gus_paths, hier_paths
 
 
@@ -1957,7 +2239,7 @@ def main() -> int:
                         True, True, "vectorized")
         for r in range(n_rep_city)
     ]
-    _, _, host, _, n_arr, _ = _build_hier_window(
+    _, _, host, _, n_arr, _, _ = _build_hier_window(
         city_sources, city, city_cfg, mega, 0, 1, QuantizationConfig(), Stopwatch(), True
     )
     city_inst, city_us, city_feas, city_count = _hier_device_inputs(host, dev)
@@ -2162,6 +2444,12 @@ def main() -> int:
         dev, zero_counts, spec, cfg, n_rep_scale, window, (fr, wall, launches), city, city_cfg,
         mega, small_city, (fh, hier_wall))
 
+    # -- 13. telemetry: inert metrics, card rows == CPU rows, tracing, the
+    #        profiler, overheads, the scenario runner ------------------------
+    tel_gus, tel_hier = telemetry_smoke(
+        dev, zero_counts, spec, cfg, n_rep_scale, window, (fr, wall, launches), city, city_cfg,
+        small_city, smi)
+
     kernels = {"kernels": [{
         "name": "gus_assign",
         "route": "cuda",
@@ -2178,7 +2466,7 @@ def main() -> int:
         "chain_floor_ms": gus_floor_ms,
         "single_frame_ms": first_dev_ms,
         "launches_by_path": {f"dense fleet gus ({n_rep_scale} reps)": launches, **pol_launches,
-                             **res_gus},
+                             **res_gus, **tel_gus},
         **pol_times,
     }, {
         "name": "hier_cells",
@@ -2194,7 +2482,7 @@ def main() -> int:
         "library_ms": None,
         "chain_floor_ms": floor_ms,
         "launches_by_path": {f"hier mega-city ({n_rep_city} reps, full width)": hier_launches,
-                             **res_hier},
+                             **res_hier, **tel_hier},
     }, {
         "name": "flash_attention",
         "route": "cuda",

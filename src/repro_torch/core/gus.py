@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.gus import gus_assign, gus_assign_ref
+from repro_torch.obs.profiler import annotate
 
 from .instance import FlatInstance, resolve_device
 from .options import BACKENDS, resolve_backend
@@ -112,19 +113,26 @@ def _relaxed_budgets(inst: FlatInstance, relax_compute: bool, relax_comm: bool):
 
 
 def _run_batch(
-    batch: FlatInstance, backend: str, relax_compute: bool, relax_comm: bool, prio=None
+    batch: FlatInstance, backend: str, relax_compute: bool, relax_comm: bool, prio=None,
+    single: bool = False,
 ):
+    """One GUS call over a batch of frames, under a profiler annotation
+    naming the implementation (``gus/cuda_kernel[_batch]`` or
+    ``gus/torch[_batch]``; ``single``: a batch of one from
+    :func:`gus_schedule`)."""
     B = batch.A.shape[0]
     gamma0, eta0 = _relaxed_budgets(batch, relax_compute, relax_comm)
     fn = gus_assign if backend == "cuda" else gus_assign_ref
-    j, l, w, c = fn(
-        batch.cover.contiguous(), batch.A.contiguous(), batch.C.contiguous(),
-        batch.w_a.contiguous(), batch.w_c.contiguous(), batch.acc.contiguous(),
-        batch.ctime.contiguous(), batch.v.contiguous(), batch.u.contiguous(),
-        batch.avail.contiguous(), gamma0.contiguous(), eta0.contiguous(),
-        batch.max_as.expand(B).contiguous(), batch.max_cs.expand(B).contiguous(),
-        None if prio is None else prio.contiguous(),
-    )
+    label = ("gus/cuda_kernel" if backend == "cuda" else "gus/torch") + ("" if single else "_batch")
+    with annotate(label):
+        j, l, w, c = fn(
+            batch.cover.contiguous(), batch.A.contiguous(), batch.C.contiguous(),
+            batch.w_a.contiguous(), batch.w_c.contiguous(), batch.acc.contiguous(),
+            batch.ctime.contiguous(), batch.v.contiguous(), batch.u.contiguous(),
+            batch.avail.contiguous(), gamma0.contiguous(), eta0.contiguous(),
+            batch.max_as.expand(B).contiguous(), batch.max_cs.expand(B).contiguous(),
+            None if prio is None else prio.contiguous(),
+        )
     return Assignment(j, l, (w, c))
 
 
@@ -164,5 +172,5 @@ def gus_schedule(
     one = FlatInstance(
         **{f.name: getattr(inst, f.name)[None] for f in dataclasses.fields(inst)}
     ).to(dev)
-    a = _run_batch(one, resolve_backend(backend, dev), relax_compute, relax_comm)
+    a = _run_batch(one, resolve_backend(backend, dev), relax_compute, relax_comm, single=True)
     return Assignment(a.j[0], a.l[0], (a.loads[0][0], a.loads[1][0]))

@@ -85,7 +85,8 @@ class EngineOptions:
     prefetch: int = 1
     #: devices for the replication axis (only ``None`` or 1 in this slice).
     devices: Optional[int] = None
-    #: record the per-decision metric stream (not ported yet).
+    #: record the per-decision metric stream (``SimResult.metrics`` /
+    #: ``FleetResult.metrics``); off changes no result field.
     metrics: bool = False
     #: engine scheduling layout (:data:`SCHEDULERS`); ``None`` defers to
     #: ``REPRO_SCHEDULER``, else ``"dense"``.
@@ -192,9 +193,4 @@ def check_ported(opts: EngineOptions, fleet: bool = True) -> None:
             f"devices={opts.devices}: the replication axis over several CUDA "
             "devices is not ported yet (ROADMAP.md §1 item 9, still to port: "
             "devices>1)"
-        )
-    if opts.metrics:
-        raise NotImplementedError(
-            "metrics=True: the telemetry metric stream is not ported yet "
-            "(ROADMAP.md §1 item 5, still to port: telemetry)"
         )

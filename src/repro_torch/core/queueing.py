@@ -25,8 +25,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs.metrics import QOS_ACC_EDGES, MetricsFrame
+
 from . import prng
 from .instance import FlatInstance, resolve_device
+from .satisfaction import mean_us, satisfied_mask
 
 __all__ = [
     "CongestionConfig",
@@ -40,6 +43,8 @@ __all__ = [
     "ema_update",
     "effective_capacity",
     "congested_ctime",
+    "frame_utilization",
+    "frame_metrics",
 ]
 
 _EPS = 1e-9
@@ -231,4 +236,82 @@ def congested_ctime(inst: FlatInstance, tq, phi_c, phi_e) -> torch.Tensor:
         inst.ctime
         + inst.v * (phi_c[..., None, :, None] - 1.0)
         + comm * (phi_e_cover[..., :, None, None] - 1.0)
+    )
+
+
+def frame_utilization(committed, budget) -> torch.Tensor:
+    """Per-server committed-work / frame-budget ratio, 0 where the budget
+    is zero (a server down under an outage mask).  Overcommitting policies
+    exceed 1."""
+    zero = torch.zeros((), dtype=committed.dtype, device=committed.device)
+    return torch.where(budget > 0.0, committed / budget.clamp_min(_EPS), zero)
+
+
+def frame_metrics(
+    inst: FlatInstance,
+    assign_j,
+    assign_l,
+    tq,
+    phi_c,
+    phi_e,
+    n_real,
+    n_edge: int,
+    carry,
+    n_shed,
+    n_refused,
+    qos_edges: Tuple[float, ...] = QOS_ACC_EDGES,
+    *,
+    loads=None,
+) -> MetricsFrame:
+    """The :class:`~repro_torch.obs.metrics.MetricsFrame` of one decision,
+    or of a batch of them (every argument with a matching leading batch
+    axis, one row per frame), on the tensors' device.
+
+    The reference's ``frame_metrics`` op for op, on the operands the result
+    fields use: satisfaction on :func:`congested_ctime` with the step's
+    inflation factors (``phi_c``/``phi_e`` ``None``: ``inst.ctime`` is
+    already the realized time, as with unit inflation, where the two are
+    bitwise equal), rows past ``n_real`` masked out.  Tiers: local is
+    ``j == cover``, cloud ``j >= n_edge``.  QoS classes count
+    ``A >= edge`` and are tallied by a one-hot sum (integers, no float
+    atomics).  Utilization divides the committed loads — ``loads`` if the
+    scheduler summed them for this assignment, else
+    :func:`committed_loads`, both in request order — by the full frame
+    budgets.  ``carry`` supplies the post-frame backlogs
+    (``backlog_gamma``/``backlog_eta``); ``us_sum`` is the row's
+    :func:`~repro_torch.core.satisfaction.mean_us` times ``N`` in float32.
+    """
+    N = assign_j.shape[-1]
+    dev = assign_j.device
+    real = torch.arange(N, device=dev) < torch.as_tensor(n_real, device=dev)[..., None]
+    served = (assign_j >= 0) & real
+    minst = inst
+    if phi_c is not None:
+        minst = dataclasses.replace(inst, ctime=congested_ctime(inst, tq, phi_c, phi_e))
+    sat = satisfied_mask(minst, assign_j, assign_l) & real
+    local = served & (assign_j == inst.cover)
+    cloud = served & (assign_j >= n_edge)
+    tier = torch.stack(
+        [local.sum(-1), (served & ~local & ~cloud).sum(-1), cloud.sum(-1)], -1
+    ).to(torch.int32)
+    edges = torch.tensor(qos_edges, dtype=torch.float32, device=dev)
+    cls = (inst.A[..., :, None] >= edges).sum(-1)
+    onehot = cls[..., None] == torch.arange(len(qos_edges) + 1, device=dev)
+    qos_count = (onehot & real[..., None]).sum(-2).to(torch.int32)
+    qos_sat = (onehot & sat[..., None]).sum(-2).to(torch.int32)
+    w, c = loads if loads is not None else committed_loads(inst, assign_j, assign_l)
+    return MetricsFrame(
+        n_arrivals=torch.as_tensor(n_real, device=dev).to(torch.int32),
+        n_served=served.sum(-1).to(torch.int32),
+        n_satisfied=sat.sum(-1).to(torch.int32),
+        n_shed=torch.as_tensor(n_shed, device=dev).to(torch.int32),
+        n_refused=torch.as_tensor(n_refused, device=dev).to(torch.int32),
+        tier_hist=tier,
+        qos_sat=qos_sat,
+        qos_count=qos_count,
+        util_gamma=frame_utilization(w, inst.gamma),
+        util_eta=frame_utilization(c, inst.eta),
+        backlog_gamma=carry.backlog_gamma,
+        backlog_eta=carry.backlog_eta,
+        us_sum=(mean_us(minst, assign_j, assign_l) * N).to(torch.float32),
     )

@@ -71,8 +71,20 @@ one producer thread.  All host RNG lives in the build, which runs the same
 work in the same order inline or on the producer, so results are identical
 either way.
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): the metric stream and ``devices>1``.
+**Telemetry** (``EngineOptions(metrics=True)``): every path returns one
+:class:`~repro_torch.obs.metrics.MetricsFrame` row per decision as
+``SimResult.metrics`` / ``FleetResult.metrics``.  ``simulate``, the host
+policies' loop and the hierarchical fleet fill numpy rows from their own
+counters, op for op the reference's; the dense fleet computes a window's
+rows batched on the card (:func:`~repro_torch.core.queueing.frame_metrics`)
+from the tensors its result fields come from, and copies them to the host
+once per window.  With metrics off no extra op runs and every result field
+is unchanged.  Spans carry the reference's categories and feed an active
+trace recorder (:mod:`repro_torch.obs.trace`); scheduler calls and fleet
+windows carry ``torch.profiler`` annotations (:mod:`repro_torch.obs.profiler`).
+
+Not in this slice (raises ``NotImplementedError`` naming its ROADMAP.md
+item): ``devices>1``.
 """
 from __future__ import annotations
 
@@ -81,15 +93,26 @@ import functools
 import queue as queue_mod
 import threading
 import time
+import types
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from repro_torch.obs.trace import Stopwatch
-
 from repro_torch.kernels.hier import class_loads, hier_cells
+from repro_torch.obs.metrics import QOS_ACC_EDGES, MetricsFrame, MetricsResult
+from repro_torch.obs.profiler import annotate, step_annotation
+from repro_torch.obs.trace import (
+    CAT_BUILD,
+    CAT_COMPILE,
+    CAT_DISPATCH,
+    CAT_GEN,
+    CAT_METRICS,
+    CAT_SCHED,
+    Stopwatch,
+    instant,
+)
 
 from . import prng
 from .aggregation import QuantizationConfig, aggregate_requests
@@ -116,6 +139,7 @@ from .queueing import (
     effective_capacity,
     ema_update,
     fleet_policy_carry,
+    frame_metrics,
     init_policy_carry,
     step_backlog,
 )
@@ -195,9 +219,8 @@ class SimConfig:
 
 @dataclasses.dataclass
 class SimResult:
-    """The sequential testbed's result, field for field the reference's
-    (the per-decision metric stream is not ported yet: ROADMAP.md §1
-    item 5)."""
+    """The sequential testbed's result, field for field the reference's,
+    the per-decision metric stream included."""
 
     n_requests: int
     n_served: int
@@ -221,6 +244,9 @@ class SimResult:
     #: the card: the H2D copy, the launch and the wait for ``j``/``l``),
     #: ``realize_s`` realized-delay accounting, ``total_s`` end to end
     timings: Optional[Dict[str, float]] = None
+    #: per-decision metric stream (``metrics=True`` only; None otherwise):
+    #: each row reports the backlog *entering* its decision
+    metrics: Optional[MetricsResult] = None
 
     @property
     def satisfied_pct(self) -> float:
@@ -287,6 +313,9 @@ class FleetResult:
     timings: Optional[Dict[str, float]] = None
     #: the device the fleet ran on (``"cpu"`` or the CUDA device's name)
     device: str = "cpu"
+    #: per-(rep, frame) metric stream (``metrics=True`` only; None
+    #: otherwise): each row reports the backlog carried *after* its frame
+    metrics: Optional[MetricsResult] = None
 
     @property
     def satisfied_pct(self) -> float:
@@ -299,6 +328,22 @@ class FleetResult:
     @property
     def mean_us(self) -> float:
         return float(np.mean(self.mean_us_per_rep))
+
+    def as_dict(self) -> Dict[str, float]:
+        """The reference's summary (the metric stream is left out)."""
+        d = {
+            "n_rep": self.n_rep,
+            "n_requests": self.n_requests,
+            "n_devices": self.n_devices,
+            "satisfied_pct": self.satisfied_pct,
+            "satisfied_std": self.satisfied_std,
+            "served_pct": 100.0 * self.n_served / max(self.n_requests, 1),
+            "mean_us": self.mean_us,
+        }
+        if self.final_backlog_per_rep is not None:
+            d["mean_compute_inflation"] = self.mean_compute_inflation
+            d["final_backlog_gamma"] = float(self.final_backlog_per_rep.sum(-1).mean())
+        return d
 
 
 def _pad_bucket(n: int) -> int:
@@ -616,7 +661,7 @@ def _build_window(sources, spec, cfg, scn, t0: int, t1: int, n_pad: int, sw, pin
     engine then)."""
     n_rep = len(sources)
     Tc = t1 - t0
-    with sw.span("fleet/arrivals"):
+    with sw.span("fleet/arrivals", CAT_GEN, t0=t0):
         per_rep = [src.take(t1) for src in sources]
         frames = [per_rep[r][k] for k in range(Tc) for r in range(n_rep)]
         frame_starts = [(t0 + k) * cfg.frame_ms for k in range(Tc) for _ in range(n_rep)]
@@ -630,7 +675,7 @@ def _build_window(sources, spec, cfg, scn, t0: int, t1: int, n_pad: int, sw, pin
                 tq[i, :nb] = fs + cfg.frame_ms - bucket.arrival_ms
             else:
                 tq[i, :nb] = [fs + cfg.frame_ms - r.arrival_ms for r in bucket]
-    with sw.span("fleet/grid_build"):
+    with sw.span("fleet/grid_build", CAT_BUILD, t0=t0):
         gb, eb = _frame_budgets_batch(
             spec, cfg, scn, (t0 + np.arange(Tc)) * cfg.frame_ms, engine=engine
         )
@@ -648,7 +693,7 @@ def _build_window(sources, spec, cfg, scn, t0: int, t1: int, n_pad: int, sw, pin
             ])
         host = {k: torch.from_numpy(x) for k, x in arrays.items()}
     if pin:
-        with sw.span("fleet/pin"):
+        with sw.span("fleet/pin", CAT_BUILD, t0=t0):
             host = {k: x.pin_memory() for k, x in host.items()}
     return host, n_real
 
@@ -677,14 +722,19 @@ def _cap(a: Assignment, frame: FlatInstance, backlog_g, backlog_e,
 
 
 def _step(call, frame: FlatInstance, carry, ccfg: CongestionConfig, acfg: AdmissionConfig,
-          keys=None, tq=None, link_up=None):
+          keys=None, tq=None, link_up=None, real=None):
     """One frame over the replication batch: shed (admission control), then
     schedule (against the backlog-reduced budgets when congestion is on),
     cap, then inflate and roll the backlog/EMA carry.  ``call(run, carry,
     keys) -> (Assignment, carry)`` is the bound policy in its mode;
     ``link_up`` the frame's ``(2, M)`` link scale and up vector, which a
-    stateful policy reads from the carry.  Returns ``(carry, a, pc, pe)``,
-    the inflation factors ``None`` with congestion off."""
+    stateful policy reads from the carry.  Returns ``(carry, a, pc, pe,
+    rows)``, the inflation factors ``None`` with congestion off.
+
+    ``real`` (the frame's ``(R, N)`` real-row mask, ``metrics=True`` only)
+    asks for the carry-dependent parts of the frame's metric row, taken
+    after the backlog update as the reference's scan step takes them:
+    ``rows`` is a :class:`_RowParts` (else ``None``)."""
     if link_up is not None:
         carry = dataclasses.replace(
             carry, link_bw=link_up[0].expand_as(carry.link_bw),
@@ -697,13 +747,16 @@ def _step(call, frame: FlatInstance, carry, ccfg: CongestionConfig, acfg: Admiss
             gamma=effective_capacity(frame.gamma, carry.backlog_gamma),
             eta=effective_capacity(frame.eta, carry.backlog_eta),
         )
+    keep = None
     if acfg.enabled and acfg.shed:
-        run, _ = _shed(run, tq, carry.backlog_gamma, carry.backlog_eta, frame.gamma, frame.eta,
-                       ccfg)
+        run, keep = _shed(run, tq, carry.backlog_gamma, carry.backlog_eta, frame.gamma,
+                          frame.eta, ccfg)
     a, carry = call(run, carry, keys)
+    pre = a
     a = _cap(a, frame, carry.backlog_gamma, carry.backlog_eta, acfg, ccfg.enabled)
     if not ccfg.enabled:
-        return carry, a, None, None
+        rows = None if real is None else _RowParts.of(real, keep, pre, a, None, carry)
+        return carry, a, None, None, rows
     w, c = a.loads if a.loads is not None else committed_loads(frame, a.j, a.l)
     pc = compute_inflation(carry.backlog_gamma + w, frame.gamma, ccfg)
     pe = comm_inflation(carry.backlog_eta + c, frame.eta, ccfg)
@@ -713,7 +766,112 @@ def _step(call, frame: FlatInstance, carry, ccfg: CongestionConfig, acfg: Admiss
         backlog_eta=step_backlog(carry.backlog_eta, c, frame.eta, ccfg),
         ema_util=ema_update(carry.ema_util, w, frame.gamma, ccfg),
     )
-    return carry, a, pc, pe
+    rows = None if real is None else _RowParts.of(real, keep, pre, a, (w, c), carry)
+    return carry, a, pc, pe, rows
+
+
+@dataclasses.dataclass
+class _RowParts:
+    """The carry-dependent parts of a batch of dense metric rows, on the
+    device: ``n_shed`` (real rows the shed mask dropped), ``n_refused``
+    (real rows whose assignment the queue cap rewrote to a drop),
+    ``loads`` (the committed ``(w, c)``, or ``None`` to sum afterwards),
+    ``stale`` (per row: the cap refused something, so ``loads`` taken
+    before it is out of date; ``None`` when ``loads`` was taken after it)
+    and the post-frame backlogs."""
+
+    n_shed: torch.Tensor
+    n_refused: torch.Tensor
+    loads: Optional[tuple]
+    stale: Optional[torch.Tensor]
+    backlog_gamma: torch.Tensor
+    backlog_eta: torch.Tensor
+
+    @staticmethod
+    def of(real, keep, pre: Assignment, a: Assignment, loads, carry) -> "_RowParts":
+        """``pre``/``a``: the assignment before and after the cap; ``loads``
+        the loads summed after the cap, or ``None`` to take the
+        scheduler's (stale where the cap refused)."""
+        zero = torch.zeros(real.shape[:-1], dtype=torch.int64, device=real.device)
+        n_shed = (real & ~keep).sum(-1) if keep is not None else zero
+        refused = real & (pre.j >= 0) & (a.j < 0)
+        stale = None
+        if loads is None:
+            loads = pre.loads
+            stale = None if a is pre else refused.any(-1)
+        return _RowParts(n_shed, refused.sum(-1), loads, stale,
+                         carry.backlog_gamma, carry.backlog_eta)
+
+    @staticmethod
+    def cat(parts: List["_RowParts"]) -> "_RowParts":
+        """Frame-major concatenation of the frames' parts."""
+        def cat(field):
+            return torch.cat([getattr(p, field) for p in parts])
+
+        loads = None
+        if all(p.loads is not None for p in parts):
+            loads = tuple(torch.cat([p.loads[i] for p in parts]) for i in range(2))
+        stales = [p.stale for p in parts if p.stale is not None]
+        return _RowParts(cat("n_shed"), cat("n_refused"), loads,
+                         torch.cat(stales) if stales else None,
+                         cat("backlog_gamma"), cat("backlog_eta"))
+
+
+def _dense_rows(mbatch: FlatInstance, aj, al, n_real, n_edge: int, parts: _RowParts):
+    """A window's metric rows (frame-major), from the instance the result
+    fields are scored on (``mbatch``: congested ``ctime`` already in) and
+    the assignment after the cap; the loads are the scheduler's unless
+    missing or stale anywhere in the window (one check per window), else
+    summed again in request order."""
+    loads = parts.loads
+    if loads is None or (parts.stale is not None and bool(parts.stale.any())):
+        loads = committed_loads(mbatch, aj, al)
+    return frame_metrics(
+        mbatch, aj, al, None, None, None, n_real, n_edge,
+        types.SimpleNamespace(backlog_gamma=parts.backlog_gamma,
+                              backlog_eta=parts.backlog_eta),
+        parts.n_shed, parts.n_refused, loads=loads,
+    )
+
+
+def _to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """int32/float32 tensors with a common leading axis, in one
+    device-to-host copy: the floats travel as their bits (an int32 view)
+    and come back bit for bit."""
+    B = tensors[0].shape[0]
+    flat = [t.reshape(B, -1) for t in tensors]
+    packed = torch.cat(
+        [t.view(torch.int32) if t.dtype == torch.float32 else t.to(torch.int32) for t in flat], 1
+    ).cpu().numpy()
+    out, at = [], 0
+    for t, f in zip(tensors, flat):
+        x = packed[:, at:at + f.shape[1]]
+        at += f.shape[1]
+        x = x.view(np.float32) if t.dtype == torch.float32 else x
+        out.append(np.ascontiguousarray(x).reshape(tuple(t.shape)))
+    return out
+
+
+def _metrics_store(n_rep: int, T: int, M: int) -> Dict[str, np.ndarray]:
+    """Zeroed ``(n_rep, T, ...)`` arrays for every :class:`MetricsFrame`
+    field, in the reference's dtypes."""
+    nq = len(QOS_ACC_EDGES) + 1
+    shapes = dict(tier_hist=(3,), qos_sat=(nq,), qos_count=(nq,), util_gamma=(M,),
+                  util_eta=(M,), backlog_gamma=(M,), backlog_eta=(M,))
+    floats = ("util_gamma", "util_eta", "backlog_gamma", "backlog_eta", "us_sum")
+    return {
+        f: np.zeros((n_rep, T) + shapes.get(f, ()), np.float32 if f in floats else np.int32)
+        for f in MetricsFrame._fields
+    }
+
+
+def _fleet_metrics(store: Dict[str, np.ndarray], cfg: SimConfig, spec: ClusterSpec):
+    """The fleet's :class:`MetricsResult` from its ``(n_rep, T, ...)`` store."""
+    T = store["n_arrivals"].shape[1]
+    return MetricsResult.from_stacked(
+        MetricsFrame(**store), t_ms=(np.arange(T) + 1.0) * cfg.frame_ms,
+        n_edge=spec.n_edge, frame_ms=cfg.frame_ms,
+    )
 
 
 class _WindowPipeline:
@@ -802,6 +960,7 @@ def _bind_policy(pol: Policy, spec: ClusterSpec, backend: Optional[str]) -> Call
     implementation and composes only with the ``"gus"`` policy (the other
     GUS-cored policies follow ``REPRO_TORCH_GUS_BACKEND``)."""
     fn = pol.bind(spec.n_edge, spec.n_servers)
+    instant("compile/bind_policy", CAT_COMPILE, policy=pol.name)
     if backend is None:
         return fn
     if pol.name != "gus":
@@ -926,14 +1085,19 @@ def simulate(
     server.
 
     ``device=None`` means ``"cuda"`` (raises without a CUDA device).
-    ``metrics=True`` (ROADMAP.md §1 item 5) raises ``NotImplementedError``.
-    If ``n_requests`` is given, arrivals stop after that many submissions
+    ``options.metrics=True`` records one
+    :class:`~repro_torch.obs.metrics.MetricsFrame` per decision into
+    ``SimResult.metrics``, from the host counters, as the reference does:
+    each row is the delta of the run's counters across its decision, with
+    the backlog *entering* it (the fleets report the backlog after the
+    frame).  If ``n_requests`` is given, arrivals stop after that many submissions
     (the x-axis of the paper's Fig. 1(e)-(h)).
     """
     dev = resolve_device(device)
     scn = get_scenario(scenario)
     opts = resolve_options(options, scenario=scn)
     check_ported(opts, fleet=False)
+    metrics = opts.metrics
     if opts.scheduler == "hierarchical":
         pol = _fold_hier_scheduler(policy, opts)
         scheduler = pol.bind(spec.n_edge, spec.n_servers)
@@ -961,7 +1125,7 @@ def simulate(
             limit=n_requests,
         )
     else:
-        with sw.span("sim/generate_trace"):
+        with sw.span("sim/generate_trace", CAT_GEN):
             reqs = scn.generate_arrivals(rng, spec.n_edge, K, cfg, rng_mode=opts.rng_mode)
         if n_requests is not None:
             reqs = reqs[:n_requests]
@@ -981,6 +1145,12 @@ def simulate(
     buffer: deque = deque()
     t = 0.0
     is_cloud = spec.is_cloud()
+
+    # per-decision metric rows (metrics=True only)
+    m_rows: List[MetricsFrame] = []
+    m_times: List[float] = []
+    m_qos_edges = np.asarray(QOS_ACC_EDGES, np.float64)
+    m_nq = len(QOS_ACC_EDGES) + 1
 
     # congestion state (numpy, float64 like the budgets)
     backlog_g = np.zeros(M)
@@ -1012,7 +1182,7 @@ def simulate(
         # admit arrivals in this frame; queue_cap per covering server
         qlen = {e: sum(1 for r in pending if r.cover == e) for e in range(spec.n_edge)}
         early_close = None
-        with sw.span("sim/arrival_pull"):
+        with sw.span("sim/arrival_pull", CAT_GEN):
             buffer.extend(source.pull(frame_end))
         while buffer:
             r = buffer[0]
@@ -1073,7 +1243,20 @@ def simulate(
                     link_bw=torch.from_numpy(link_scale.astype(np.float32)),
                     server_up=torch.from_numpy(up_now),
                 )
-            with sw.span("sim/frame_build"):
+            if metrics:
+                # deltas of the run counters across this decision become its
+                # row; the backlog is sampled entering the decision
+                m_shed0, m_ref0 = n_shed, n_refused
+                m_served0, m_sat0 = n_served, n_sat
+                m_local0, m_cloud0, m_eo0 = n_local, n_cloud, n_eo
+                m_us0 = us_sum
+                m_backlog_g = backlog_g.astype(np.float32)
+                m_backlog_e = backlog_e.astype(np.float32)
+                m_qos_cnt = np.zeros(m_nq, np.int32)
+                m_qos_sat = np.zeros(m_nq, np.int32)
+                m_w = np.zeros(M)
+                m_c = np.zeros(M)
+            with sw.span("sim/frame_build", CAT_BUILD):
                 inst = _build_frame_instance(
                     pending, spec, cfg, decision_time, bw_est, max_cs,
                     gamma=rem_gamma, eta=rem_eta, link=link,
@@ -1091,7 +1274,7 @@ def simulate(
                 # padded rows are infeasible -> dropped; the host policies
                 # see the raw frame
                 frame_inst = pad_instance(inst, _pad_bucket(n_real)) if pol.pad else inst
-            with sw.span("sim/schedule"):
+            with sw.span("sim/schedule", CAT_SCHED, n=n_real), annotate("sim/schedule"):
                 # a batched policy takes the frame as a batch of one on the
                 # device; a host policy the frame itself
                 frame = as_batch(frame_inst)[0].to(dev) if on_device else frame_inst
@@ -1123,7 +1306,7 @@ def simulate(
                 n_refused += int(refuse.sum())
                 jv = np.where(refuse, -1, jv)
 
-            with sw.span("sim/realize"):
+            with sw.span("sim/realize", CAT_METRICS, n=n_real):
                 # pass 1 — capacity commit (shared frame budget + backlog
                 # growth)
                 for idx, r in enumerate(pending):
@@ -1133,9 +1316,13 @@ def simulate(
                     local = j == r.cover
                     rem_gamma[j] -= spec.proc_ms[j, r.service, l]
                     committed_g[j] += spec.proc_ms[j, r.service, l]
+                    if metrics:
+                        m_w[j] += spec.proc_ms[j, r.service, l]
                     if not local:
                         rem_eta[r.cover] -= r.size_bytes / 1024.0
                         committed_e[r.cover] += r.size_bytes / 1024.0
+                        if metrics:
+                            m_c[r.cover] += r.size_bytes / 1024.0
 
                 # the whole decision batch shares one inflation factor,
                 # computed from the wall-clock frame's committed-so-far load
@@ -1155,6 +1342,9 @@ def simulate(
                 observed_bw = []
                 for idx, r in enumerate(pending):
                     j, l = int(jv[idx]), int(lv[idx])
+                    if metrics:
+                        m_cls = int(np.searchsorted(m_qos_edges, r.A, side="right"))
+                        m_qos_cnt[m_cls] += 1
                     if j < 0:
                         n_drop += 1
                         continue
@@ -1182,6 +1372,8 @@ def simulate(
                     ct = tq + proc + comm
                     acc = spec.acc[r.service, l]
                     sat = (ct <= r.C) and (acc >= r.A)
+                    if metrics and sat:
+                        m_qos_sat[m_cls] += 1
                     n_sat += int(sat)
                     n_local += int(local)
                     n_cloud += int((not local) and is_cloud[j])
@@ -1200,6 +1392,29 @@ def simulate(
                         bw_prev=torch.tensor(bw_prev, dtype=torch.float32),
                         bw_cur=torch.tensor(bw_cur, dtype=torch.float32),
                     )
+            if metrics:
+                with np.errstate(invalid="ignore"):
+                    m_ug = np.where(frame_budget_g > 0.0,
+                                    m_w / np.maximum(frame_budget_g, 1e-9), 0.0)
+                    m_ue = np.where(frame_budget_e > 0.0,
+                                    m_c / np.maximum(frame_budget_e, 1e-9), 0.0)
+                m_rows.append(MetricsFrame(
+                    n_arrivals=np.int32(n_real),
+                    n_served=np.int32(n_served - m_served0),
+                    n_satisfied=np.int32(n_sat - m_sat0),
+                    n_shed=np.int32(n_shed - m_shed0),
+                    n_refused=np.int32(n_refused - m_ref0),
+                    tier_hist=np.array(
+                        [n_local - m_local0, n_eo - m_eo0, n_cloud - m_cloud0], np.int32),
+                    qos_sat=m_qos_sat,
+                    qos_count=m_qos_cnt,
+                    util_gamma=m_ug.astype(np.float32),
+                    util_eta=m_ue.astype(np.float32),
+                    backlog_gamma=m_backlog_g,
+                    backlog_eta=m_backlog_e,
+                    us_sum=np.float32(us_sum - m_us0),
+                ))
+                m_times.append(decision_time)
 
         t = decision_time if early_close is not None else frame_end
         if source.exhausted and not buffer and not pending:
@@ -1240,6 +1455,9 @@ def simulate(
         "realize_s": sw.total("sim/realize"),
         "total_s": time.perf_counter() - t_run0,
     }
+    mres = None
+    if metrics:
+        mres = MetricsResult.from_rows(m_rows, m_times, spec.n_edge, cfg.frame_ms)
     return SimResult(
         n_requests=n_total,
         n_served=n_served,
@@ -1255,6 +1473,7 @@ def simulate(
         congestion_stats=congestion_stats,
         resilience_stats=resilience_stats,
         timings=timings,
+        metrics=mres,
     )
 
 
@@ -1302,11 +1521,23 @@ def simulate_fleet(
     resolve_options` resolves.  ``options.backend`` picks the GUS
     implementation (dense; composes only with the ``"gus"`` policy) or the
     class allocator's (hierarchical).
+
+    ``options.metrics=True`` returns one
+    :class:`~repro_torch.obs.metrics.MetricsFrame` row per (replication,
+    frame) as ``FleetResult.metrics``, each with the backlog carried after
+    its frame.  On the dense layout a window's rows are computed on the
+    card in one batched pass over the tensors the result fields are scored
+    on, after the window's single launch when no frame depends on another
+    (the backlog rows are then the zero carry) or from parts taken in each
+    frame's step after its backlog update, and are copied to the host once
+    per window: no host sync per frame, and the launch count is the one
+    without metrics.
     """
     dev = resolve_device(device)
     scn = get_scenario(scenario)
     opts = resolve_options(options, scenario=scn)
     check_ported(opts)
+    metrics = opts.metrics
     hier = opts.scheduler == "hierarchical"
     if hier:
         pol = _fold_hier_scheduler(policy, opts, allow_backend=True)
@@ -1328,7 +1559,7 @@ def simulate_fleet(
 
     sw = Stopwatch()
     t_run0 = time.perf_counter()
-    with sw.span("fleet/generate_traces"):
+    with sw.span("fleet/generate_traces", CAT_GEN, n_rep=n_rep):
         sources = [
             _RepFrameSource(
                 scn, seed + rep, spec.n_edge, K, cfg, T, opts.streaming, lazy, opts.rng_mode
@@ -1353,12 +1584,12 @@ def simulate_fleet(
     if hier:
         return _simulate_fleet_hier(
             spec, cfg, scn, sources, n_rep=n_rep, T=T, W=W, opts=opts, dev=dev,
-            gen_s=gen_s, sw=sw, t_run0=t_run0, engine=engine,
+            gen_s=gen_s, sw=sw, t_run0=t_run0, engine=engine, metrics=metrics,
         )
     if host_side:
         return _simulate_fleet_host(
             spec, cfg, scn, pol, sources, n_rep=n_rep, T=T, n_pad=n_pad, seed=seed,
-            gen_s=gen_s, sw=sw, t_run0=t_run0, engine=engine,
+            gen_s=gen_s, sw=sw, t_run0=t_run0, engine=engine, metrics=metrics,
         )
     carry = fleet_policy_carry(
         n_rep, M, seed=seed, bandwidth_init=spec.bandwidth_true, device=dev
@@ -1383,6 +1614,7 @@ def simulate_fleet(
     us_frames = np.zeros((n_rep, T), np.float32)
     n_real_frames = np.zeros((n_rep, T), np.int32)
     phi_frames = np.ones((n_rep, T, M), np.float32) if ccfg.enabled else None
+    m_store = _metrics_store(n_rep, T, M) if metrics else None
 
     def build_window(t0: int):
         return _build_window(sources, spec, cfg, scn, t0, min(t0 + W, T), n_pad, sw, pin, engine)
@@ -1390,34 +1622,40 @@ def simulate_fleet(
     window_starts = list(range(0, T, W))
     pipe = _WindowPipeline(build_window, window_starts, opts.prefetch, "fleet-window-producer")
     try:
-        for wi_t0 in window_starts:
-            with sw.span("fleet/window_wait"):
+        for wi, wi_t0 in enumerate(window_starts):
+            with sw.span("fleet/window_wait", CAT_GEN, window=wi):
                 host, n_real = pipe.next(wi_t0)
             t0, t1 = wi_t0, min(wi_t0 + W, T)
             Tc = t1 - t0
-            with sw.span("fleet/dispatch"):
+            with sw.span("fleet/dispatch", CAT_DISPATCH, window=wi), \
+                    step_annotation("fleet/window", wi):
                 inst = FlatInstance(
                     **{k: host[k].to(dev, non_blocking=True) for k in _FIELDS}
                 )
                 tq = host["tq"].to(dev, non_blocking=True) if ccfg.enabled or shed else None
                 link_up = (host["link_up"].to(dev, non_blocking=True)
                            if engine is not None else None)
+                real = torch.arange(n_pad, device=dev)[None, :] < torch.from_numpy(
+                    n_real).to(dev)[:, None]
                 if ccfg.enabled or stateful:
-                    js, ls, pcs, pes = [], [], [], []
+                    js, ls, pcs, pes, parts = [], [], [], [], []
                     for k in range(Tc):
                         sl = slice(k * n_rep, (k + 1) * n_rep)
                         frame = FlatInstance(**{f: getattr(inst, f)[sl] for f in _FIELDS})
-                        carry, a, pc, pe = _step(
+                        carry, a, pc, pe, rows = _step(
                             call, frame, carry, ccfg, acfg,
                             None if keys_all is None else keys_all[:, t0 + k],
                             None if tq is None else tq[sl],
                             None if link_up is None else link_up[:, k],
+                            real[sl] if metrics else None,
                         )
                         js.append(a.j)
                         ls.append(a.l)
                         pcs.append(pc)
                         pes.append(pe)
+                        parts.append(rows)
                     aj, al = torch.cat(js), torch.cat(ls)
+                    row_parts = _RowParts.cat(parts) if metrics else None
                 else:
                     # frame-major rows: frame t0 + k of replication r at k * n_rep + r
                     keys = (None if keys_all is None
@@ -1425,15 +1663,21 @@ def simulate_fleet(
                     # congestion off: unit inflation and an empty backlog, the
                     # same for every frame, so admission needs no carry
                     run = inst
-                    zero = torch.zeros_like(inst.gamma) if acfg.enabled else None
+                    zero = torch.zeros_like(inst.gamma) if acfg.enabled or metrics else None
+                    keep = None
                     if shed:
-                        run, _ = _shed(run, tq, zero, zero, inst.gamma, inst.eta, ccfg)
-                    a, _ = call(run, carry, keys)
-                    a = _cap(a, inst, zero, zero, acfg, False)
+                        run, keep = _shed(run, tq, zero, zero, inst.gamma, inst.eta, ccfg)
+                    pre, _ = call(run, carry, keys)
+                    a = _cap(pre, inst, zero, zero, acfg, False)
                     aj, al = a.j, a.l
+                    row_parts = None
+                    if metrics:
+                        row_parts = _RowParts.of(
+                            real, keep, pre, a, None,
+                            types.SimpleNamespace(backlog_gamma=zero, backlog_eta=zero))
                 if pin:
                     torch.cuda.synchronize(dev)
-            with sw.span("fleet/window_metrics"):
+            with sw.span("fleet/window_metrics", CAT_METRICS, window=wi):
                 if ccfg.enabled:
                     phi_c = torch.cat(pcs)
                     mbatch = dataclasses.replace(
@@ -1444,9 +1688,6 @@ def simulate_fleet(
                     )
                 else:
                     mbatch = inst
-                real = torch.arange(n_pad, device=dev)[None, :] < torch.from_numpy(
-                    n_real
-                ).to(dev)[:, None]
                 sat = (satisfied_mask(mbatch, aj, al) & real).sum(-1)
                 served = ((aj >= 0) & real).sum(-1)
                 us = mean_us(mbatch, aj, al)
@@ -1458,6 +1699,12 @@ def simulate_fleet(
                 served_frames[:, t0:t1] = per_rep(served.cpu().numpy())
                 us_frames[:, t0:t1] = per_rep(us.cpu().numpy())
                 n_real_frames[:, t0:t1] = per_rep(n_real)
+                if metrics:
+                    mf = _dense_rows(mbatch, aj, al, torch.from_numpy(n_real).to(dev),
+                                     spec.n_edge, row_parts)
+                    for f, x in zip(MetricsFrame._fields, _to_host(list(mf))):
+                        # frame-major (Tc * R, ...) -> (R, Tc, ...)
+                        m_store[f][:, t0:t1] = x.reshape((Tc, n_rep) + x.shape[1:]).swapaxes(0, 1)
     finally:
         pipe.close()
 
@@ -1486,6 +1733,7 @@ def simulate_fleet(
         prefetch=opts.prefetch if pipe.thread is not None else 0,
         timings=timings,
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        metrics=_fleet_metrics(m_store, cfg, spec) if metrics else None,
     )
 
 
@@ -1504,6 +1752,7 @@ def _simulate_fleet_host(
     sw: Stopwatch,
     t_run0: float,
     engine: Optional[ResilienceEngine] = None,
+    metrics: bool = False,
 ) -> FleetResult:
     """The fleet for the host policies (``vmappable=False`` or
     ``pad=False``: ``ilp``, ``lp-bound``, ``gus-hier``), the reference's
@@ -1512,18 +1761,21 @@ def _simulate_fleet_host(
     and the assignments are re-padded with drops so the scoring is the
     dense path's.  Impairments and admission control follow the dense
     step, in its order.  Everything runs on the host; rows are
-    replication-major (row ``rep * T + frame``)."""
+    replication-major (row ``rep * T + frame``).  With ``metrics`` the
+    rows are numpy, the reference's vectorized post-pass over the padded
+    grid, with the loop's sheds, refusals, loads and post-frame
+    backlogs."""
     ccfg = cfg.congestion
     acfg = cfg.admission
     M = spec.n_servers
     fleet_frames = []
-    with sw.span("fleet/arrivals"):
+    with sw.span("fleet/arrivals", CAT_GEN):
         for src in sources:
             fleet_frames.extend(src.take(T))
     raw_insts = []
     n_real = np.array([len(b) for b in fleet_frames], np.int32)
     tq_flat = np.zeros((len(fleet_frames), n_pad), np.float32)
-    with sw.span("fleet/grid_build"):
+    with sw.span("fleet/grid_build", CAT_BUILD):
         for i, bucket in enumerate(fleet_frames):
             frame_start = (i % T) * cfg.frame_ms
             gamma, eta = _frame_budgets(spec, cfg, scn, frame_start, engine=engine)
@@ -1555,7 +1807,15 @@ def _simulate_fleet_host(
     phi_c = np.ones((len(raw_insts), M), np.float32)
     phi_e = np.ones((len(raw_insts), M), np.float32)
     final_backlog = np.zeros((n_rep, M), np.float32)
-    with sw.span("fleet/schedule_host"):
+    if metrics:
+        F = len(raw_insts)
+        m_shed = np.zeros(F, np.int32)
+        m_refused = np.zeros(F, np.int32)
+        m_w = np.zeros((F, M), np.float32)
+        m_c = np.zeros((F, M), np.float32)
+        m_bg = np.zeros((F, M), np.float32)
+        m_be = np.zeros((F, M), np.float32)
+    with sw.span("fleet/schedule_host", CAT_SCHED, n_rep=n_rep):
         for rep in range(n_rep):
             carry = init_policy_carry(
                 M, seed=seed + rep, bandwidth_init=spec.bandwidth_true, device="cpu"
@@ -1578,10 +1838,12 @@ def _simulate_fleet_host(
                 else:
                     run_inst = inst
                 if acfg.enabled and acfg.shed and n:
-                    run_inst, _ = _shed(
+                    run_inst, keep = _shed(
                         run_inst, torch.from_numpy(tq_flat[i, :n]), carry.backlog_gamma,
                         carry.backlog_eta, inst.gamma, inst.eta, ccfg,
                     )
+                    if metrics:
+                        m_shed[i] = int(n) - int(keep.sum())
                 if pol.stateful:
                     a, carry = fn(run_inst, carry)
                 elif keys is not None:
@@ -1589,11 +1851,18 @@ def _simulate_fleet_host(
                 else:
                     a = fn(run_inst)
                 if n:
+                    pre = a
                     a = _cap(a, inst, carry.backlog_gamma, carry.backlog_eta, acfg, False)
+                    if metrics:
+                        m_refused[i] = int(((pre.j >= 0) & (a.j < 0)).sum())
                 jv[i, :n] = a.j.cpu().numpy()
                 lv[i, :n] = a.l.cpu().numpy()
-                if ccfg.enabled:
+                if ccfg.enabled or metrics:
                     w, c = committed_loads(inst, a.j.cpu(), a.l.cpu())
+                    if metrics:
+                        m_w[i] = w.numpy()
+                        m_c[i] = c.numpy()
+                if ccfg.enabled:
                     phi_c[i] = compute_inflation(
                         carry.backlog_gamma + w, inst.gamma, ccfg).numpy()
                     phi_e[i] = comm_inflation(carry.backlog_eta + c, inst.eta, ccfg).numpy()
@@ -1603,6 +1872,9 @@ def _simulate_fleet_host(
                         backlog_eta=step_backlog(carry.backlog_eta, c, inst.eta, ccfg),
                         ema_util=ema_update(carry.ema_util, w, inst.gamma, ccfg),
                     )
+                if metrics:  # the post-frame carried backlog, as the dense rows
+                    m_bg[i] = carry.backlog_gamma.numpy()
+                    m_be[i] = carry.backlog_eta.numpy()
             final_backlog[rep] = carry.backlog_gamma.numpy()
 
     aj, al = torch.from_numpy(jv), torch.from_numpy(lv)
@@ -1620,6 +1892,36 @@ def _simulate_fleet_host(
     sat = satisfied_mask(mbatch, aj, al).numpy() & real      # (R*T, n_pad)
     us = mean_us(mbatch, aj, al).numpy()                      # (R*T,)
     served = (jv >= 0) & real
+
+    mres = None
+    if metrics:
+        # the reference's post-pass over the padded grid: served/sat
+        # masked to real rows, utilization against the full frame budgets
+        with sw.span("fleet/window_metrics", CAT_METRICS):
+            local = served & (jv == batch.cover.numpy())
+            cloudm = served & (jv >= spec.n_edge)
+            eo = served & ~local & ~cloudm
+            tier = np.stack([local.sum(-1), eo.sum(-1), cloudm.sum(-1)], -1).astype(np.int32)
+            edges = np.asarray(QOS_ACC_EDGES, np.float32)
+            cls = (batch.A.numpy()[..., None] >= edges).sum(-1)
+            oh = cls[..., None] == np.arange(len(QOS_ACC_EDGES) + 1)
+            qos_cnt = (oh & real[..., None]).sum(1).astype(np.int32)
+            qos_sat = (oh & sat[..., None]).sum(1).astype(np.int32)
+            gam = batch.gamma.numpy().astype(np.float64)
+            eta_b = batch.eta.numpy().astype(np.float64)
+            with np.errstate(invalid="ignore"):
+                ug = np.where(gam > 0.0, m_w / np.maximum(gam, 1e-9), 0.0)
+                ue = np.where(eta_b > 0.0, m_c / np.maximum(eta_b, 1e-9), 0.0)
+
+            rows = dict(
+                n_arrivals=n_real.astype(np.int32), n_served=served.sum(-1).astype(np.int32),
+                n_satisfied=sat.sum(-1).astype(np.int32), n_shed=m_shed, n_refused=m_refused,
+                tier_hist=tier, qos_sat=qos_sat, qos_count=qos_cnt,
+                util_gamma=ug.astype(np.float32), util_eta=ue.astype(np.float32),
+                backlog_gamma=m_bg, backlog_eta=m_be, us_sum=(us * n_pad).astype(np.float32),
+            )
+            mres = _fleet_metrics(  # rows are replication-major: (R * T, ...) -> (R, T, ...)
+                {f: x.reshape((n_rep, T) + x.shape[1:]) for f, x in rows.items()}, cfg, spec)
 
     timings = sw.as_dict()
     timings["total_s"] = time.perf_counter() - t_run0
@@ -1639,6 +1941,7 @@ def _simulate_fleet_host(
         window=T,
         gen_s=gen_s,
         timings=timings,
+        metrics=mres,
     )
 
 
@@ -1693,9 +1996,11 @@ def _aggregate_frame(bucket, frame_end: float, quant: QuantizationConfig):
 
 
 def _member_accounting(spec: ClusterSpec, cfg: SimConfig, info, ci, jj, ll, lens, st,
-                       pc_k=None, pe_k=None, link=None):
+                       pc_k=None, pe_k=None, link=None, rows: bool = False):
     """Per-member satisfaction of one frame's allocated cells: ``(served,
-    satisfied, sum of US)``.
+    satisfied, sum of US)`` and, with ``rows``, the frame's metric-row parts
+    ``(tier histogram, satisfied per QoS class)``, numpy op for op as the
+    reference fills them.
 
     The allocated members of each cell are the class's members from its
     ``start`` offset on, and every member's realized accuracy and
@@ -1734,7 +2039,15 @@ def _member_accounting(spec: ClusterSpec, cfg: SimConfig, info, ci, jj, ll, lens
         ct = ct + proc_m * (pc_k[jm] - 1.0) + comm_f * (pe_k[cov_m] - 1.0)
     sat_m = (acc_m >= A_m) & (ct <= C_m)
     us_m = cfg.w_a * (acc_m - A_m) / cfg.max_as + cfg.w_c * (C_m - ct) / cfg.max_cs
-    return tot, int(sat_m.sum()), float(us_m.sum())
+    if not rows:
+        return tot, int(sat_m.sum()), float(us_m.sum())
+    cloud_m = (jm >= spec.n_edge) & ~local_m
+    eo_m = ~local_m & ~cloud_m
+    tier = (int(local_m.sum()), int(eo_m.sum()), int(cloud_m.sum()))
+    q_m = (A_m[:, None].astype(np.float64) >= np.asarray(QOS_ACC_EDGES, np.float64)).sum(-1)
+    qos_sat = np.zeros(len(QOS_ACC_EDGES) + 1, np.int32)
+    np.add.at(qos_sat, q_m, sat_m.astype(np.int64))
+    return tot, int(sat_m.sum()), float(us_m.sum()), tier, qos_sat
 
 
 def _build_hier_window(sources, spec, cfg, scn, t0: int, t1: int, quant, sw, pin: bool,
@@ -1745,23 +2058,24 @@ def _build_hier_window(sources, spec, cfg, scn, t0: int, t1: int, quant, sw, pin
     padded class grid with its member counts and the classes' float32
     queueing delays ``tq`` (which the congested shedding reads) and stage
     it in host tensors (pinned when ``pin``).  Returns
-    ``(t0, Tc, host, infos, n_arr, links)``: the leaves, the per-frame
-    member bookkeeping (``None`` for an empty frame), the ``(n_rep, Tc)``
-    arrival counts and, with a resilience engine, each frame's link draw
-    (``None`` without), which travels with the window to the member
-    accounting.  Pure numpy, the sources' own RNGs and the engine's traces,
+    ``(t0, Tc, host, infos, n_arr, links, budgets)``: the leaves, the
+    per-frame member bookkeeping (``None`` for an empty frame), the
+    ``(n_rep, Tc)`` arrival counts, with a resilience engine each frame's
+    link draw (``None`` without), which travels with the window to the
+    member accounting, and the float64 ``(Tc, M)`` frame budgets ``(gb,
+    eb)`` the metric rows divide by.  Pure numpy, the sources' own RNGs and the engine's traces,
     so it runs the same inline or on a producer thread (the only thread
     that extends the engine then)."""
     n_rep = len(sources)
     Tc = t1 - t0
-    with sw.span("fleet/hier_build"):
+    with sw.span("fleet/hier_build", CAT_BUILD, t0=t0):
         gb, eb = _frame_budgets_batch(
             spec, cfg, scn, (t0 + np.arange(Tc)) * cfg.frame_ms, engine=engine
         )
         links_by_k = (
             [engine.link_frame(t0 + k) for k in range(Tc)] if engine is not None else None
         )
-    with sw.span("fleet/arrivals"):
+    with sw.span("fleet/arrivals", CAT_GEN, t0=t0):
         per_rep = [src.take(t1) for src in sources]
     frames_rc, frame_starts, infos = [], [], []
     n_arr = np.zeros((n_rep, Tc), np.int32)
@@ -1780,13 +2094,13 @@ def _build_hier_window(sources, spec, cfg, scn, t0: int, t1: int, quant, sw, pin
                 ))
                 infos.append(None)
                 continue
-            with sw.span("fleet/hier_aggregate"):
+            with sw.span("fleet/hier_aggregate", CAT_BUILD, frame=t0 + k):
                 rep_cols, info = _aggregate_frame(bucket, frame_start + cfg.frame_ms, quant)
             frames_rc.append(rep_cols)
             infos.append(info)
             n_cls[rep, k] = len(rep_cols)
     Cp = _pad_bucket_fine(int(n_cls.max()))
-    with sw.span("fleet/grid_build"):
+    with sw.span("fleet/grid_build", CAT_BUILD, t0=t0):
         budgets = [(gb[k], eb[k]) for k in range(Tc) for _ in range(n_rep)]
         links = None if links_by_k is None else [
             links_by_k[k] for k in range(Tc) for _ in range(n_rep)
@@ -1802,9 +2116,9 @@ def _build_hier_window(sources, spec, cfg, scn, t0: int, t1: int, quant, sw, pin
         arrays["tq"] = tq
         host = {k: torch.from_numpy(x) for k, x in arrays.items()}
     if pin:
-        with sw.span("fleet/pin"):
+        with sw.span("fleet/pin", CAT_BUILD, t0=t0):
             host = {k: x.pin_memory() for k, x in host.items()}
-    return t0, Tc, host, infos, n_arr, links_by_k
+    return t0, Tc, host, infos, n_arr, links_by_k, (gb, eb)
 
 
 def _cap_cells(take, gamma, eta, cover, backlog_g, backlog_e, acfg: AdmissionConfig):
@@ -1843,6 +2157,7 @@ def _simulate_fleet_hier(
     sw: Stopwatch,
     t_run0: float,
     engine: Optional[ResilienceEngine] = None,
+    metrics: bool = False,
 ) -> FleetResult:
     """Class-aggregate fleet for ``EngineOptions(scheduler="hierarchical")``,
     the reference's ``_simulate_fleet_hier``.
@@ -1875,6 +2190,13 @@ def _simulate_fleet_hier(
     exactly ``feas`` (the reference's own precomputed mask,
     ``feas.any((-1, -2))``): shedding then leaves ``feas`` as it is, and
     the window keeps its single launch.
+
+    With ``metrics`` the card also returns, per frame, the committed loads
+    after the cap, the shed and refused member counts and the post-frame
+    backlogs (one copy per window with the cells), and the host fills
+    numpy rows from them and from the member accounting, op for op as the
+    reference does; the single launch of a congestion-off window returns
+    its loads too.
     """
     ccfg = cfg.congestion
     acfg = cfg.admission
@@ -1891,30 +2213,49 @@ def _simulate_fleet_hier(
     phi_cnt = 0
     bg = torch.zeros((n_rep, M), dtype=torch.float32, device=dev)
     be = torch.zeros_like(bg)
+    m_store = _metrics_store(n_rep, T, M) if metrics else None
+    edges_q = np.asarray(QOS_ACC_EDGES, np.float64)
 
     def build_window(t0: int):
         return _build_hier_window(sources, spec, cfg, scn, t0, min(t0 + W, T), quant, sw, pin,
                                   engine)
 
     def dispatch(host, Tc):
-        """Enqueue one window on the card; returns its device outputs."""
+        """Enqueue one window on the card; returns its device outputs (and,
+        with ``metrics``, the rows' parts ``(w, c_load, bg, be, n_shed,
+        n_refused)`` in the ``(n_rep, Tc, ...)`` layout)."""
         nonlocal bg, be
         inst, us, feas, count = _hier_device_inputs(host, dev)
         if not ccfg.enabled:
-            take, start = hier_cells(
+            out = hier_cells(
                 us, feas, inst.v, inst.u, inst.cover, count, inst.gamma, inst.eta,
-                backend=opts.backend,
+                backend=opts.backend, loads=metrics,
             )
+            take, start = out[:2]
+            capped = take
             if acfg.enabled:
                 zero = torch.zeros_like(inst.gamma)
-                take = _cap_cells(take, inst.gamma, inst.eta, inst.cover, zero, zero, acfg)
-            return take, start, None, None
+                capped = _cap_cells(take, inst.gamma, inst.eta, inst.cover, zero, zero, acfg)
+            if not metrics:
+                return capped, start, None, None, None
+            # the kernel's loads, or the survivors' when the cap ran
+            w, c_load = (class_loads(capped, inst.v, inst.u, inst.cover) if acfg.enabled
+                         else out[2:])
+            # at unit inflation the shed test is exactly feas (see above)
+            n_shed = torch.zeros_like(count[:, 0])
+            if acfg.enabled and acfg.shed:
+                n_shed = torch.where(feas.any((-1, -2)), 0, count).sum(-1)
+            zero = torch.zeros_like(w)
+            parts = [x.reshape((Tc, n_rep) + x.shape[1:]).transpose(0, 1) for x in (
+                w, c_load, zero, zero, n_shed, (take - capped).sum((1, 2, 3)))]
+            return capped, start, None, None, parts
         tq = host["tq"].to(dev, non_blocking=True) if congested_shed else None
-        takes, starts, pcs, pes = [], [], [], []
+        takes, starts, pcs, pes, parts = [], [], [], [], []
         for k in range(Tc):
             sl = slice(k * n_rep, (k + 1) * n_rep)
             g, e = inst.gamma[sl], inst.eta[sl]
             feas_k = feas[sl]
+            keep = None
             if congested_shed:
                 frame = FlatInstance(**{f: getattr(inst, f)[sl] for f in _FIELDS})
                 _, keep = _shed(frame, tq[sl], bg, be, g, e, ccfg)
@@ -1924,10 +2265,13 @@ def _simulate_fleet_hier(
                 effective_capacity(g, bg), effective_capacity(e, be),
                 backend=opts.backend, loads=True,
             )
+            n_refused = None
             if acfg.enabled:
                 capped = _cap_cells(t_k, g, e, inst.cover[sl], bg, be, acfg)
                 if bool((capped != t_k).any()):
                     w, c_load = class_loads(capped, inst.v[sl], inst.u[sl], inst.cover[sl])
+                if metrics:
+                    n_refused = (t_k - capped).sum((1, 2, 3))
                 t_k = capped
             pcs.append(compute_inflation(bg + w, g, ccfg))
             pes.append(comm_inflation(be + c_load, e, ccfg))
@@ -1935,65 +2279,103 @@ def _simulate_fleet_hier(
             be = step_backlog(be, c_load, e, ccfg)
             takes.append(t_k)
             starts.append(s_k)
-        return torch.cat(takes), torch.cat(starts), torch.stack(pcs, 1), torch.stack(pes, 1)
+            if metrics:
+                zero = torch.zeros_like(count[sl, 0])
+                parts.append((
+                    w, c_load, bg, be,
+                    torch.where(keep, 0, count[sl]).sum(-1) if keep is not None else zero,
+                    n_refused if n_refused is not None else zero,
+                ))
+        rows = [torch.stack(x, 1) for x in zip(*parts)] if metrics else None
+        return (torch.cat(takes), torch.cat(starts), torch.stack(pcs, 1), torch.stack(pes, 1),
+                rows)
 
     def fetch(outs):
         """The window's nonzero cells (row-major ``(frame, c, j, l)``) with
-        their take and start, and the inflation factors, on the host."""
-        take, start, pc, pe = outs
+        their take and start, the inflation factors and the metric rows'
+        parts, on the host."""
+        take, start, pc, pe, rows = outs
         nz = torch.nonzero(take)
         idx = nz.unbind(1)
         return (
             nz.cpu().numpy(), take[idx].cpu().numpy(), start[idx].cpu().numpy(),
             None if pc is None else pc.cpu().numpy(),
             None if pe is None else pe.cpu().numpy(),
+            None if rows is None else _to_host(rows),
         )
 
-    def post(Tc, infos, n_arr, links_by_k, fetched):
+    def post(wi, t0, Tc, infos, n_arr, links_by_k, budgets, fetched):
         nonlocal phi_sum, phi_cnt
-        nz, vals, starts, pc, pe = fetched
-        with sw.span("fleet/hier_post"):
+        nz, vals, starts, pc, pe, rows = fetched
+        with sw.span("fleet/hier_post", CAT_METRICS, window=wi):
             if ccfg.enabled:  # pc: (n_rep, Tc, M), the reference's layout
                 phi_sum += float(pc.sum())
                 phi_cnt += pc.size
             reqs_per_rep[:] += n_arr.sum(1)
+            if metrics:
+                w_a, c_a, bg_a, be_a, shed_a, ref_a = rows
+                gb, eb = budgets
+                tf = slice(t0, t0 + Tc)
+                m_store["n_arrivals"][:, tf] = n_arr
+                m_store["n_shed"][:, tf] = shed_a
+                m_store["n_refused"][:, tf] = ref_a
+                with np.errstate(invalid="ignore"):
+                    m_store["util_gamma"][:, tf] = np.where(
+                        gb > 0.0, w_a / np.maximum(gb, 1e-9), 0.0)
+                    m_store["util_eta"][:, tf] = np.where(
+                        eb > 0.0, c_a / np.maximum(eb, 1e-9), 0.0)
+                m_store["backlog_gamma"][:, tf] = bg_a
+                m_store["backlog_eta"][:, tf] = be_a
             bounds = np.searchsorted(nz[:, 0], np.arange(Tc * n_rep + 1))
             for rep in range(n_rep):
                 for k in range(Tc):
                     i = k * n_rep + rep
                     lo, hi = bounds[i], bounds[i + 1]
-                    if infos[i] is None or lo == hi:
+                    if infos[i] is None:
                         continue
-                    tot, n_sat, us_sum = _member_accounting(
+                    if metrics:
+                        q_all = (infos[i]["A"][:, None] >= edges_q).sum(-1)
+                        np.add.at(m_store["qos_count"][rep, t0 + k], q_all, 1)
+                    if lo == hi:
+                        continue
+                    acct = _member_accounting(
                         spec, cfg, infos[i], nz[lo:hi, 1], nz[lo:hi, 2], nz[lo:hi, 3],
                         vals[lo:hi], starts[lo:hi],
                         None if pc is None else pc[rep, k], None if pe is None else pe[rep, k],
-                        None if links_by_k is None else links_by_k[k],
+                        None if links_by_k is None else links_by_k[k], rows=metrics,
                     )
+                    tot, n_sat, us_sum = acct[:3]
                     served_per_rep[rep] += tot
                     sat_per_rep[rep] += n_sat
                     us_sum_per_rep[rep] += us_sum
+                    if metrics:
+                        m_store["n_served"][rep, t0 + k] = tot
+                        m_store["n_satisfied"][rep, t0 + k] = n_sat
+                        m_store["tier_hist"][rep, t0 + k] = acct[3]
+                        m_store["qos_sat"][rep, t0 + k] = acct[4]
+                        m_store["us_sum"][rep, t0 + k] = us_sum
 
     window_starts = list(range(0, T, W))
     pipe = _WindowPipeline(build_window, window_starts, opts.prefetch, "fleet-hier-producer")
     pending = None
     try:
-        for wi_t0 in window_starts:
-            with sw.span("fleet/window_wait"):
-                t0, Tc, host, infos, n_arr, links_by_k = pipe.next(wi_t0)
-            with sw.span("fleet/dispatch"):
+        for wi, wi_t0 in enumerate(window_starts):
+            with sw.span("fleet/window_wait", CAT_GEN, window=wi):
+                t0, Tc, host, infos, n_arr, links_by_k, budgets = pipe.next(wi_t0)
+            with sw.span("fleet/dispatch", CAT_DISPATCH, window=wi), \
+                    step_annotation("fleet/hier_window", wi):
                 # the previous window's results first (this waits for the
                 # card), then the next window's work, so the card computes
                 # while the host accounts the previous window
-                fetched = fetch(pending[4]) if pending is not None else None
+                fetched = fetch(pending[-1]) if pending is not None else None
                 outs = dispatch(host, Tc)
             if pending is not None:
-                post(*pending[:4], fetched)
-            pending = (Tc, infos, n_arr, links_by_k, outs)
+                post(*pending[:-1], fetched)
+            pending = (wi, t0, Tc, infos, n_arr, links_by_k, budgets, outs)
         if pending is not None:
-            with sw.span("fleet/dispatch"):
-                fetched = fetch(pending[4])
-            post(*pending[:4], fetched)
+            with sw.span("fleet/dispatch", CAT_DISPATCH, window=pending[0]):
+                fetched = fetch(pending[-1])
+            post(*pending[:-1], fetched)
     finally:
         pipe.close()
 
@@ -2016,6 +2398,7 @@ def _simulate_fleet_hier(
         prefetch=opts.prefetch if pipe.thread is not None else 0,
         timings=timings,
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        metrics=_fleet_metrics(m_store, cfg, spec) if metrics else None,
     )
 
 

@@ -33,6 +33,8 @@ from typing import List, Optional, Union
 
 import numpy as np
 
+from repro_torch.obs.trace import CAT_GEN, span
+
 from .scenarios import (
     Request,
     RequestColumns,
@@ -208,8 +210,9 @@ def stream_trace(
 ) -> List[Request]:
     """Drain a fresh :class:`ArrivalStream` in one shot (the materialized
     view of the streaming process)."""
-    stream = ArrivalStream(scenario, seed, n_edge, n_services, cfg, rng_mode=rng_mode)
-    return stream.take_until(math.inf)
+    with span("stream/drain_trace", CAT_GEN, seed=seed):
+        stream = ArrivalStream(scenario, seed, n_edge, n_services, cfg, rng_mode=rng_mode)
+        return stream.take_until(math.inf)
 
 
 def stream_trace_columns(
@@ -225,13 +228,14 @@ def stream_trace_columns(
     same spawned per-edge generators drain the same chunk iterators, and the
     stable sort reproduces the heap's tie order (per-edge emission order).
     """
-    scn = get_scenario(scenario)
-    root = np.random.SeedSequence(seed)
-    parts: List[RequestColumns] = []
-    for e, ss in enumerate(root.spawn(n_edge)):
-        rng = np.random.default_rng(ss)
-        parts.extend(edge_arrival_columns(scn, rng, e, n_services, cfg, cfg.horizon_ms))
-    return RequestColumns.concatenate(parts).sorted_by_arrival()
+    with span("stream/trace_columns", CAT_GEN, seed=seed):
+        scn = get_scenario(scenario)
+        root = np.random.SeedSequence(seed)
+        parts: List[RequestColumns] = []
+        for e, ss in enumerate(root.spawn(n_edge)):
+            rng = np.random.default_rng(ss)
+            parts.extend(edge_arrival_columns(scn, rng, e, n_services, cfg, cfg.horizon_ms))
+        return RequestColumns.concatenate(parts).sorted_by_arrival()
 
 
 def max_frame_arrivals(
@@ -252,21 +256,22 @@ def max_frame_arrivals(
     the materialized path's.  In ``"vectorized"`` mode each edge's chunk
     iterator is histogrammed into per-frame counts directly.
     """
-    scn = get_scenario(scenario)
-    mode = _resolve_rng_mode(scn.rng_mode if rng_mode is None else rng_mode)
-    if mode == "vectorized":
-        counts = np.zeros(n_frames, np.int64)
-        root = np.random.SeedSequence(seed)
-        for e, ss in enumerate(root.spawn(n_edge)):
-            rng = np.random.default_rng(ss)
-            for ts, *_ in iter_edge_arrival_chunks(
-                scn, rng, e, n_services, cfg, cfg.horizon_ms
-            ):
-                idx = np.minimum((ts // cfg.frame_ms).astype(np.int64), n_frames - 1)
-                np.add.at(counts, idx, 1)
-        return int(counts.max()) if n_frames else 0
-    stream = ArrivalStream(scenario, seed, n_edge, n_services, cfg, rng_mode=mode)
-    mx = 0
-    for tf in range(n_frames):
-        mx = max(mx, len(stream.take_until((tf + 1) * cfg.frame_ms)))
-    return mx
+    with span("stream/count_prepass", CAT_GEN, seed=seed):
+        scn = get_scenario(scenario)
+        mode = _resolve_rng_mode(scn.rng_mode if rng_mode is None else rng_mode)
+        if mode == "vectorized":
+            counts = np.zeros(n_frames, np.int64)
+            root = np.random.SeedSequence(seed)
+            for e, ss in enumerate(root.spawn(n_edge)):
+                rng = np.random.default_rng(ss)
+                for ts, *_ in iter_edge_arrival_chunks(
+                    scn, rng, e, n_services, cfg, cfg.horizon_ms
+                ):
+                    idx = np.minimum((ts // cfg.frame_ms).astype(np.int64), n_frames - 1)
+                    np.add.at(counts, idx, 1)
+            return int(counts.max()) if n_frames else 0
+        stream = ArrivalStream(scenario, seed, n_edge, n_services, cfg, rng_mode=mode)
+        mx = 0
+        for tf in range(n_frames):
+            mx = max(mx, len(stream.take_until((tf + 1) * cfg.frame_ms)))
+        return mx

@@ -12,6 +12,10 @@ process each, all started together (:func:`build_libraries`).
 
 Nothing here runs when the module is imported: the CPU tests import every
 module of the port, and this machine need not have ``nvcc``.
+
+A build and a library's first load each drop an instant event
+``compile/<name>`` (category ``compile``) on an active trace recorder, so a
+rebuild in a sweep shows in the trace.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from repro_torch.obs.trace import CAT_COMPILE, instant
 
 __all__ = ["NVCC_FLAGS", "ATTN_NVCC_FLAGS", "BuildInfo", "build_libraries", "load_library"]
 
@@ -149,6 +155,7 @@ def build_libraries(names: Iterable[str]) -> Dict[str, BuildInfo]:
         os.replace(tmp, target)
         log_path.write_text(log)
         out[name] = BuildInfo(name, target, seconds, log)
+        instant(f"compile/{name}", CAT_COMPILE, built=True, nvcc_s=seconds)
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return out
@@ -162,4 +169,5 @@ def load_library(name: str) -> ctypes.CDLL:
             info = build_libraries([name])[name]
             lib = ctypes.CDLL(str(info.path))
             _LOADED[name] = lib
+            instant(f"compile/{name}", CAT_COMPILE, loaded=True)
         return lib

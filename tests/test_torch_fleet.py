@@ -160,23 +160,15 @@ def test_demo_cluster_spec_matches_reference():
             np.testing.assert_array_equal(getattr(got, f), getattr(ref, f), err_msg=f)
 
 
-@pytest.mark.parametrize("case,item", [
-    ("devices", "item 9"), ("metrics", "item 5"), ("hier-metrics", "item 5"),
-    ("hier-devices", "item 9"),
-])
+@pytest.mark.parametrize("case,item", [("devices", "item 9"), ("hier-devices", "item 9")])
 def test_unported_options_raise(case, item):
     """What this slice does not run raises NotImplementedError naming its
     ROADMAP item, instead of running something else — on the dense and on
     the hierarchical layout."""
     spec = P.demo_cluster_spec()
     cfg = P.SimConfig(**BASE)
-    hier = case.startswith("hier-")
-    what = case.removeprefix("hier-")
-    opts = dict(scheduler="hierarchical") if hier else {}
-    if what == "devices":
-        opts["devices"] = 2
-    else:
-        opts["metrics"] = True
+    opts = dict(scheduler="hierarchical") if case.startswith("hier-") else {}
+    opts["devices"] = 2
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
         P.simulate_fleet(spec, cfg, n_rep=2, options=P.EngineOptions(**opts), device="cpu")
 
