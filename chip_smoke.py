@@ -37,8 +37,9 @@ any phase fails:
    variants; 9 s horizon): at ~10^3 users per frame and 4 replications,
    congestion off and on with a half drain, it must equal the same call on
    the CPU; then the scenario's own defaults (streamed arrivals, 2400 req/s
-   per edge, ~1.4e5 users per frame), 8 replications, ``window=1``,
-   ``prefetch=2`` — the hierarchical main path, whose launches are counted;
+   per edge, ~1.4e5 users per frame), ``N_REP_CITY`` replications,
+   ``window=1``, ``prefetch=2`` — the hierarchical main path, whose
+   launches are counted (the allocator's compared window: 8 x 1 frame);
 5. runs every scheduling policy on the GUS kernel: each GUS-cored policy
    (``gus-ordered`` with and without priority weights, ``random`` with
    threefry keys, ``offload_all``, ``local_all``, ``gus-adaptive`` with a
@@ -146,7 +147,26 @@ any phase fails:
    kernel and the ``fleet/window`` step annotation; and the scenario
    runner (``python -m repro_torch.launch.run_scenario``) with ``--fleet
    64 --metrics --trace`` on the card, whose JSONL rows sum to its results;
-14. prints one JSON line listing every ported kernel, then the contract line
+14. trains and serves the zoo (``training_smoke``): ``launch.train`` on
+   mamba2-130m at full width and depth in bf16 (8 steps of 8 x 128; every
+   loss finite, the last below the first, no ``ssd_scan`` launch: the train
+   step asks for the plain route), with each step's loss, gradient norm,
+   learning rate and seconds and the peak memory; one train step on the
+   card against the same step on the CPU (tests/test_training.py's dense
+   config and the reduced mamba2-130m), and the reduced yi-9b's against
+   the same step computed wide (its float32 gradient is ill-conditioned);
+   the kernels' refusal of inputs that require a gradient and their launch
+   under ``no_grad``; both attention kernels against their plain versions
+   at every launch shape of the zoo (f32, hd 32, 64 and 64, and the
+   widths' 24 and 40: eval, prefill and each decode step);
+   ``launch.serve_edge --steps 200`` (each variant's
+   accuracy, latency and flash / decode launches, each policy's
+   satisfied-% on the testbed-scaled cluster and on the one of the
+   measured times unscaled, the example's claims) and
+   ``simulate(policy="gus")`` on the
+   card (``gus_assign`` launches counted) equal in every field to the raw
+   ``gus_schedule_np`` run;
+15. prints one JSON line listing every ported kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device,
@@ -199,6 +219,25 @@ SSM_HYBRID_ARCH, SSM_ARCH, SSM_PROMPT = "zamba2-1.2b", "mamba2-130m", 2048
 #: f32 prefill + decode vs forward at full width: a ragged prompt (200 =
 #: 128 + 72) and 8 decode steps, held to tests/test_arch_smoke.py's 5e-3
 SSM_ACC_PROMPT, SSM_ACC_STEPS, SSM_DECODE_ATOL = 200, 8, 5e-3
+#: the training main path: launch.train at the reference's batch and seq,
+#: full width and depth; the serve -> schedule loop's training steps
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "mamba2-130m", 8, 8, 128
+SERVE_EDGE_STEPS = 200
+#: a train step on the card vs on the CPU (tests/test_torch_training.py):
+#: the loss at rtol 1e-5, the moments at rtol 1e-4 / atol 1e-6, the
+#: parameters likewise on all but 0.1% of their elements, each within 2 lr
+TRAIN_LOSS_RTOL, TRAIN_STATE_TOL, TRAIN_OFF_SHARE = 1e-5, dict(rtol=1e-4, atol=1e-6), 1e-3
+#: the dense configs of that comparison: tests/test_training.py's CFG, and
+#: the reduced yi-9b, whose random init (the fan-in rule of ROADMAP.md §3)
+#: gives attention logits so sharp that the CPU's own float32 step lies
+#: 5.5e-4 from the same step computed wide (float64) in its gradient norm
+#: (tests/test_torch_training.py::test_float32_step_against_a_wide_step):
+#: there the card's step is held to the wide step at the limits the CPU's
+#: float32 step meets, the gradient norm at rtol 1e-3 and the moments and
+#: parameters at TRAIN_STATE_TOL on all but 0.5% of their elements
+TRAIN_DENSE = dict(family="dense", num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                   d_ff=128, vocab_size=256, scan_layers=False)
+WIDE_ARCH, WIDE_GNORM_RTOL, WIDE_OFF_SHARE = "yi-9b", 1e-3, 5e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -1403,6 +1442,12 @@ COMPOSITE_SCN = dict(burst_mult=3.0, burst_start_frac=0.2, burst_end_frac=0.4,
 #: script within its time budget beside the telemetry phase (PERF.md, PRs
 #: 19-20: 8, then 4)
 N_REP_CITY_RES = 2
+#: replications of the hierarchical main path: 4, to keep the script within
+#: its time budget beside the training phase (8 before); the class
+#: allocator's compared and timed window keeps its 8 replications of one
+#: frame, which must hold fewer requests than the main path (checked: its
+#: first frame is the heaviest, so 3 replications of 3 frames are too few)
+N_REP_CITY = 4
 
 
 def resilience_regimes():
@@ -1889,6 +1934,232 @@ def telemetry_smoke(dev, zero_counts, fleet_spec, fleet_cfg, n_rep_scale, window
     return gus_paths, hier_paths
 
 
+def zoo_attention_compare(dev, errs):
+    """Both attention kernels against their plain versions at the serve ->
+    schedule loop's launches: each zoo variant (f32; H 4, KV 2) in the
+    accuracy's forward (flash over the eval batch), the prefill (flash over
+    the prompt) and every decode step (the ring cache of prompt + generated
+    positions under the model's own masks).  The loop runs at head dims
+    32, 64 and 64: ``dataclasses.replace`` keeps the base config's head
+    dim, in the reference's example as in the port.  The head dims that
+    the variants' widths give (24 and 40) are compared at the same shapes
+    too.  ``errs[name]`` keeps the largest error seen."""
+    from repro_torch.configs.paper_zoo import GOOGLE_LM, MID_LM, SQUEEZE_LM
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.launch import serve_edge
+    from repro_torch.models.layers import ring_valid
+
+    for seed, base in enumerate((SQUEEZE_LM, MID_LM, GOOGLE_LM)):
+        path = serve_edge.variant_config(base)
+        for hd in sorted({path.head_dim, path.d_model // path.num_heads}):
+            cfg = dataclasses.replace(path, head_dim=hd)
+            where = f"serve_edge {cfg.arch_id}" + ("" if hd == path.head_dim else
+                                                    " (its width's head dim)")
+            ev = AttentionLaunch(dev, cfg, serve_edge.EVAL_BATCH, serve_edge.EVAL_SEQ, 0,
+                                 10 * seed + hd)
+            compare_attn(errs, "flash_attention", f"{where} eval {ev.label('flash_attention')}",
+                         flash_attention(ev.fq, ev.fk, ev.fv, backend="cuda"),
+                         flash_attention_ref(ev.fq, ev.fk, ev.fv), cfg.dtype)
+            gen = AttentionLaunch(dev, cfg, 1, serve_edge.GEN_PROMPT, serve_edge.GEN_TOKENS,
+                                  10 * seed + hd + 5)
+            compare_attn(errs, "flash_attention",
+                         f"{where} prefill {gen.label('flash_attention')}",
+                         flash_attention(gen.fq, gen.fk, gen.fv, backend="cuda"),
+                         flash_attention_ref(gen.fq, gen.fk, gen.fv), cfg.dtype)
+            k, v = gen.cache()
+            for index in range(serve_edge.GEN_PROMPT, gen.T - 1):  # the decode steps
+                valid = ring_valid(index, gen.T, None, dev).expand(1, gen.T)
+                compare_attn(errs, "decode_attention",
+                             f"{where} decode {gen.label('decode_attention')} "
+                             f"valid={int(valid.sum())}",
+                             decode_attention(gen.dq, k, v, valid, backend="cuda"),
+                             decode_attention_ref(gen.dq, k, v, valid), cfg.dtype)
+
+
+def training_smoke(dev, zero_counts, smi):
+    """Phase 14: the training slice and the serve -> schedule loop on the
+    card.  Returns the launches of each kernel on this phase's paths."""
+    import torch
+
+    import repro_torch.training as T
+    from repro_torch.configs import ModelConfig, get_config, reduce_for_smoke
+    from repro_torch.core import simulate
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gus import gus_assign
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve_edge
+    from repro_torch.launch.train import train
+    from repro_torch.models import Model, params_to
+    from repro_torch.training.optimizer import tree_leaves, tree_unflatten
+
+    t_phase = time.perf_counter()
+
+    # (a) launch.train at full width and depth, the plain route asked for
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    state, losses = train(TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                          seq=TRAIN_SEQ, log_every=1, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    print(
+        f"train {TRAIN_ARCH} full width ({n_params} parameters, "
+        f"{get_config(TRAIN_ARCH).param_dtype}) batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps: {wall:.3f} s, {wall / TRAIN_STEPS:.4f} s a step (the first "
+        f"included), peak memory {peak / 1e9:.3f} GB above {base / 1e9:.3f} GB held "
+        f"({smi}); losses {losses}"
+    )
+    train_launches = {"flash_attention": flash_attention.launches,
+                      "decode_attention": decode_attention.launches,
+                      "ssd_scan": ssd_scan.launches}
+    check(all(math.isfinite(x) for x in losses), "a training loss is not finite")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    check(not any(train_launches.values()),
+          f"the train step launched a kernel: {train_launches}")
+    del state
+
+    # (b) one train step on the card == the same step on the CPU, and, for
+    # the ill-conditioned reduced yi-9b, == the same step computed wide
+    def off_share(got, want):
+        off = n = 0
+        worst = 0.0
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            d = (a.cpu().double() - b.double()).abs()
+            off += int((d > TRAIN_STATE_TOL["atol"] + TRAIN_STATE_TOL["rtol"] * b.double().abs())
+                       .sum())
+            n += d.numel()
+            worst = max(worst, float(d.max()))
+        return off / n, worst
+
+    opt = T.AdamWConfig(lr=3e-3, total_steps=30, warmup_steps=3)
+    for arch, cfg in (("dense (tests/test_training.py)", ModelConfig(**TRAIN_DENSE)),
+                      (WIDE_ARCH, reduce_for_smoke(get_config(WIDE_ARCH))),
+                      (TRAIN_ARCH, reduce_for_smoke(get_config(TRAIN_ARCH)))):
+        model = Model(cfg)
+        cpu_state = T.init_state(model, 1, device="cpu")
+        params = params_to(cpu_state.params, dev)
+        cuda_state = T.TrainState(params, T.adamw_init(params))
+        cpu_batch = next(T.batch_iterator(cfg, 2, 64, seed=3, device="cpu"))
+        step = T.make_train_step(model, opt)
+        got, gm = step(cuda_state, {k: v.to(dev) for k, v in cpu_batch.items()})
+        want, wm = step(cpu_state, cpu_batch)
+        loss_ok = math.isclose(float(gm["loss"]), float(wm["loss"]), rel_tol=TRAIN_LOSS_RTOL,
+                               abs_tol=0.0)
+        limit = TRAIN_OFF_SHARE
+        if arch == WIDE_ARCH:
+            wide = tree_unflatten(cpu_state.params,
+                                  [p.double() for p in tree_leaves(cpu_state.params)])
+            wcfg = dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
+            want, wm = T.make_train_step(Model(wcfg), opt)(T.TrainState(wide, T.adamw_init(wide)),
+                                                           cpu_batch)
+            limit = WIDE_OFF_SHARE
+        gnorm_gap = abs(float(gm["grad_norm"]) - float(wm["grad_norm"])) / float(wm["grad_norm"])
+        m_share, _ = off_share(got.opt.m, want.opt.m)
+        v_share, _ = off_share(got.opt.v, want.opt.v)
+        p_share, worst = off_share(got.params, want.params)
+        against = "the wide step" if arch == WIDE_ARCH else "the CPU"
+        print(f"train step card vs {against} {arch} (reduced, f32): loss {float(gm['loss'])} vs "
+              f"{float(wm['loss'])}, grad_norm {float(gm['grad_norm'])} vs "
+              f"{float(wm['grad_norm'])} ({gnorm_gap:.3g} relative), share off "
+              f"{TRAIN_STATE_TOL}: m {m_share}, v {v_share}, parameters {p_share}; largest "
+              f"parameter difference {worst}")
+        if arch == WIDE_ARCH:
+            ok = gnorm_gap <= WIDE_GNORM_RTOL and max(m_share, v_share, p_share) <= limit
+        else:  # the moments everywhere, the parameters on all but TRAIN_OFF_SHARE
+            ok = m_share == v_share == 0 and p_share <= limit
+        check(loss_ok and ok and worst <= 2 * opt.lr,
+              f"the train step on the card != on the CPU ({arch})")
+
+    # (c) the kernels refuse inputs that require a gradient; no_grad launches
+    q = randn(dev, (2, 4, 128, 64), "bfloat16", 1).requires_grad_(True)
+    k = randn(dev, (2, 2, 128, 64), "bfloat16", 2).requires_grad_(True)
+    x = randn(dev, (2, 4, 128, 64), "bfloat16", 3).requires_grad_(True)
+    dt = torch.nn.functional.softplus(randn(dev, (2, 4, 128), "float32", 4)).to(torch.bfloat16)
+    A = -torch.rand(4, device=dev)
+    Bm, Cm = randn(dev, (2, 1, 128, 64), "bfloat16", 5), randn(dev, (2, 1, 128, 64), "bfloat16", 6)
+    calls = {
+        "flash_attention": (flash_attention, lambda: flash_attention(q, k, k, backend="cuda")),
+        "ssd_scan": (ssd_scan, lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=128, backend="cuda")),
+    }
+    for name, (kernel, call) in calls.items():
+        n0 = kernel.launches
+        refused = False
+        try:
+            call()
+        except RuntimeError as exc:
+            refused = "no backward" in str(exc)
+        with torch.no_grad():
+            call()
+        sync(dev)
+        print(f"guard {name}: inputs that require grad refused: {refused}; under no_grad "
+              f"{kernel.launches - n0} launch")
+        check(refused and kernel.launches - n0 == 1, f"{name}'s no-backward guard failed")
+
+    # both attention kernels at the loop's launch shapes, before it runs
+    zoo_err = {"flash_attention": 0.0, "decode_attention": 0.0}
+    zoo_attention_compare(dev, zoo_err)
+
+    # (d) the serve -> schedule loop, counted
+    zero_counts()
+    t0 = time.perf_counter()
+    res = serve_edge.main(SERVE_EDGE_STEPS, device=dev)
+    sync(dev)
+    loop_wall = time.perf_counter() - t0
+    loop = {"flash_attention": flash_attention.launches,
+            "decode_attention": decode_attention.launches,
+            "gus_assign": gus_assign.launches, "ssd_scan": ssd_scan.launches}
+    for v in res["variants"]:
+        print(f"serve_edge {v['arch']}: loss {v['loss0']:.4f} -> {v['loss1']:.4f} in "
+              f"{v['train_s']:.3f} s, accuracy {v['acc']:.2f}%, generate total "
+              f"{v['total_ms']:.4f} ms (prefill {v['prefill_ms']:.4f} ms, decode "
+              f"{v['decode_ms_per_token']:.4f} ms a token; {smi}), flash launches "
+              f"{v['flash_launches']}, decode launches {v['decode_launches']} (eval + "
+              "timed generate)")
+        check(v["flash_launches"] > 0 and v["decode_launches"] > 0,
+              f"serve_edge {v['arch']} launched no attention kernel")
+    for name, r in res["results"].items():
+        print(f"serve_edge {name}: " + json.dumps({k: float(v) for k, v in r.as_dict().items()}))
+        unscaled = res["results_measured"][name].as_dict()
+        print(f"serve_edge {name} on the cluster of the measured times unscaled: "
+              + json.dumps({k: float(v) for k, v in unscaled.items()}))
+    print(f"serve_edge loop {loop_wall:.3f} s, launches {loop}")
+    check(loop["ssd_scan"] == 0 and loop["gus_assign"] > 0,
+          "the serve -> schedule loop launched the SSD scan, or no GUS kernel")
+
+    # the registered gus policy on the card == the raw NumPy oracle
+    zero_counts()
+    spec, simcfg = res["spec"], res["simcfg"]
+    r_gus = simulate(spec, simcfg, policy="gus", seed=1, device=dev)
+    raw = res["results"]["GUS"]
+    same = (r_gus.as_dict() == raw.as_dict()
+            and r_gus.bandwidth_estimates == raw.bandwidth_estimates
+            and all(getattr(r_gus, f) == getattr(raw, f) for f in (
+                "n_requests", "n_served", "n_satisfied", "n_local", "n_cloud",
+                "n_edge_offload", "n_dropped")))
+    gus_sim = gus_assign.launches
+    print(f"serve_edge simulate(policy='gus') on the card: {gus_sim} gus_assign launches, "
+          f"every SimResult field equal to gus_schedule_np's: {same}")
+    check(same and gus_sim > 0, "the gus policy on the card != the raw gus_schedule_np run")
+    print(f"training phase {time.perf_counter() - t_phase:.1f} s")
+    return zoo_err, {
+        "flash_attention": {"phase 14 serve_edge (3 variants: eval, warm-up and timed "
+                            "generate)": loop["flash_attention"],
+                            f"phase 14 train {TRAIN_ARCH}": train_launches["flash_attention"]},
+        "decode_attention": {"phase 14 serve_edge (3 variants: warm-up and timed generate)":
+                             loop["decode_attention"]},
+        "gus_assign": {"phase 14 serve_edge local/offload (B=1)": loop["gus_assign"],
+                       "phase 14 simulate gus on the serve_edge cluster (B=1)": gus_sim},
+        "ssd_scan": {f"phase 14 train {TRAIN_ARCH} ({TRAIN_STEPS} steps)":
+                     train_launches["ssd_scan"]},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2296,7 +2567,7 @@ def main() -> int:
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fh = city_fleet(n_rep_city, "cuda")
+    fh = city_fleet(N_REP_CITY, "cuda")
     hier_wall = time.perf_counter() - t0
     hier_launches = hier_cells.launches
     check(gus_assign.launches == flash_attention.launches == decode_attention.launches
@@ -2313,9 +2584,9 @@ def main() -> int:
     print("hier main path timings " + json.dumps({k: round(v, 4) for k, v in fh.timings.items()}))
     check(hier_launches == fh.n_frames, "the hier main path must launch once per window")
     check(
-        fh.satisfied_per_rep.shape == (n_rep_city,)
+        fh.satisfied_per_rep.shape == (N_REP_CITY,)
         and np.isfinite(fh.satisfied_per_rep).all() and np.isfinite(fh.mean_us_per_rep).all()
-        and 0 < fh.n_served <= fh.n_requests and fh.n_requests > 1e5 * n_rep_city * fh.n_frames,
+        and 0 < fh.n_served <= fh.n_requests and fh.n_requests > 1e5 * N_REP_CITY * fh.n_frames,
         "hier main path results malformed",
     )
     check(int(n_arr.sum()) < fh.n_requests, "the compared window is not the main path's")
@@ -2450,6 +2721,16 @@ def main() -> int:
         dev, zero_counts, spec, cfg, n_rep_scale, window, (fr, wall, launches), city, city_cfg,
         small_city, smi)
 
+    # -- 14. training and the serve -> schedule loop -------------------------
+    zoo_err, trained = training_smoke(dev, zero_counts, smi)
+    for name in ("flash_attention", "decode_attention"):
+        attn[name]["launches_by_path"] = {
+            f"{SERVE_ARCH} generate": attn[name]["launches"], **trained[name]}
+        attn[name]["max_abs_err_serve_edge"] = zoo_err[name]
+        attn[name]["max_abs_err"] = max(attn[name]["max_abs_err"], zoo_err[name])
+    ssd["launches_by_path"] = {f"{SSM_HYBRID_ARCH} generate": ssd["launches"],
+                               **trained["ssd_scan"]}
+
     kernels = {"kernels": [{
         "name": "gus_assign",
         "route": "cuda",
@@ -2466,7 +2747,7 @@ def main() -> int:
         "chain_floor_ms": gus_floor_ms,
         "single_frame_ms": first_dev_ms,
         "launches_by_path": {f"dense fleet gus ({n_rep_scale} reps)": launches, **pol_launches,
-                             **res_gus, **tel_gus},
+                             **res_gus, **tel_gus, **trained["gus_assign"]},
         **pol_times,
     }, {
         "name": "hier_cells",
@@ -2481,7 +2762,7 @@ def main() -> int:
         "bound_by": hb_by,
         "library_ms": None,
         "chain_floor_ms": floor_ms,
-        "launches_by_path": {f"hier mega-city ({n_rep_city} reps, full width)": hier_launches,
+        "launches_by_path": {f"hier mega-city ({N_REP_CITY} reps, full width)": hier_launches,
                              **res_hier, **tel_hier},
     }, {
         "name": "flash_attention",

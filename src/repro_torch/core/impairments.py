@@ -377,15 +377,17 @@ class ResilienceEngine:
 # ---------------------------------------------------------------------------
 
 
-def predicted_inflation(backlog_gamma, backlog_eta, gamma, eta, ccfg: CongestionConfig):
+def predicted_inflation(backlog_gamma, backlog_eta, gamma, eta, ccfg: CongestionConfig,
+                        *, eager: bool = False):
     """Pre-frame inflation estimate ``phi(backlog)`` against the full frame
     budgets, a lower bound on the realized ``phi(backlog + committed)``;
-    all ones when congestion is off."""
+    all ones when congestion is off.  ``eager`` as for
+    :func:`~repro_torch.core.queueing.compute_inflation`."""
     if not ccfg.enabled:
         return torch.ones_like(gamma), torch.ones_like(eta)
     return (
-        compute_inflation(backlog_gamma, gamma, ccfg),
-        comm_inflation(backlog_eta, eta, ccfg),
+        compute_inflation(backlog_gamma, gamma, ccfg, eager=eager),
+        comm_inflation(backlog_eta, eta, ccfg, eager=eager),
     )
 
 

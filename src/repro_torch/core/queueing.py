@@ -13,13 +13,21 @@ inflation model; the reference's module docstring gives the model):
 Every function is elementwise over tensors with optional leading batch
 axes, written one rounded operation per PyTorch call in the reference's
 order, so the results are bit-equal to the reference on the CPU and the
-same on the card.  Two choices keep that true: the default ``power=2.0``
-is a square in both frameworks, and :func:`committed_loads` sums in
-request order (see its docstring).
+same on the card.  Two choices keep that true: ``over ** power`` follows
+the reference's two compilations of it, and :func:`committed_loads` sums
+in request order (see its docstring).  The reference jits its fleets,
+where XLA folds ``pow(x, 2.0)`` into a square, and runs its sequential
+testbed and its host-policy loop op by op, where XLA's ``pow`` gives what
+the C library's ``powf`` gives, which is not always the rounded square.
+So the inflations take ``eager=True`` on those host paths
+(:func:`libm_pow`) and square everywhere else.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -38,6 +46,7 @@ __all__ = [
     "fleet_policy_carry",
     "compute_inflation",
     "comm_inflation",
+    "libm_pow",
     "step_backlog",
     "committed_loads",
     "ema_update",
@@ -147,23 +156,43 @@ def fleet_policy_carry(
     )
 
 
-def _inflation(load, budget, slope, cfg: CongestionConfig):
+@functools.cache
+def _powf():
+    f = ctypes.CDLL(ctypes.util.find_library("m")).powf
+    f.argtypes = (ctypes.c_float, ctypes.c_float)
+    f.restype = ctypes.c_float
+    return f
+
+
+def libm_pow(x: torch.Tensor, power: float) -> torch.Tensor:
+    """``x ** power`` by the C library's ``powf``, one element at a time,
+    for a CPU float32 tensor: what the reference's eager (not jitted)
+    ``pow`` computes.  The host paths call it on M values a decision."""
+    powf = _powf()
+    vals = [powf(v, power) for v in x.reshape(-1).tolist()]
+    return torch.tensor(vals, dtype=torch.float32).reshape(x.shape)
+
+
+def _inflation(load, budget, slope, cfg: CongestionConfig, eager: bool):
     """``phi``: 1 at or below budget, then ``1 + slope * (rho - 1) ** power``
-    capped at ``max_inflation``."""
+    capped at ``max_inflation``; ``eager`` takes the power by
+    :func:`libm_pow`."""
     rho = load / budget.clamp_min(_EPS)
     over = (rho - 1.0).clamp_min(0.0)
-    phi = 1.0 + slope * over ** cfg.power
+    phi = 1.0 + slope * (libm_pow(over, cfg.power) if eager else over ** cfg.power)
     return phi.clamp_max(cfg.max_inflation)
 
 
-def compute_inflation(load, budget, cfg: CongestionConfig):
-    """(M,) processing-time inflation from committed+carried compute load."""
-    return _inflation(load, budget, cfg.compute_slope, cfg)
+def compute_inflation(load, budget, cfg: CongestionConfig, *, eager: bool = False):
+    """(M,) processing-time inflation from committed+carried compute load
+    (``eager=True``: the reference's op-by-op ``pow``, CPU tensors only)."""
+    return _inflation(load, budget, cfg.compute_slope, cfg, eager)
 
 
-def comm_inflation(load, budget, cfg: CongestionConfig):
-    """(M,) transfer-time inflation from committed+carried comm load."""
-    return _inflation(load, budget, cfg.comm_slope, cfg)
+def comm_inflation(load, budget, cfg: CongestionConfig, *, eager: bool = False):
+    """(M,) transfer-time inflation from committed+carried comm load
+    (``eager`` as for :func:`compute_inflation`)."""
+    return _inflation(load, budget, cfg.comm_slope, cfg, eager)
 
 
 def step_backlog(backlog, committed, budget, cfg: CongestionConfig):

@@ -578,10 +578,11 @@ def _build_frame_instance(
 
 def _inflation_host(fn, load: np.ndarray, budget: np.ndarray, ccfg: CongestionConfig):
     """A float32 inflation formula on host float64 loads and budgets, cast
-    to float32 where the reference's x32 arrays cast them."""
+    to float32 where the reference's x32 arrays cast them, with the power
+    its eager ``pow`` takes."""
     return fn(
         torch.from_numpy(np.asarray(load, np.float32)),
-        torch.from_numpy(np.asarray(budget, np.float32)), ccfg,
+        torch.from_numpy(np.asarray(budget, np.float32)), ccfg, eager=True,
     ).numpy()
 
 
@@ -698,12 +699,14 @@ def _build_window(sources, spec, cfg, scn, t0: int, t1: int, n_pad: int, sw, pin
     return host, n_real
 
 
-def _shed(run: FlatInstance, tq, backlog_g, backlog_e, gamma, eta, ccfg: CongestionConfig):
+def _shed(run: FlatInstance, tq, backlog_g, backlog_e, gamma, eta, ccfg: CongestionConfig,
+          eager: bool = False):
     """Deadline shedding: ``(run, keep)``, ``run`` with the candidates of
     every request that cannot meet its deadline under the pre-frame
     inflation estimate (the backlogs against the full budgets ``gamma``,
-    ``eta``) masked out."""
-    phi_pc, phi_pe = predicted_inflation(backlog_g, backlog_e, gamma, eta, ccfg)
+    ``eta``) masked out.  ``eager``: the host paths the reference runs op
+    by op (:func:`~repro_torch.core.queueing.compute_inflation`)."""
+    phi_pc, phi_pe = predicted_inflation(backlog_g, backlog_e, gamma, eta, ccfg, eager=eager)
     keep = admission_keep(run, tq, phi_pc, phi_pe)
     return dataclasses.replace(run, avail=run.avail & keep[..., None, None]), keep
 
@@ -933,14 +936,60 @@ class _WindowPipeline:
         self.thread.join()
 
 
-def _fold_hier_scheduler(policy, opts: EngineOptions, allow_backend: bool = False) -> Policy:
+def _resolve_policy(scheduler, policy) -> Optional[Policy]:
+    """The reference's ``_resolve_policy``: the :class:`Policy` asked for,
+    by ``policy=`` or positionally through ``scheduler`` (a name or a
+    :class:`Policy`), ``"gus"`` when neither is given; ``None`` when
+    ``scheduler`` is a raw ``FlatInstance -> Assignment`` callable."""
+    if policy is not None:
+        if scheduler is not None:
+            raise ValueError("pass either scheduler= or policy=, not both")
+        return get_policy(policy)
+    if scheduler is None or isinstance(scheduler, (str, Policy)):
+        return get_policy("gus" if scheduler is None else scheduler)
+    return None
+
+
+def _raw_policy(scheduler: Callable, n_pad: Optional[int] = None) -> Policy:
+    """A raw scheduler callable as a host policy.  Like the reference's, it
+    takes one unbatched frame padded with dropped rows: :func:`simulate`
+    pads each frame to its bucket (``pad=True``); the fleet's host loop
+    pads its unpadded frames to the run's ``n_pad`` here and cuts the
+    assignment back."""
+    fn = scheduler
+    if n_pad is not None:
+        def fn(inst):
+            n = inst.cover.shape[0]
+            a = scheduler(pad_instance(inst, n_pad))
+            return Assignment(a.j[:n], a.l[:n])
+    return Policy(
+        name=getattr(scheduler, "__name__", "scheduler"),
+        description="a raw FlatInstance -> Assignment callable",
+        make=lambda n_edge, n_servers: fn, vmappable=False, kind="raw",
+    )
+
+
+def _check_raw(opts: EngineOptions) -> None:
+    """The reference's refusal of ``backend=`` beside a raw callable
+    (``_apply_backend``): ``backend`` picks GUS's implementation."""
+    if opts.backend is not None:
+        raise ValueError("pass either scheduler= or backend=, not both")
+
+
+def _fold_hier_scheduler(pol: Optional[Policy], opts: EngineOptions,
+                         allow_backend: bool = False) -> Policy:
     """The hierarchical layout *is* the reference's ``gus-hier`` policy, so
-    it composes only with ``"gus"`` or ``"gus-hier"`` (by name or as a
-    :class:`Policy`); any other policy is an error, not a silent override.
-    ``allow_backend=True`` (the fleet) lets ``backend=`` through, where it
-    picks the class allocator's implementation; :func:`simulate`'s per-frame
-    ``gus-hier`` is host-side, so there it raises.  Returns the policy."""
-    pol = get_policy(policy)
+    it composes only with ``"gus"`` or ``"gus-hier"`` (``pol``, resolved by
+    :func:`_resolve_policy`); any other policy or a raw callable (``pol``
+    None) is an error, not a silent override.  ``allow_backend=True`` (the
+    fleet) lets ``backend=`` through, where it picks the class allocator's
+    implementation; :func:`simulate`'s per-frame ``gus-hier`` is host-side,
+    so there it raises.  Returns the policy."""
+    if pol is None:
+        raise ValueError(
+            "EngineOptions(scheduler='hierarchical') does not compose with a raw "
+            "scheduler callable; drop one of the two"
+        )
     if opts.backend is not None and not allow_backend:
         raise ValueError(
             f"backend={opts.backend!r} with EngineOptions(scheduler='hierarchical') "
@@ -1043,8 +1092,9 @@ class _ArrivalSource:
 def simulate(
     spec: ClusterSpec,
     cfg: SimConfig,
+    scheduler: Union[str, Policy, Callable[[FlatInstance], Assignment], None] = None,
     *,
-    policy: Union[str, Policy] = "gus",
+    policy: Union[str, Policy, None] = None,
     scenario: Union[str, Scenario] = "paper-default",
     seed: int = 0,
     n_requests: Optional[int] = None,
@@ -1055,11 +1105,16 @@ def simulate(
     ``device``.
 
     The signature mirrors :func:`simulate_fleet`: ``policy`` names a
-    registered :class:`~repro_torch.core.policies.Policy` (or passes one)
-    and ``options`` carries the engine options.  The reference's deprecated
-    per-call keywords (``streaming=``, ``rng_mode=``, ``backend=``,
-    ``metrics=``) and its raw scheduler callables are not taken: pass
-    ``EngineOptions`` and a ``Policy``.  Fleet-only options are ignored.
+    registered :class:`~repro_torch.core.policies.Policy` (or passes one;
+    ``"gus"`` when neither it nor ``scheduler`` is given) and ``options``
+    carries the engine options.  ``scheduler``, the third positional
+    argument, takes a policy name or :class:`Policy` as ``policy=`` does,
+    or a raw ``FlatInstance -> Assignment`` callable, which gets each
+    frame padded to its bucket, unbatched, on the CPU (it raises beside
+    ``policy=``, and beside ``options.backend``, as the reference's does).
+    The reference's deprecated per-call keywords (``streaming=``,
+    ``rng_mode=``, ``backend=``, ``metrics=``) are not taken: pass
+    ``EngineOptions``.  Fleet-only options are ignored.
 
     Everything but the decision runs on the host in numpy float64, op for
     op the reference's: queue-cap admission with early decisions, budgets
@@ -1098,11 +1153,14 @@ def simulate(
     opts = resolve_options(options, scenario=scn)
     check_ported(opts, fleet=False)
     metrics = opts.metrics
+    pol = _resolve_policy(scheduler, policy)
     if opts.scheduler == "hierarchical":
-        pol = _fold_hier_scheduler(policy, opts)
+        pol = _fold_hier_scheduler(pol, opts)
         scheduler = pol.bind(spec.n_edge, spec.n_servers)
+    elif pol is None:
+        _check_raw(opts)
+        pol = _raw_policy(scheduler)
     else:
-        pol = get_policy(policy)
         scheduler = _bind_policy(pol, spec, opts.backend)
     stateful = pol.stateful
     needs_key = pol.needs_key and not pol.stateful
@@ -1268,7 +1326,7 @@ def simulate(
                     inst, keep = _shed(
                         inst, f32([decision_time - r.arrival_ms for r in pending]),
                         f32(backlog_g), f32(backlog_e), f32(frame_budget_g),
-                        f32(frame_budget_e), ccfg,
+                        f32(frame_budget_e), ccfg, eager=True,
                     )
                     n_shed += n_real - int(keep.sum())
                 # padded rows are infeasible -> dropped; the host policies
@@ -1480,8 +1538,9 @@ def simulate(
 def simulate_fleet(
     spec: ClusterSpec,
     cfg: SimConfig,
+    scheduler: Union[str, Policy, Callable[[FlatInstance], Assignment], None] = None,
     *,
-    policy: Union[str, Policy] = "gus",
+    policy: Union[str, Policy, None] = None,
     scenario: Union[str, Scenario] = "paper-default",
     n_rep: int = 16,
     seed: int = 0,
@@ -1504,7 +1563,11 @@ def simulate_fleet(
     the reference's key for each (replication, frame), ``split(PRNGKey(
     seed), n_rep * T)``; a ``stateful`` one (``gus-adaptive``) the carry,
     frame by frame; the host policies (``ilp``, ``lp-bound``, ``gus-hier``)
-    run on :func:`_simulate_fleet_host`, on the CPU.
+    run on :func:`_simulate_fleet_host`, on the CPU.  ``scheduler`` is
+    :func:`simulate`'s: a name, a :class:`Policy` or a raw callable.  The
+    reference calls a raw callable inside its jitted scan, once per
+    (replication, frame) on a frame padded to the run's bucket; the port
+    calls it so on the host loop, with the jitted path's inflation.
 
     Resilience composes with every layout.  The resilience engine is built
     once and is the same for every replication: frame ``t`` of every
@@ -1539,12 +1602,14 @@ def simulate_fleet(
     check_ported(opts)
     metrics = opts.metrics
     hier = opts.scheduler == "hierarchical"
+    pol = _resolve_policy(scheduler, policy)
     if hier:
-        pol = _fold_hier_scheduler(policy, opts, allow_backend=True)
+        pol = _fold_hier_scheduler(pol, opts, allow_backend=True)
+    elif pol is None:
+        _check_raw(opts)
     else:
-        pol = get_policy(policy)
         fn = _bind_policy(pol, spec, opts.backend)
-    host_side = not hier and (not pol.vmappable or not pol.pad)
+    host_side = not hier and (pol is None or not pol.vmappable or not pol.pad)
     ccfg = cfg.congestion
     acfg = cfg.admission
     T = max(1, int(np.ceil(cfg.horizon_ms / cfg.frame_ms)))
@@ -1588,8 +1653,9 @@ def simulate_fleet(
         )
     if host_side:
         return _simulate_fleet_host(
-            spec, cfg, scn, pol, sources, n_rep=n_rep, T=T, n_pad=n_pad, seed=seed,
-            gen_s=gen_s, sw=sw, t_run0=t_run0, engine=engine, metrics=metrics,
+            spec, cfg, scn, pol or _raw_policy(scheduler, n_pad), sources, n_rep=n_rep,
+            T=T, n_pad=n_pad, seed=seed, gen_s=gen_s, sw=sw, t_run0=t_run0, engine=engine,
+            metrics=metrics, eager=pol is not None,
         )
     carry = fleet_policy_carry(
         n_rep, M, seed=seed, bandwidth_init=spec.bandwidth_true, device=dev
@@ -1753,6 +1819,7 @@ def _simulate_fleet_host(
     t_run0: float,
     engine: Optional[ResilienceEngine] = None,
     metrics: bool = False,
+    eager: bool = True,
 ) -> FleetResult:
     """The fleet for the host policies (``vmappable=False`` or
     ``pad=False``: ``ilp``, ``lp-bound``, ``gus-hier``), the reference's
@@ -1761,7 +1828,9 @@ def _simulate_fleet_host(
     and the assignments are re-padded with drops so the scoring is the
     dense path's.  Impairments and admission control follow the dense
     step, in its order.  Everything runs on the host; rows are
-    replication-major (row ``rep * T + frame``).  With ``metrics`` the
+    replication-major (row ``rep * T + frame``).  The reference runs this
+    loop op by op, so the inflations take its eager ``pow``; ``eager=False``
+    (a raw callable, which the reference calls in its jitted scan) squares.  With ``metrics`` the
     rows are numpy, the reference's vectorized post-pass over the padded
     grid, with the loop's sheds, refusals, loads and post-frame
     backlogs."""
@@ -1840,7 +1909,7 @@ def _simulate_fleet_host(
                 if acfg.enabled and acfg.shed and n:
                     run_inst, keep = _shed(
                         run_inst, torch.from_numpy(tq_flat[i, :n]), carry.backlog_gamma,
-                        carry.backlog_eta, inst.gamma, inst.eta, ccfg,
+                        carry.backlog_eta, inst.gamma, inst.eta, ccfg, eager=eager,
                     )
                     if metrics:
                         m_shed[i] = int(n) - int(keep.sum())
@@ -1864,8 +1933,9 @@ def _simulate_fleet_host(
                         m_c[i] = c.numpy()
                 if ccfg.enabled:
                     phi_c[i] = compute_inflation(
-                        carry.backlog_gamma + w, inst.gamma, ccfg).numpy()
-                    phi_e[i] = comm_inflation(carry.backlog_eta + c, inst.eta, ccfg).numpy()
+                        carry.backlog_gamma + w, inst.gamma, ccfg, eager=eager).numpy()
+                    phi_e[i] = comm_inflation(
+                        carry.backlog_eta + c, inst.eta, ccfg, eager=eager).numpy()
                     carry = dataclasses.replace(
                         carry,
                         backlog_gamma=step_backlog(carry.backlog_gamma, w, inst.gamma, ccfg),

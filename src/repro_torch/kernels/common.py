@@ -4,26 +4,79 @@ map takes, and the backend switch.
 
 The model kernels' backend is chosen as GUS's is: an explicit ``backend=``
 (``"torch"`` for the plain version, ``"cuda"`` for the kernel), else the
-environment variable ``REPRO_TORCH_MODEL_BACKEND``
-(``core.options.ENV_MODEL_BACKEND``), else the tensors' device.
+scope of :func:`model_backend`, else the environment variable
+``REPRO_TORCH_MODEL_BACKEND`` (``core.options.ENV_MODEL_BACKEND``), else
+the tensors' device.
+
+The kernels have no backward, as the reference's Pallas kernels have none:
+on the ``"cuda"`` route a wrapper refuses inputs that require a gradient
+while grad mode is on (:func:`check_no_grad`).  The train step asks for
+the plain route by :func:`model_backend`, as the reference trains with
+``use_pallas=False``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
-__all__ = ["DTYPES", "check_tensor", "resolve_model_backend", "tma_strides"]
+__all__ = [
+    "DTYPES", "check_no_grad", "check_tensor", "model_backend", "resolve_model_backend",
+    "tma_strides",
+]
 
 #: dtype codes of the C interfaces
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+#: the backend of the innermost open :func:`model_backend` block, if any
+_scoped: Optional[str] = None
+
+
+@contextlib.contextmanager
+def model_backend(backend: str):
+    """Within the block, the model kernels that get no ``backend=`` take
+    ``backend`` (``"torch"`` or ``"cuda"``), before the environment
+    variable and the device.  The choice is process-wide, as the
+    environment variable is, so that it also holds where autograd
+    recomputes a checkpointed block on its own threads.  So the block must
+    not overlap model calls on another thread that expect the kernels (a
+    server's): while it is open, they take ``backend`` too."""
+    from repro_torch.core.options import BACKENDS
+
+    global _scoped
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown model-kernel backend {backend!r}; expected one of "
+                         f"{', '.join(BACKENDS)}")
+    outer, _scoped = _scoped, backend
+    try:
+        yield
+    finally:
+        _scoped = outer
+
+
 def resolve_model_backend(backend: Optional[str], device: torch.device) -> str:
-    """Explicit ``backend=`` > ``REPRO_TORCH_MODEL_BACKEND`` > the device's own."""
+    """Explicit ``backend=`` > :func:`model_backend`'s scope >
+    ``REPRO_TORCH_MODEL_BACKEND`` > the device's own."""
     from repro_torch.core.options import ENV_MODEL_BACKEND, resolve_backend
 
-    return resolve_backend(backend, device, var=ENV_MODEL_BACKEND)
+    return resolve_backend(backend if backend is not None else _scoped, device,
+                           var=ENV_MODEL_BACKEND)
+
+
+def check_no_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise before a kernel launch that autograd would not see: grad mode
+    on and an input that requires a gradient.  The output would carry no
+    ``grad_fn``, and the gradient of every input would be lost without a
+    word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward (nor had the reference's Pallas "
+            "kernel), and an input requires a gradient; run it under torch.no_grad(), or "
+            "take the plain route for training (backend='torch' or "
+            "kernels.common.model_backend('torch'), as the train step does)"
+        )
 
 
 def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype, shape, device) -> None:

@@ -40,7 +40,7 @@ from typing import Optional
 import torch
 
 from .build import load_library
-from .common import DTYPES, check_tensor, resolve_model_backend
+from .common import DTYPES, check_no_grad, check_tensor, resolve_model_backend
 from .flash_attention import check_head_dim, masked_softmax_pv, vector_loads
 
 __all__ = ["MAX_REP", "decode_attention", "decode_attention_ref", "decode_splits"]
@@ -118,7 +118,8 @@ def decode_attention(
 
     ``backend`` as for ``flash_attention``: CPU tensors always take the
     plain version and count no launch; CUDA tensors on ``"cuda"`` launch the
-    kernel or raise.
+    kernel or raise, and refuse inputs that require a gradient while grad
+    mode is on (``common.check_no_grad``).
     """
     dev = q.device
     if dev.type not in ("cpu", "cuda"):
@@ -126,6 +127,7 @@ def decode_attention(
     if dev.type == "cpu" or resolve_model_backend(backend, dev) == "torch":
         res = decode_attention_ref(q, k, v, valid)
         return res if out is None else out.copy_(res)
+    check_no_grad("decode_attention", q, k, v)
     B, KV, rep, hd = q.shape
     T = k.shape[2]
     check_head_dim("decode_attention", hd, q.dtype)

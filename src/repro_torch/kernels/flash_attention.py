@@ -42,7 +42,7 @@ from typing import Optional
 import torch
 
 from .build import load_library
-from .common import DTYPES, check_tensor, resolve_model_backend, tma_strides
+from .common import DTYPES, check_no_grad, check_tensor, resolve_model_backend, tma_strides
 
 __all__ = [
     "NEG_INF",
@@ -161,7 +161,9 @@ def flash_attention(
     ``backend``: ``"torch"`` is the plain version on the tensors' device,
     ``"cuda"`` the kernel; ``None`` defers to ``REPRO_TORCH_MODEL_BACKEND``,
     else follows the device.  CPU tensors always take the plain version and
-    count no launch; CUDA tensors on ``"cuda"`` launch the kernel or raise.
+    count no launch; CUDA tensors on ``"cuda"`` launch the kernel or raise,
+    and refuse inputs that require a gradient while grad mode is on (the
+    kernel has no backward: ``common.check_no_grad``).
     """
     dev = q.device
     if dev.type not in ("cpu", "cuda"):
@@ -169,6 +171,7 @@ def flash_attention(
     if dev.type == "cpu" or resolve_model_backend(backend, dev) == "torch":
         res = flash_attention_ref(q, k, v, causal=causal, window=window)
         return res if out is None else out.copy_(res)
+    check_no_grad("flash_attention", q, k, v)
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     check_head_dim("flash_attention", hd, q.dtype)

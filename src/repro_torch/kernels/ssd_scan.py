@@ -49,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from .build import load_library
-from .common import DTYPES, check_tensor, resolve_model_backend, tma_strides
+from .common import DTYPES, check_no_grad, check_tensor, resolve_model_backend, tma_strides
 
 __all__ = [
     "MAX_CHUNK",
@@ -263,7 +263,8 @@ def ssd_scan(
     to ``REPRO_TORCH_MODEL_BACKEND`` (the model kernels' switch), else
     follows the device.  CPU tensors always take the plain version and
     count no launch; CUDA tensors on ``"cuda"`` launch the kernel of
-    :func:`ssd_route` or raise.
+    :func:`ssd_route` or raise, and refuse inputs that require a gradient
+    while grad mode is on (``common.check_no_grad``).
     """
     dev = x.device
     if dev.type not in ("cpu", "cuda"):
@@ -275,6 +276,7 @@ def ssd_scan(
         if return_final_state:
             return out.copy_(res[0]), res[1]
         return out.copy_(res)
+    check_no_grad("ssd_scan", x, dt, A, Bm, Cm)
     Bsz, H, S, P = x.shape
     N = Bm.shape[3]
     if out is None:

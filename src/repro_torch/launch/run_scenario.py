@@ -33,7 +33,6 @@ import os
 from ..core import (
     CongestionConfig,
     EngineOptions,
-    Policy,
     SimConfig,
     demo_cluster_spec,
     get_policy,
@@ -47,17 +46,6 @@ from ..core import (
 from ..core.instance import resolve_device
 from ..core.options import BACKENDS
 from ..obs import AsyncJsonlWriter, profile_trace, recording, validate_chrome_trace
-
-#: the NumPy oracle as a host policy of one unbatched, padded frame (the
-#: reference CLI passes it as ``scheduler=``, which the port does not take)
-GUS_NP = Policy(
-    name="gus-np",
-    description="GUS, the NumPy oracle (host-side, one frame at a time)",
-    make=lambda n_edge, n_servers: gus_schedule_np,
-    vmappable=False,
-    kind="greedy",
-)
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
@@ -147,7 +135,12 @@ def main(argv=None):
         scn = get_scenario(args.scenario)
     except KeyError as e:
         raise SystemExit(e.args[0])
-    policy = GUS_NP if args.policy == "gus-np" else args.policy
+    # `gus-np` is the NumPy parity oracle, not a registered policy (it is the
+    # thing the registered `gus` is tested against)
+    sim_kw = (
+        {"scheduler": gus_schedule_np} if args.policy == "gus-np"
+        else {"policy": args.policy}
+    )
     if args.policy == "gus-np":
         if args.backend is not None:
             raise SystemExit("--backend selects the GUS implementation; gus-np is the "
@@ -182,7 +175,7 @@ def main(argv=None):
     rec_ctx = recording() if args.trace else contextlib.nullcontext()
     with profile_trace(args.profile, device=dev), rec_ctx as rec:
         try:
-            r = simulate(spec, cfg, policy=policy, scenario=scn, seed=args.seed,
+            r = simulate(spec, cfg, **sim_kw, scenario=scn, seed=args.seed,
                          options=sim_opts, device=dev)
         except (KeyError, ValueError) as e:  # unknown policy / ILP too big
             raise SystemExit(str(e.args[0]))
@@ -207,7 +200,7 @@ def main(argv=None):
                     sim_opts, devices=args.devices, window=args.window,
                     **({"prefetch": args.prefetch} if args.prefetch is not None else {}),
                 )
-                fr = simulate_fleet(spec, cfg, policy=policy, scenario=scn, n_rep=args.fleet,
+                fr = simulate_fleet(spec, cfg, **sim_kw, scenario=scn, n_rep=args.fleet,
                                     seed=args.seed, options=fleet_opts, device=dev)
             except (ValueError, NotImplementedError) as e:  # --devices > 1, ILP frame, ...
                 raise SystemExit(str(e.args[0]))

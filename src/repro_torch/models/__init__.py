@@ -1,6 +1,6 @@
 """The model stack of the port: layers, the Mamba-2 layer, the model, the
 weight carry."""
-from .carry import params_from_reference, params_to
+from .carry import params_from_reference, params_to, params_to_reference
 from .layers import ParamDecl, apply_attention, apply_mlp, apply_norm, make_positions, rope
 from .model import DecodeCache, Model, check_ported
 from .ssm import apply_mamba, init_ssm_state, mamba_decl, mamba_decode_step, ssd_reference
@@ -8,5 +8,6 @@ from .ssm import apply_mamba, init_ssm_state, mamba_decl, mamba_decode_step, ssd
 __all__ = [
     "Model", "DecodeCache", "check_ported", "ParamDecl", "apply_attention", "apply_mlp",
     "apply_norm", "rope", "make_positions", "params_from_reference", "params_to",
+    "params_to_reference",
     "apply_mamba", "init_ssm_state", "mamba_decl", "mamba_decode_step", "ssd_reference",
 ]

@@ -11,6 +11,8 @@ embedding, the final norm, the unembedding, the hybrid family's unstacked
 ``shared_attn`` block) is carried as it is, and the mamba leaves of a layer
 (``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``, ``D``,
 ``norm_scale``, ``out_proj``) like any other leaf.
+:func:`params_to_reference` goes the other way, for checkpoints and for
+the parity tests.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from ..core.instance import resolve_device
 from .layers import ParamDecl
 from .model import Model
 
-__all__ = ["params_from_reference", "params_to"]
+__all__ = ["params_from_reference", "params_to_reference", "params_to", "to_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -67,6 +69,41 @@ def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any], *, device=None
         else:
             out[name] = _carry(sub, tree[name], dev, name)
     return out
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host.  numpy has no bfloat16, so a
+    bfloat16 tensor comes back as float32, exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_reference(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_reference`: the reference's tree of
+    numpy arrays for the port's ``params``, every layer leaf stacked on a
+    leading axis as the reference's ``init_from_decl(..., stack=)`` lays
+    them out (bfloat16 leaves as float32, :func:`to_numpy`)."""
+    decl = Model(cfg).decl()
+    if set(decl) != set(params):
+        raise ValueError(f"params: keys {sorted(params)}, expected {sorted(decl)}")
+    if len(params["layers"]) != cfg.num_layers:
+        raise ValueError(f"params: {len(params['layers'])} layers, expected {cfg.num_layers}")
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return to_numpy(tree)
+
+    out = {k: host(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = _stack([host(layer) for layer in params["layers"]])
+    return out
+
+
+def _stack(layers):
+    """Per-layer trees of arrays -> one tree of arrays stacked on axis 0."""
+    if isinstance(layers[0], dict):
+        return {k: _stack([t[k] for t in layers]) for k in layers[0]}
+    return np.stack(layers)
 
 
 def _index(tree, i: int):

@@ -39,6 +39,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.instance import resolve_device
@@ -188,22 +189,36 @@ class Model:
 
     # ---------------------------------------------------------------- forward
     def forward(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Teacher-forcing forward over full sequences (eval)."""
+        """Teacher-forcing forward over full sequences (train and eval).
+        With ``cfg.remat`` and grad mode on, each layer is a
+        ``torch.utils.checkpoint`` block (the reference's ``jax.checkpoint``;
+        its ``"dots"`` policy recomputes everything here too, with the same
+        numbers).  ``cfg.scan_layers`` is the reference's ``lax.scan`` over
+        the stacked layers; the port's layer loop computes the same."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         h = self._embed(params, tokens)
         positions = batch.get("positions")
         if positions is None:
             positions = make_positions(B, S, h.device)
-        for i, lp in enumerate(params["layers"]):
-            if self.cfg.family == "dense":
-                h, _ = self._dense_block(lp, h, positions)
-                continue
-            if self._attn_site(i):
-                h, _ = self._dense_block(params["shared_attn"], h, positions)
-            h = h + apply_mamba(lp["mamba"], apply_norm(lp["ln"], h, self.cfg), self.cfg)
+        for i in range(len(params["layers"])):
+            if self.cfg.remat and torch.is_grad_enabled():
+                h = torch.utils.checkpoint.checkpoint(
+                    self._layer, params, i, h, positions, use_reentrant=False)
+            else:
+                h = self._layer(params, i, h, positions)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return self._unembed(params, h), {"router_aux": aux}
+
+    def _layer(self, params, i: int, h, positions):
+        """Layer i of the teacher-forcing forward (with the hybrid family's
+        shared block before it where it fires)."""
+        lp = params["layers"][i]
+        if self.cfg.family == "dense":
+            return self._dense_block(lp, h, positions)[0]
+        if self._attn_site(i):
+            h, _ = self._dense_block(params["shared_attn"], h, positions)
+        return h + apply_mamba(lp["mamba"], apply_norm(lp["ln"], h, self.cfg), self.cfg)
 
     def _attn_site(self, i: int) -> bool:
         """Whether the hybrid family's shared block fires before layer i."""

@@ -7,7 +7,9 @@ back into the GUS scheduler's processing-time table); ``make_serve_step`` /
 there is nothing to jit; a timing reads the clock only after
 ``torch.cuda.synchronize()``, where the reference calls
 ``block_until_ready``.  Greedy argmax takes the first maximal index, as
-``jnp.argmax`` does.
+``jnp.argmax`` does.  Generation and evaluation run under
+``torch.no_grad()``: the hand kernels have no backward and refuse inputs
+that require a gradient, which freshly trained parameters may.
 """
 from __future__ import annotations
 
@@ -74,6 +76,7 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @torch.no_grad()
     def generate(
         self,
         batch: Dict[str, torch.Tensor],
@@ -105,6 +108,7 @@ class ServingEngine:
             total_ms=1000 * (t2 - t0),
         )
 
+    @torch.no_grad()
     def eval_next_token_accuracy(self, batch: Dict[str, torch.Tensor]) -> float:
         """Teacher-forcing next-token top-1 accuracy — the 'accuracy' that the
         scheduler trades against latency for the zoo variants."""

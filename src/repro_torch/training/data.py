@@ -3,14 +3,15 @@
 The port's copy of ``SyntheticLM`` and ``make_batch`` from
 ``repro/training/data.py``: the same seeded numpy sampler (an order-1
 Markov chain with copy motifs), so the same seed gives the same tokens in
-both packages; :func:`make_batch` hands them over as tensors on a device.
-The reference's vision/audio stubs serve families the port does not serve
-yet.
+both packages; :func:`make_batch` hands them over as tensors on a device,
+and :func:`batch_iterator` streams them as the reference's does.  The
+reference's vision/audio stubs serve families the port does not serve yet
+(``ROADMAP.md`` §1 items 13 and 14).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -18,7 +19,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.instance import resolve_device
 
-__all__ = ["SyntheticLM", "make_batch"]
+__all__ = ["SyntheticLM", "make_batch", "batch_iterator"]
 
 
 @dataclasses.dataclass
@@ -75,3 +76,16 @@ def make_batch(
     src = source or SyntheticLM(cfg.vocab_size)
     toks = torch.from_numpy(src.sample(rng, batch, seq + 1))
     return {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+
+
+def batch_iterator(
+    cfg: ModelConfig, batch: int, seq: int, seed: int = 0, *, device=None
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Endless training batches: ``SyntheticLM(vocab, seed)`` sampled with
+    ``default_rng(seed + 1)``, the reference's streams, on ``device``
+    (default: the CUDA device; raises without one)."""
+    dev = resolve_device(device)
+    src = SyntheticLM(cfg.vocab_size, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    while True:
+        yield make_batch(cfg, batch, seq, rng, src, device=dev)
