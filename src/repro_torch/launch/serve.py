@@ -4,7 +4,9 @@ The port's counterpart of ``repro/launch/serve.py``: runs batched
 prefill + greedy decode through the ServingEngine on randomly initialised
 weights (the reduced config unless ``smoke=False``) and prints the measured
 latencies — the numbers a production deployment would feed back into the
-GUS scheduler's processing-time table.  Runs on the CUDA device unless
+GUS scheduler's processing-time table.  Every arch of the registry is
+served; ``make_batch`` adds the VLM family's patch stub and the
+encoder-decoder family's frame stub.  Runs on the CUDA device unless
 ``serve(..., device="cpu")``.
 """
 from __future__ import annotations

@@ -5,7 +5,9 @@ defaults and log lines, plus ``--device`` (default ``cuda``).  The train
 step runs the forward and backward on the plain route (the hand kernels
 have no backward, as the reference trains with ``use_pallas=False``) and
 AdamW on ``device``.  ``--smoke`` (the default) trains the reduced config;
-``--no-smoke`` the full one, in its own dtypes.
+``--no-smoke`` the full one, in its own dtypes.  Every arch of the
+registry trains; the MoE family's loss adds ``router_aux_weight *
+router_aux``, and the batches carry the VLM and encoder-decoder stubs.
 """
 from __future__ import annotations
 

@@ -4,13 +4,19 @@ The reference draws its weights with ``jax.random``, which the port cannot
 reproduce, so the two packages compute the same function only on the same
 weights: :func:`params_from_reference` takes the reference's parameter tree
 as numpy arrays (``jax.tree.map(np.asarray, model.init(key))``) and returns
-the port's.  The reference stacks every layer leaf on a leading ``L`` axis
-(scan over layers); the port keeps one dict per layer.  That split is the
-only change of layout, and it lives here.  Every other subtree (the
-embedding, the final norm, the unembedding, the hybrid family's unstacked
-``shared_attn`` block) is carried as it is, and the mamba leaves of a layer
-(``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``, ``D``,
-``norm_scale``, ``out_proj``) like any other leaf.
+the port's.  The reference stacks every layer leaf of a layer stack
+(``layers``; the encoder-decoder family's ``enc_layers`` and
+``dec_layers``) on a leading ``L`` axis (scan over layers); the port keeps
+one dict per layer.  That split is the only change of layout, and it lives
+here.  Every other subtree (the embedding, the final norms, the
+unembedding, the hybrid family's unstacked ``shared_attn`` block) is
+carried as it is, and the leaves of a layer like any other leaf: the mamba
+leaves (``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``,
+``D``, ``norm_scale``, ``out_proj``), the MoE leaves (``router``, the
+expert weights ``(L, E, d, f)`` / ``(L, E, f, d)`` split into one
+``(E, d, f)`` / ``(E, f, d)`` a layer, the ``shared`` and ``dense``
+sub-MLPs, ``shared_gate``) and the decoder's cross attention (``ln_x``,
+``xattn``).
 :func:`params_to_reference` goes the other way, for checkpoints and for
 the parity tests.
 """
@@ -52,19 +58,19 @@ def _carry(decl, tree, device, where: str):
 def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     """The port's parameters for ``cfg`` from the reference's tree of numpy
     arrays, on ``device`` (default: the CUDA device; raises without one).
-    Every leaf keeps its dtype and its shape; the layer stack becomes a
+    Every leaf keeps its dtype and its shape; each layer stack becomes a
     list of per-layer dicts."""
     dev = resolve_device(device)
-    decl = Model(cfg).decl()
+    model = Model(cfg)
+    decl, stacks = model.decl(), model.stack_sizes()
     if set(decl) != set(tree):
         raise ValueError(f"params: keys {sorted(tree)}, expected {sorted(decl)}")
     out: Dict[str, Any] = {}
     for name, sub in decl.items():
-        if name == "layers":
-            layers = tree[name]
+        if name in stacks:
             out[name] = [
-                _carry(sub, _index(layers, i), dev, f"layers[{i}]")
-                for i in range(cfg.num_layers)
+                _carry(sub, _index(tree[name], i), dev, f"{name}[{i}]")
+                for i in range(stacks[name])
             ]
         else:
             out[name] = _carry(sub, tree[name], dev, name)
@@ -83,20 +89,21 @@ def params_to_reference(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, A
     numpy arrays for the port's ``params``, every layer leaf stacked on a
     leading axis as the reference's ``init_from_decl(..., stack=)`` lays
     them out (bfloat16 leaves as float32, :func:`to_numpy`)."""
-    decl = Model(cfg).decl()
+    model = Model(cfg)
+    decl, stacks = model.decl(), model.stack_sizes()
     if set(decl) != set(params):
         raise ValueError(f"params: keys {sorted(params)}, expected {sorted(decl)}")
-    if len(params["layers"]) != cfg.num_layers:
-        raise ValueError(f"params: {len(params['layers'])} layers, expected {cfg.num_layers}")
+    for name, n in stacks.items():
+        if len(params[name]) != n:
+            raise ValueError(f"params: {len(params[name])} {name}, expected {n}")
 
     def host(tree):
         if isinstance(tree, dict):
             return {k: host(v) for k, v in tree.items()}
         return to_numpy(tree)
 
-    out = {k: host(v) for k, v in params.items() if k != "layers"}
-    out["layers"] = _stack([host(layer) for layer in params["layers"]])
-    return out
+    return {k: _stack([host(layer) for layer in v]) if k in stacks else host(v)
+            for k, v in params.items()}
 
 
 def _stack(layers):

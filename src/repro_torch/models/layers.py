@@ -9,7 +9,9 @@ annotations and logical axes are single-device no-ops here and are dropped.
 Attention in causal mode goes through ``kernels.ops.flash_attention`` and
 decode through ``kernels.ops.decode_attention``: the Hopper kernels on CUDA
 tensors, their plain versions on CPU tensors.  ``mode="cross"`` and
-``"bidir"`` keep the plain :func:`_sdpa` math; no ported model reaches them.
+``"bidir"`` (the encoder-decoder family's cross attention and encoder) keep
+the plain :func:`_sdpa` math, as the reference never sends them to its
+flash kernel.
 """
 from __future__ import annotations
 

@@ -1,14 +1,20 @@
-"""The decoder-only models, prefill and decode.
+"""The models of every family, prefill and decode.
 
-The port's counterpart of ``repro/models/model.py`` for three families:
+The port's counterpart of ``repro/models/model.py`` for its six families:
 
   dense  — pre-norm GQA transformer (yi-9b, qwen2-72b, stablelm-12b,
            starcoder2-15b and the paper zoo): RoPE, a gated or classic MLP,
            optional biases, a sliding window, tied embeddings and a logits
            soft-cap
+  moe    — the dense trunk with a MoE FFN (qwen2-moe: shared + routed
+           experts; arctic: routed experts + a dense residual MLP)
   ssm    — Mamba-2 / SSD stack (mamba2-130m)
   hybrid — Mamba-2 backbone + one weight-*shared* attention block applied
            every ``attn_every`` layers (zamba2-1.2b)
+  encdec — bidirectional encoder over stubbed frame embeddings + causal
+           decoder with cross attention (seamless-m4t-medium)
+  vlm    — the dense trunk over token embeddings with stubbed vision patch
+           embeddings scattered at their positions (pixtral-12b)
 
 API (plain functions on a nested dict of tensors):
   init(generator, device=)          -> params
@@ -17,8 +23,9 @@ API (plain functions on a nested dict of tensors):
   prefill(params, batch, cache)     -> (last_logits, cache)
   decode_step(params, tokens, cache)-> (logits, cache)        one new token
 
-``params["layers"]`` is a list with one dict per layer; the reference
-stacks every layer leaf on a leading axis instead
+``params["layers"]`` (the encoder-decoder family's ``params["enc_layers"]``
+and ``params["dec_layers"]``) is a list with one dict per layer; the
+reference stacks every layer leaf on a leading axis instead
 (:func:`repro_torch.models.carry.params_from_reference` converts).  The
 hybrid family's ``params["shared_attn"]`` is one unstacked block.
 
@@ -29,9 +36,12 @@ shares them with the one passed in.  The reference's prefill leaves the
 Pallas SSD kernel for its plain form to get the final state; the port's
 SSD kernel writes the final state out, so prefill runs on it too.
 
-The ``moe``, ``encdec`` and ``vlm`` families, the ``attn_impl="chunked"``
-path and the int8 KV cache raise ``NotImplementedError`` naming their
-ROADMAP item (:func:`check_ported`).
+Causal self-attention runs on the flash and decode kernels; the encoder's
+bidirectional attention and the decoder's cross attention stay plain, as
+the reference never sends them to its flash kernel.
+
+The ``attn_impl="chunked"`` path and the int8 KV cache raise
+``NotImplementedError`` naming their ROADMAP item (:func:`check_ported`).
 """
 from __future__ import annotations
 
@@ -54,26 +64,19 @@ from .layers import (
     mlp_decl,
     norm_decl,
 )
+from .moe import apply_moe, moe_decl
 from .ssm import apply_mamba, init_ssm_state, mamba_decl, mamba_decode_step
 
 __all__ = ["Model", "DecodeCache", "check_ported"]
 
-#: families and options not ported yet -> their ROADMAP.md §1 item
-_UNPORTED_FAMILIES = {
-    "moe": "item 12, still to port: the MoE family",
-    "encdec": "item 13, still to port: the encoder-decoder family",
-    "vlm": "item 14, still to port: the VLM family",
-}
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+#: the families whose layers are attention blocks run as one stack
+_DENSE_TRUNK = ("dense", "moe", "vlm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not serve yet."""
-    if cfg.family in _UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet "
-            f"(ROADMAP.md §1 {_UNPORTED_FAMILIES[cfg.family]})"
-        )
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError(
@@ -94,15 +97,16 @@ class DecodeCache:
     attn:  {'k','v'} (L_attn, B, W, KV, hd) ring buffers (None if attn-free)
     conv:  (L_ssm, B, convw-1, ch)      (None unless ssm/hybrid)
     ssm:   (L_ssm, B, H, N, P)          (None unless ssm/hybrid)
-    All in the activation dtype, as the reference's.  The reference's
-    ``cross`` field comes with the encoder-decoder family (ROADMAP.md §1
-    item 13).
+    cross: {'k','v'} (L_dec, B, T_enc, KV, hd) projected encoder memory,
+           written once by prefill (None unless encdec)
+    All in the activation dtype, as the reference's.
     """
 
     index: int
     attn: Optional[Dict[str, torch.Tensor]] = None
     conv: Optional[torch.Tensor] = None
     ssm: Optional[torch.Tensor] = None
+    cross: Optional[Dict[str, torch.Tensor]] = None
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -124,14 +128,23 @@ class Model:
             "mlp": mlp_decl(cfg),
         }
 
-    def _block_decl(self) -> Dict[str, Any]:
-        if self.cfg.family in ("ssm", "hybrid"):
-            return {"ln": norm_decl(self.cfg), "mamba": mamba_decl(self.cfg)}
-        return self._attn_block_decl()
+    def _block_decl(self, cross: bool = False) -> Dict[str, Any]:
+        cfg = self.cfg
+        if cfg.family in ("ssm", "hybrid"):
+            return {"ln": norm_decl(cfg), "mamba": mamba_decl(cfg)}
+        if cfg.family == "moe":
+            return {"ln1": norm_decl(cfg), "attn": attn_decl(cfg), "ln2": norm_decl(cfg),
+                    "moe": moe_decl(cfg)}
+        d = self._attn_block_decl()
+        if cross:
+            d["ln_x"] = norm_decl(cfg)
+            d["xattn"] = attn_decl(cfg)
+        return d
 
     def decl(self) -> Dict[str, Any]:
-        """The parameter declarations; ``layers`` is one block's (the
-        parameters hold one such dict per layer)."""
+        """The parameter declarations; each layer stack (``layers``, or
+        ``enc_layers`` and ``dec_layers``) is one block's (the parameters
+        hold one such dict per layer)."""
         cfg = self.cfg
         d: Dict[str, Any] = {
             "embed": ParamDecl((cfg.vocab_size, cfg.d_model), "normal", 0.02),
@@ -139,10 +152,22 @@ class Model:
         }
         if not cfg.tie_embeddings:
             d["lm_head"] = ParamDecl((cfg.d_model, cfg.vocab_size))
-        d["layers"] = self._block_decl()
+        if cfg.family == "encdec":
+            d["enc_layers"] = self._block_decl(cross=False)
+            d["dec_layers"] = self._block_decl(cross=True)
+            d["ln_enc"] = norm_decl(cfg)
+        else:
+            d["layers"] = self._block_decl()
         if cfg.family == "hybrid":
             d["shared_attn"] = self._attn_block_decl()
         return d
+
+    def stack_sizes(self) -> Dict[str, int]:
+        """Each layer stack of :meth:`decl` and its depth."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return {"enc_layers": cfg.num_enc_layers, "dec_layers": cfg.num_layers}
+        return {"layers": cfg.num_layers}
 
     # ------------------------------------------------------------------ init
     def init(self, generator: Union[int, torch.Generator] = 0, *, device=None) -> Dict[str, Any]:
@@ -155,15 +180,27 @@ class Model:
         if not isinstance(generator, torch.Generator):
             generator = torch.Generator(device=dev).manual_seed(int(generator))
         dt = _dtype(cfg.param_dtype)
-        decl = self.decl()
-        block = decl.pop("layers")
-        out = init_tree(decl, dt, generator, dev)
-        out["layers"] = [init_tree(block, dt, generator, dev) for _ in range(cfg.num_layers)]
+        stacks = self.stack_sizes()
+        out = {}
+        for name, sub in self.decl().items():
+            if name in stacks:
+                out[name] = [init_tree(sub, dt, generator, dev) for _ in range(stacks[name])]
+            else:
+                out.update(init_tree({name: sub}, dt, generator, dev))
         return out
 
     # -------------------------------------------------------------- embedding
-    def _embed(self, params, tokens) -> torch.Tensor:
-        return params["embed"][tokens.long()].to(_dtype(self.cfg.dtype))
+    def _embed(self, params, tokens, batch=None) -> torch.Tensor:
+        """Token embeddings in the activation dtype; for the VLM family, with
+        ``batch["vision_embeds"]`` (B, P, D) written at each row's
+        ``batch["vision_positions"]`` (B, P)."""
+        dt = _dtype(self.cfg.dtype)
+        h = params["embed"][tokens.long()].to(dt)
+        if self.cfg.family == "vlm" and batch is not None and "vision_embeds" in batch:
+            vp = batch["vision_positions"].long()
+            rows = torch.arange(h.shape[0], device=h.device)[:, None]
+            h[rows, vp] = batch["vision_embeds"].to(dt)
+        return h
 
     def _unembed(self, params, h) -> torch.Tensor:
         cfg = self.cfg
@@ -178,47 +215,89 @@ class Model:
 
     # ----------------------------------------------------------------- blocks
     def _dense_block(self, p, h, positions, *, window=None, cache=None, index=None):
+        """(h, kv, router aux): attention, then the MLP or, for the MoE
+        family, the MoE FFN (aux is 0 for the others)."""
         cfg = self.cfg
         a, kv = apply_attention(
             p["attn"], apply_norm(p["ln1"], h, cfg), cfg,
             positions=positions, cache=cache, cache_index=index, window=window,
         )
         h = h + a
-        m = apply_mlp(p["mlp"], apply_norm(p["ln2"], h, cfg), cfg)
-        return h + m, kv
+        x = apply_norm(p["ln2"], h, cfg)
+        if "moe" in p:
+            m, aux = apply_moe(p["moe"], x, cfg)
+        else:
+            m, aux = apply_mlp(p["mlp"], x, cfg), torch.zeros((), device=h.device)
+        return h + m, kv, aux
+
+    def _decoder_block(self, p, h, positions, mem=None, *, cache=None, cross=None, index=None):
+        """(h, self-attention kv, cross kv) of one encoder-decoder decoder
+        layer: causal self-attention, cross attention over the encoder
+        memory ``mem`` (or its projection ``cross``), the MLP."""
+        cfg = self.cfg
+        a, kv = apply_attention(p["attn"], apply_norm(p["ln1"], h, cfg), cfg,
+                                positions=positions, cache=cache, cache_index=index)
+        h = h + a
+        xa, xkv = apply_attention(p["xattn"], apply_norm(p["ln_x"], h, cfg), cfg,
+                                  positions=positions, mode="cross", kv_input=mem, cache=cross)
+        h = h + xa
+        return h + apply_mlp(p["mlp"], apply_norm(p["ln2"], h, cfg), cfg), kv, xkv
+
+    def _encode(self, params, batch) -> torch.Tensor:
+        """The encoder over the stubbed frame embeddings (B, T_enc, D):
+        bidirectional attention blocks, then ``ln_enc``."""
+        cfg = self.cfg
+        mem = batch["enc_embeds"].to(_dtype(cfg.dtype))
+        pos = make_positions(mem.shape[0], mem.shape[1], mem.device)
+        for lp in params["enc_layers"]:
+            a, _ = apply_attention(lp["attn"], apply_norm(lp["ln1"], mem, cfg), cfg,
+                                   positions=pos, mode="bidir")
+            mem = mem + a
+            mem = mem + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], mem, cfg), cfg)
+        return apply_norm(params["ln_enc"], mem, cfg)
 
     # ---------------------------------------------------------------- forward
     def forward(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Teacher-forcing forward over full sequences (train and eval).
-        With ``cfg.remat`` and grad mode on, each layer is a
+        """Teacher-forcing forward over full sequences (train and eval):
+        ``(logits, {"router_aux": the MoE layers' load-balance losses
+        summed, 0 for the other families})``.  With ``cfg.remat`` and grad
+        mode on, each layer of a ``layers`` stack is a
         ``torch.utils.checkpoint`` block (the reference's ``jax.checkpoint``;
         its ``"dots"`` policy recomputes everything here too, with the same
         numbers).  ``cfg.scan_layers`` is the reference's ``lax.scan`` over
         the stacked layers; the port's layer loop computes the same."""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        h = self._embed(params, tokens)
+        h = self._embed(params, tokens, batch)
         positions = batch.get("positions")
         if positions is None:
             positions = make_positions(B, S, h.device)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if self.cfg.family == "encdec":
+            mem = self._encode(params, batch)
+            for lp in params["dec_layers"]:
+                h = self._decoder_block(lp, h, positions, mem)[0]
+            return self._unembed(params, h), {"router_aux": aux}
         for i in range(len(params["layers"])):
             if self.cfg.remat and torch.is_grad_enabled():
-                h = torch.utils.checkpoint.checkpoint(
+                h, a = torch.utils.checkpoint.checkpoint(
                     self._layer, params, i, h, positions, use_reentrant=False)
             else:
-                h = self._layer(params, i, h, positions)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+                h, a = self._layer(params, i, h, positions)
+            aux = aux + a
         return self._unembed(params, h), {"router_aux": aux}
 
     def _layer(self, params, i: int, h, positions):
-        """Layer i of the teacher-forcing forward (with the hybrid family's
-        shared block before it where it fires)."""
+        """(h, router aux) of layer i of the teacher-forcing forward (with
+        the hybrid family's shared block before it where it fires)."""
         lp = params["layers"][i]
-        if self.cfg.family == "dense":
-            return self._dense_block(lp, h, positions)[0]
+        if self.cfg.family in _DENSE_TRUNK:
+            h, _, aux = self._dense_block(lp, h, positions)
+            return h, aux
         if self._attn_site(i):
-            h, _ = self._dense_block(params["shared_attn"], h, positions)
-        return h + apply_mamba(lp["mamba"], apply_norm(lp["ln"], h, self.cfg), self.cfg)
+            h = self._dense_block(params["shared_attn"], h, positions)[0]
+        h = h + apply_mamba(lp["mamba"], apply_norm(lp["ln"], h, self.cfg), self.cfg)
+        return h, torch.zeros((), device=h.device)
 
     def _attn_site(self, i: int) -> bool:
         """Whether the hybrid family's shared block fires before layer i."""
@@ -228,7 +307,7 @@ class Model:
     # ------------------------------------------------------------------ cache
     def n_attn_sites(self) -> int:
         cfg = self.cfg
-        if cfg.family == "dense":
+        if cfg.family in _DENSE_TRUNK or cfg.family == "encdec":
             return cfg.num_layers
         if cfg.family == "hybrid":
             return -(-cfg.num_layers // cfg.attn_every) if cfg.attn_every else 0
@@ -238,15 +317,18 @@ class Model:
         w = self.cfg.sliding_window
         return min(max_len, w) if w else max_len
 
-    def init_cache(self, batch: int, max_len: int, *, device=None) -> DecodeCache:
+    def init_cache(self, batch: int, max_len: int, enc_len: Optional[int] = None, *,
+                   device=None) -> DecodeCache:
         """Zeroed caches in the activation dtype on ``device`` (default: the
         CUDA device; raises without one): (sites, B, W, KV, hd) ring buffers
         for the attention sites, (L, B, W-1, ch) conv and (L, B, H, N, P)
-        SSM states for the mamba layers."""
+        SSM states for the mamba layers, and for the encoder-decoder family
+        the (L_dec, B, T_enc, KV, hd) cross cache, ``T_enc`` being
+        ``enc_len`` or ``cfg.enc_seq_len``."""
         cfg = self.cfg
         dev = resolve_device(device)
         dt = _dtype(cfg.dtype)
-        attn = conv = ssm = None
+        attn = conv = ssm = cross = None
         if self.n_attn_sites():
             shape = (self.n_attn_sites(), batch, self.cache_window(max_len),
                      cfg.num_kv_heads, cfg.head_dim)
@@ -256,16 +338,23 @@ class Model:
             c1, s1 = init_ssm_state(cfg, batch, dt, dev)
             conv = c1.expand(cfg.num_layers, *c1.shape).clone()
             ssm = s1.expand(cfg.num_layers, *s1.shape).clone()
-        return DecodeCache(index=0, attn=attn, conv=conv, ssm=ssm)
+        if cfg.family == "encdec":
+            shape = (cfg.num_layers, batch, enc_len or cfg.enc_seq_len, cfg.num_kv_heads,
+                     cfg.head_dim)
+            cross = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                     "v": torch.zeros(shape, dtype=dt, device=dev)}
+        return DecodeCache(index=0, attn=attn, conv=conv, ssm=ssm, cross=cross)
 
     # ---------------------------------------------------------------- prefill
     def prefill(self, params, batch, cache: DecodeCache) -> Tuple[torch.Tensor, DecodeCache]:
         """Consume a prompt, fill the cache in place, return last-position
-        logits (B, 1, V) in f32."""
+        logits (B, 1, V) in f32.  The encoder-decoder family encodes
+        ``batch["enc_embeds"]`` and writes each decoder layer's projected
+        memory into the cross cache."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
-        h = self._embed(params, tokens)
+        h = self._embed(params, tokens, batch)
         positions = make_positions(B, S, h.device)
         if cache.attn is not None:
             W = cache.attn["k"].shape[2]
@@ -278,14 +367,23 @@ class Model:
                 ring = cache.attn[name][site]
                 ring.index_copy_(1, slots, kv[name][:, S - keep:].to(ring.dtype))
 
+        if cfg.family == "encdec":
+            mem = self._encode(params, batch)
+            for i, lp in enumerate(params["dec_layers"]):
+                h, kv, xkv = self._decoder_block(lp, h, positions, mem)
+                fill_ring(i, kv)
+                for name in ("k", "v"):
+                    cache.cross[name][i].copy_(xkv[name])
+            return self._unembed(params, h[:, -1:, :]), dataclasses.replace(cache, index=S)
+
         site = 0
         for i, lp in enumerate(params["layers"]):
-            if cfg.family == "dense":
-                h, kv = self._dense_block(lp, h, positions)
+            if cfg.family in _DENSE_TRUNK:
+                h, kv, _ = self._dense_block(lp, h, positions)
                 fill_ring(i, kv)
                 continue
             if self._attn_site(i):
-                h, kv = self._dense_block(params["shared_attn"], h, positions)
+                h, kv, _ = self._dense_block(params["shared_attn"], h, positions)
                 fill_ring(site, kv)
                 site += 1
             y, (cv, st) = apply_mamba(
@@ -304,14 +402,24 @@ class Model:
         idx = cache.index
         h = self._embed(params, tokens)
         positions = torch.full((tokens.shape[0], 1), idx, device=h.device)
+
+        def ring(site):
+            return {"k": cache.attn["k"][site], "v": cache.attn["v"][site]}
+
+        if cfg.family == "encdec":
+            for i, lp in enumerate(params["dec_layers"]):
+                cross = {"k": cache.cross["k"][i], "v": cache.cross["v"][i]}
+                h = self._decoder_block(lp, h, positions, cache=ring(i), cross=cross,
+                                        index=idx)[0]
+            return self._unembed(params, h), dataclasses.replace(cache, index=idx + 1)
+
         site = 0
         for i, lp in enumerate(params["layers"]):
-            if cfg.family == "dense" or self._attn_site(i):
-                lc = {"k": cache.attn["k"][site], "v": cache.attn["v"][site]}
-                block = lp if cfg.family == "dense" else params["shared_attn"]
-                h, _ = self._dense_block(block, h, positions, cache=lc, index=idx)
+            if cfg.family in _DENSE_TRUNK or self._attn_site(i):
+                block = lp if cfg.family in _DENSE_TRUNK else params["shared_attn"]
+                h = self._dense_block(block, h, positions, cache=ring(site), index=idx)[0]
                 site += 1
-            if cfg.family == "dense":
+            if cfg.family in _DENSE_TRUNK:
                 continue
             y, ncv, nst = mamba_decode_step(
                 lp["mamba"], apply_norm(lp["ln"], h, cfg), cfg, cache.conv[i], cache.ssm[i]

@@ -4,9 +4,12 @@ The port's copy of ``SyntheticLM`` and ``make_batch`` from
 ``repro/training/data.py``: the same seeded numpy sampler (an order-1
 Markov chain with copy motifs), so the same seed gives the same tokens in
 both packages; :func:`make_batch` hands them over as tensors on a device,
-and :func:`batch_iterator` streams them as the reference's does.  The
-reference's vision/audio stubs serve families the port does not serve yet
-(``ROADMAP.md`` §1 items 13 and 14).
+and :func:`batch_iterator` streams them as the reference's does.
+
+The modality stubs are the reference's too: :func:`vision_stub_batch` and
+:func:`audio_stub_batch` hand precomputed patch / frame embeddings of the
+right shape (no ViT or conv frontend), drawn from the same ``rng`` after
+the tokens, so they equal the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.instance import resolve_device
 
-__all__ = ["SyntheticLM", "make_batch", "batch_iterator"]
+__all__ = ["SyntheticLM", "make_batch", "batch_iterator", "vision_stub_batch",
+           "audio_stub_batch"]
 
 
 @dataclasses.dataclass
@@ -71,11 +75,39 @@ def make_batch(
     device=None,
 ) -> Dict[str, torch.Tensor]:
     """One batch of int32 ``tokens`` and next-token ``labels`` (B, seq) on
-    ``device`` (default: the CUDA device; raises without one)."""
+    ``device`` (default: the CUDA device; raises without one), with the
+    VLM family's vision stub or the encoder-decoder family's audio stub."""
     dev = resolve_device(device)
     src = source or SyntheticLM(cfg.vocab_size)
     toks = torch.from_numpy(src.sample(rng, batch, seq + 1))
-    return {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    out = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    if cfg.family == "vlm" and cfg.num_patches:
+        out.update(vision_stub_batch(cfg, batch, seq, rng, device=dev))
+    if cfg.family == "encdec":
+        out.update(audio_stub_batch(cfg, batch, rng, device=dev))
+    return out
+
+
+def vision_stub_batch(cfg: ModelConfig, batch: int, seq: int, rng: np.random.Generator, *,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """STUB vision frontend: f32 ``vision_embeds`` (B, P, d_model) of std
+    0.02 and int32 ``vision_positions`` (B, P), the first ``P =
+    min(num_patches, seq)`` slots of the token stream."""
+    dev = resolve_device(device)
+    P = min(cfg.num_patches, seq)
+    emb = rng.standard_normal((batch, P, cfg.d_model)).astype(np.float32) * 0.02
+    pos = np.broadcast_to(np.arange(P, dtype=np.int32), (batch, P)).copy()
+    return {"vision_embeds": torch.from_numpy(emb).to(dev),
+            "vision_positions": torch.from_numpy(pos).to(dev)}
+
+
+def audio_stub_batch(cfg: ModelConfig, batch: int, rng: np.random.Generator, *,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """STUB audio frontend: f32 frame embeddings ``enc_embeds`` (B,
+    enc_seq_len, d_model) of std 0.02."""
+    dev = resolve_device(device)
+    emb = rng.standard_normal((batch, cfg.enc_seq_len, cfg.d_model)).astype(np.float32) * 0.02
+    return {"enc_embeds": torch.from_numpy(emb).to(dev)}
 
 
 def batch_iterator(

@@ -41,13 +41,6 @@ DIFFERENCES = {
         # in models/carry.py
         "init_from_decl",
         "specs_from_decl",    # item 9, still to port: sharding specs
-        "apply_moe",          # item 12, still to port: the MoE family
-        "moe_decl",           # item 12
-        "router_aux_loss",    # item 12
-    },
-    "training": {
-        "vision_stub_batch",  # item 14, still to port: the VLM family
-        "audio_stub_batch",   # item 13, still to port: the encoder-decoder family
     },
     "kernels.ops": {
         "on_tpu",             # TPU only: the port's route follows the tensors' device

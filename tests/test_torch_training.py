@@ -238,7 +238,7 @@ def _flat(tcfg, tree):
     return out
 
 
-def _assert_step_close(tcfg, tstate, jstate, opt):
+def _assert_step_close(tcfg, tstate, jstate, opt, wide=False):
     """``m`` and ``v`` at the stated tolerance everywhere; the parameters
     at the stated tolerance on all but 0.1% of their elements, and every
     element within AdamW's step bound ``2 lr``.  AdamW's normalized step
@@ -247,21 +247,31 @@ def _assert_step_close(tcfg, tstate, jstate, opt):
     order: up to ~1e-6 absolute in an embedding row whose largest entry is
     ~5; each package's float32 gradient is ~2e-5 relative from a float64
     computation) into a step difference of up to ``2 lr``, though the
-    moments agree."""
+    moments agree.  ``wide``: a config whose float32 gradient is itself
+    ill-conditioned is held at the wide limits instead: ``m`` and ``v`` at
+    the stated tolerance on all but ``WIDE_OFF_SHARE`` of the elements of
+    each leaf (so a wrong gradient of any one leaf, however small, fails),
+    the parameters on all but ``WIDE_OFF_SHARE`` of their elements, each
+    within ``2 lr``."""
     gp, gm, gv = (_flat(tcfg, t) for t in (tstate.params, tstate.opt.m, tstate.opt.v))
     wp, wm, wv = ({jax.tree_util.keystr(p): np.asarray(x)
                    for p, x in jax.tree_util.tree_leaves_with_path(t)}
                   for t in (jstate.params, jstate.opt.m, jstate.opt.v))
-    n_off = n_all = 0
+    def n_off(got, want):
+        return int((np.abs(got - want) > STATE_TOL["atol"] + STATE_TOL["rtol"] * np.abs(want)).sum())
+
+    p_off = n_all = 0
     for k in wp:
-        np.testing.assert_allclose(gm[k], wm[k], err_msg=f"m{k}", **STATE_TOL)
-        np.testing.assert_allclose(gv[k], wv[k], err_msg=f"v{k}", **STATE_TOL)
-        diff = np.abs(gp[k] - wp[k])
-        assert diff.max(initial=0.0) <= 2 * opt.lr, k
-        off = diff > STATE_TOL["atol"] + STATE_TOL["rtol"] * np.abs(wp[k])
-        n_off += int(off.sum())
-        n_all += off.size
-    assert n_off <= n_all // 1000, (n_off, n_all)
+        if wide:
+            for name, got, want in (("m", gm[k], wm[k]), ("v", gv[k], wv[k])):
+                assert n_off(got, want) <= want.size * WIDE_OFF_SHARE, (f"{name}{k}", want.size)
+        else:
+            np.testing.assert_allclose(gm[k], wm[k], err_msg=f"m{k}", **STATE_TOL)
+            np.testing.assert_allclose(gv[k], wv[k], err_msg=f"v{k}", **STATE_TOL)
+        assert np.abs(gp[k] - wp[k]).max(initial=0.0) <= 2 * opt.lr, k
+        p_off += n_off(gp[k], wp[k])
+        n_all += wp[k].size
+    assert p_off <= n_all * (WIDE_OFF_SHARE if wide else 1e-3), (p_off, n_all)
     assert int(tstate.opt.step) == int(jstate.opt.step)
 
 
