@@ -183,7 +183,27 @@ any phase fails:
    dim gives, decode once a layer and step, the encoder's and the cross
    attention plain; f32 prefill + decode against one forward on a
    dropless qwen2-moe at full width and 4 layers;
-16. prints one JSON line listing every ported kernel, then the contract line
+16. serves the int8 KV cache, chunked attention and continuous batching
+   (``continuous_smoke``), all at full width in bf16 under ``no_grad``:
+   (a) the slice's main path, yi-9b at full width and depth on an int8
+   cache served by ``ContinuousBatcher(n_slots=8, max_len=1088)``: 16
+   requests, prompts of 64-1024 tokens and 8-32 new tokens drawn from a
+   seed, flash counted at 48 launches an admit (tensor-core route, B = 1,
+   ragged S) and decode at 48 a step (one ``decode_step`` for all slots),
+   with its wall, requests a second, prefill ms an admit, decode ms a
+   step, peak memory and the int8 cache's bytes against bf16's; beside it
+   the same requests one by one through ``ServingEngine.generate`` on the
+   bf16 cache; (b) the decode kernel over a dequantized int8 ring whose 8
+   rows have different validity, and flash at B = 1 and S = 77 / 200 /
+   1000, against their plain versions, and both timed at the batcher's
+   shapes; (c) each slot's step logits against a batch-1 step on its own
+   cache, the batcher's tokens against each request served alone up to a
+   near tie, int8 against bf16, mamba2-130m (``ssd_scan`` at B = 1, ragged
+   S, counted) and a reduced qwen2-moe at 12 slots; (d) seamless-m4t-medium
+   prefill with the chunked encoder against the unchunked one (ms, peak
+   memory, logits), and a chunked train step's gradients on the plain
+   route against the unchunked step's;
+17. prints one JSON line listing every ported kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device,
@@ -2489,6 +2509,419 @@ def families_smoke(dev, zero_counts):
     return {"launches": launches, "routes": routes, "max_abs_err": errs, "timed": timed}
 
 
+#: phase 16: the int8 KV cache, chunked attention and continuous batching.
+#: (a) the main path: yi-9b at full width and depth on an int8 cache, 16
+#: requests (prompts 64-1024 tokens, 8-32 new tokens each, drawn from
+#: CB_SEED) served by ContinuousBatcher(n_slots=8, max_len=1088)
+CB_ARCH, CB_SLOTS, CB_MAX_LEN, CB_REQUESTS, CB_SEED = "yi-9b", 8, 1088, 16, 16
+#: (c) a slot's batched step logits against its own batch-1 decode step
+#: (bf16, 48 layers: the batched and batch-1 products round differently;
+#: measured 0.047 on logits up to 5); a greedy token that differs from the
+#: request served alone (whose cache took other roundings at every step
+#: before) must sit at a near tie: a top-2 logit gap below CB_NEAR_TIE
+CB_STEP_TOL = dict(rtol=2e-2, atol=1.25e-1)
+CB_NEAR_TIE = {"bfloat16": 2.5e-1, "float32": 1e-3}
+#: (d) seamless-m4t-medium prefill, chunked encoder (attn_block 1024 over
+#: 4096 frames) against the unchunked one, bf16 logits at the attention
+#: kernels' bf16 tolerance (measured 0: each bidirectional row's softmax
+#: spans every frame either way); a reduced dense train step's gradients,
+#: chunked against unchunked on the plain route (tests/test_attn_impl.py's
+#: tolerances)
+CHUNK_ARCH, CHUNK_BATCH, CHUNK_PROMPT = "seamless-m4t-medium", 8, 1024
+CHUNK_LOGIT_TOL = ATTN_TOL["bfloat16"]
+CHUNK_GRAD_TOL = dict(rtol=5e-3, atol=1e-4)
+
+
+def continuous_smoke(dev, zero_counts, smi):
+    """Phase 16: the int8 KV cache, chunked attention and continuous
+    batching on the card.  (a) the slice's main path, counted: yi-9b on an
+    int8 cache served by a ``ContinuousBatcher``, beside the same requests
+    served one by one through ``ServingEngine.generate`` on the bf16 cache;
+    (b) the decode kernel over a dequantized int8 ring with rows of
+    different validity, and flash at B = 1 and ragged S, against their
+    plain versions, and both timed at the batcher's shapes; (c) the
+    batcher's semantics: step logits against batch-1 steps, tokens against
+    each request alone, int8 against bf16, mamba2-130m at full width and a
+    reduced qwen2-moe at 12 slots; (d) chunked attention: seamless-m4t-
+    medium's chunked encoder against the unchunked one, and a chunked train
+    step on the plain route.  Returns ``{"launches": {kernel: {path: n}},
+    "max_abs_err": {kernel: err}, "timed": {kernel: {...}}}``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ModelConfig, get_config, reduce_for_smoke
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.gus import gus_assign
+    from repro_torch.kernels.hier import hier_cells
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import DecodeCache, Model
+    from repro_torch.models.quant import dequantize_kv, quantize_kv
+    from repro_torch.serving import ContinuousBatcher, Request, ServingEngine
+    from repro_torch.training import make_batch, make_loss_fn
+    from repro_torch.training.optimizer import tree_leaves, tree_unflatten
+
+    t_phase = time.perf_counter()
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    launches = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}}
+    cfg = dataclasses.replace(get_config(CB_ARCH), kv_cache_dtype="int8")
+    H, KV, hd, dt = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.dtype
+    rng = np.random.default_rng(CB_SEED)
+    lengths = rng.integers(64, 1025, CB_REQUESTS)
+    gens = rng.integers(8, 33, CB_REQUESTS)
+    check(bool((lengths % 64 != 0).any()), "no prompt length off a multiple of 64")
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lengths]
+
+    def requests():
+        return [Request(i, p, int(g)) for i, (p, g) in enumerate(zip(prompts, gens))]
+
+    def timed_calls(obj, name, times):
+        """Wrap ``obj.name`` to append each call's host seconds (each call
+        ends in a read back to the host, so the time is the card's too)."""
+        real = getattr(obj, name)
+
+        def wrapper(*args):
+            t0 = time.perf_counter()
+            out = real(*args)
+            times.append(time.perf_counter() - t0)
+            return out
+
+        setattr(obj, name, wrapper)
+
+    def first_mismatch(a, b):
+        return next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+    def agreement(model, params, prompts_, got, want, tie):
+        """(tokens equal up to each request's first difference, requests cut
+        there): a token of ``got`` that differs from ``want`` (the request
+        served alone) must be a near tie of that decision, whose top-2 gap
+        is read from a batch-1 prefill over the prompt and the tokens
+        before it."""
+        n_eq = n_cut = 0
+        for p, a, b in zip(prompts_, got, want):
+            t = first_mismatch(a, b)
+            if t is None:
+                n_eq += len(a)
+                continue
+            toks = torch.from_numpy(np.concatenate([p, np.asarray(b[:t], np.int32)]))[None]
+            logits, _ = model.prefill(params, {"tokens": toks.to(dev)},
+                                      model.init_cache(1, toks.shape[1], device=dev))
+            top = logits[0, -1].topk(2).values
+            gap = float(top[0] - top[1])
+            print(f"  {model.cfg.arch_id}: token {t} of a {len(p)}-token prompt differs from "
+                  f"the request served alone ({a[t]} against {b[t]}), top-2 gap {gap}")
+            check(gap < tie, f"{model.cfg.arch_id}: token {t} differs from the request served "
+                  f"alone at a top-2 gap of {gap} (a near tie is below {tie})")
+            n_eq += t
+            n_cut += 1
+        return n_eq, n_cut
+
+    def serve_alone(model, params, prompts_, gens_, max_len):
+        """Each request on its own through ``ServingEngine.generate``:
+        (tokens, generate's total_ms summed)."""
+        eng = ServingEngine(model, params, device=dev)
+        out, total_ms = [], 0.0
+        for p, g in zip(prompts_, gens_):
+            r = eng.generate({"tokens": torch.from_numpy(p)[None].to(dev)},
+                             max_new_tokens=int(g), max_len=max_len)
+            out.append([int(x) for x in r.tokens[0]])
+            total_ms += r.total_ms
+        return out, total_ms
+
+    with torch.no_grad():
+        # -- 16b. the kernels at the slice's new launch shapes ----------------
+        t0 = time.perf_counter()
+        ring_lengths = torch.tensor([1, 70, 333, 640, 1000, 1024, 1056, 1088], device=dev)
+        W = CB_MAX_LEN
+        rk, ks = quantize_kv(randn(dev, (CB_SLOTS, W, KV, hd), "float32", 161) * 2)
+        rv, vs = quantize_kv(randn(dev, (CB_SLOTS, W, KV, hd), "float32", 162))
+        dk = dequantize_kv(rk, ks, getattr(torch, dt)).transpose(1, 2)  # fresh, then a view
+        dv = dequantize_kv(rv, vs, getattr(torch, dt)).transpose(1, 2)
+        dq = randn(dev, (CB_SLOTS, KV, H // KV, hd), dt, 163)
+        valid = torch.arange(W, device=dev)[None] < ring_lengths[:, None]
+        compare_attn(errs, "decode_attention",
+                     f"dequantized int8 ring B={CB_SLOTS} KV={KV} rep={H // KV} T={W} hd={hd}, "
+                     f"rows valid {ring_lengths.tolist()}",
+                     decode_attention(dq, dk, dv, valid, backend="cuda"),
+                     decode_attention_ref(dq, dk, dv, valid), dt)
+        for S in (77, 200, 1000):
+            q = randn(dev, (1, S, H, hd), dt, 164).transpose(1, 2)
+            k = randn(dev, (1, S, KV, hd), dt, 165).transpose(1, 2)
+            v = randn(dev, (1, S, KV, hd), dt, 166).transpose(1, 2)
+            before = flash_attention.route_launches["wgmma"]
+            compare_attn(errs, "flash_attention", f"B=1 H={H} KV={KV} S={S} hd={hd} (admit)",
+                         flash_attention(q, k, v, backend="cuda"), flash_attention_ref(q, k, v),
+                         dt)
+            check(flash_attention.route_launches["wgmma"] == before + 1,
+                  f"flash at B=1 S={S} did not take the tensor-core route")
+        # timed at the batcher's shapes: decode over the 8-slot dequantized
+        # ring (validity as above), flash at B=1 over the longest prompt
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        n_valid = int(valid.sum()) / CB_SLOTS
+        S = int(lengths.max())
+        (fb, fby), _ = attention_bounds(1, H, KV, S, W, n_valid, hd, dt)
+        _, (db, dby) = attention_bounds(CB_SLOTS, H, KV, S, W, n_valid, hd, dt)
+        q = randn(dev, (1, S, H, hd), dt, 167).transpose(1, 2)
+        k = randn(dev, (1, S, KV, hd), dt, 168).transpose(1, 2)
+        v = randn(dev, (1, S, KV, hd), dt, 169).transpose(1, 2)
+        mask = valid[:, None, None, :]
+        timed = {
+            "flash_attention": {
+                "shape": f"B=1 H={H} KV={KV} S={S} hd={hd} {dt} causal",
+                "ms": time_events(lambda: flash_attention(q, k, v, backend="cuda"), 20),
+                "graph_ms": time_graph(lambda: flash_attention(q, k, v, backend="cuda"), 20),
+                "plain_ms": time_events(lambda: flash_attention_ref(q, k, v), 5, warmup=1),
+                "bound_ms": fb, "bound_by": fby,
+                "library_ms": library_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                                         20, time_graph),
+            },
+            "decode_attention": {
+                "shape": f"B={CB_SLOTS} KV={KV} rep={H // KV} T={W} hd={hd} {dt}, valid "
+                         f"{ring_lengths.tolist()}, the ring dequantized from int8",
+                "ms": time_events(lambda: decode_attention(dq, dk, dv, valid, backend="cuda"),
+                                  60),
+                "graph_ms": time_graph(
+                    lambda: decode_attention(dq, dk, dv, valid, backend="cuda"), 60),
+                "plain_ms": time_events(lambda: decode_attention_ref(dq, dk, dv, valid), 12),
+                "bound_ms": db, "bound_by": dby,
+                "library_ms": library_ms(lambda: sdpa(dq.flatten(1, 2)[:, :, None], dk, dv,
+                                                      attn_mask=mask, enable_gqa=True),
+                                         60, time_graph),
+            },
+        }
+        deq_ms = time_graph(lambda: dequantize_kv(rk, ks, getattr(torch, dt)), 60)
+        deq_bytes = rk.numel() * (1 + 2) + ks.numel() * 4
+        for name, t in timed.items():
+            print(f"time {name} phase 16 launch {t['shape']}: kernel {t['ms']:.4f} ms eager, "
+                  f"{t['graph_ms']:.4f} ms device (graph replay), plain {t['plain_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), device/bound "
+                  f"{t['graph_ms'] / t['bound_ms']:.2f}x, library scaled_dot_product_attention "
+                  f"{t['library_ms']} ms device ({smi})")
+        print(f"time dequantize_kv of one layer's k ring (B={CB_SLOTS} W={W} KV={KV} hd={hd}, "
+              f"int8 + f32 scales -> {dt}): {deq_ms:.4f} ms device, bound "
+              f"{deq_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes); a decode step dequantizes "
+              f"2 x {cfg.num_layers} such rings ({smi})")
+        print(f"phase 16b kernels at the new shapes: {time.perf_counter() - t0:.1f} s")
+        del rk, rv, dk, dv, q, k, v
+
+        # -- 16a. the main path: yi-9b on an int8 cache, continuous batching -
+        t0 = time.perf_counter()
+        sync(dev)
+        torch.cuda.empty_cache()
+        model8 = Model(cfg)
+        model16 = Model(dataclasses.replace(cfg, kv_cache_dtype="auto"))
+        params = model8.init(0, device=dev)
+        qkv_to_fan_in_d((lp["attn"] for lp in params["layers"]), cfg)
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cb = ContinuousBatcher(model8, params, n_slots=CB_SLOTS, max_len=CB_MAX_LEN, device=dev)
+        int8_bytes = sum(t.numel() * t.element_size() for t in cb._cache.attn.values())
+        bf16_bytes = 2 * cb._cache.attn["k"].numel() * 2  # k and v rings in bf16, no scales
+        admit_s, step_s = [], []
+        timed_calls(cb, "admit", admit_s)
+        timed_calls(cb, "step", step_s)
+        zero_counts()
+        sync(dev)
+        t1 = time.perf_counter()
+        out = cb.run(requests())
+        wall = time.perf_counter() - t1
+        n_flash, n_decode = flash_attention.launches, decode_attention.launches
+        routes = dict(flash_attention.route_launches)
+        check(gus_assign.launches == hier_cells.launches == ssd_scan.launches == 0,
+              "the batcher's main path launched a scheduler or SSD kernel")
+        peak = torch.cuda.max_memory_allocated() - base
+        n_admit, n_step = len(admit_s), len(step_s)
+        n_tokens = int(gens.sum())
+        print(
+            f"phase 16a main path: {CB_ARCH} ({cfg.num_layers} layers, d={cfg.d_model}, "
+            f"H={H} KV={KV}, {dt}, kv_cache_dtype=int8) ContinuousBatcher(n_slots={CB_SLOTS}, "
+            f"max_len={CB_MAX_LEN}): {CB_REQUESTS} requests, prompts {lengths.tolist()}, "
+            f"max_new_tokens {gens.tolist()} ({n_tokens} tokens): wall {wall:.3f} s, "
+            f"requests/s {CB_REQUESTS / wall:.3f}, generated tokens/s {n_tokens / wall:.1f}; "
+            f"{n_admit} admits, prefill ms per admit {1e3 * sum(admit_s) / n_admit:.3f} "
+            f"(mean prompt {lengths.mean():.1f}); {n_step} steps, decode ms per step "
+            f"{1e3 * sum(step_s) / n_step:.3f}; peak memory {peak / 1e9:.3f} GB (less "
+            f"{base / 1e9:.3f} GB held before, the parameters included); int8 cache "
+            f"{int8_bytes / 1e9:.4f} GB against {bf16_bytes / 1e9:.4f} GB in bf16 "
+            f"({int8_bytes / bf16_bytes:.4f}); flash_attention launches={n_flash} (by route "
+            f"{json.dumps(routes)}, expected {cfg.num_layers} per admit: "
+            f"{cfg.num_layers * n_admit}), decode_attention launches={n_decode} (expected "
+            f"{cfg.num_layers} per step: {cfg.num_layers * n_step}) ({smi})")
+        check(n_admit == CB_REQUESTS, f"{n_admit} admits for {CB_REQUESTS} requests")
+        check(n_flash == cfg.num_layers * n_admit and routes["wgmma"] == n_flash,
+              f"flash must launch on the tensor-core route once a layer an admit, got {routes}")
+        check(n_decode == cfg.num_layers * n_step,
+              f"decode must launch once a layer a step (one decode_step for all slots), "
+              f"got {n_decode} in {n_step} steps")
+        check(sorted(out) == list(range(CB_REQUESTS))
+              and all(len(out[i]) == int(g) for i, g in enumerate(gens))
+              and all(0 <= t < cfg.vocab_size for toks in out.values() for t in toks),
+              "the batcher's tokens are malformed")
+        launches["flash_attention"]["phase 16a yi-9b ContinuousBatcher int8 (16 admits)"] = n_flash
+        launches["decode_attention"][f"phase 16a yi-9b ContinuousBatcher int8 ({n_step} steps)"] \
+            = n_decode
+
+        # the same requests, one by one, on the bf16 cache (a measurement)
+        t1 = time.perf_counter()
+        bf16_alone, bf16_ms = serve_alone(model16, params, prompts, gens, CB_MAX_LEN)
+        bf16_wall = time.perf_counter() - t1
+        print(f"phase 16a beside it: the {CB_REQUESTS} requests one by one through "
+              f"ServingEngine.generate on the bf16 cache: wall {bf16_wall:.3f} s (generate's "
+              f"total_ms summed {bf16_ms / 1e3:.3f} s), requests/s {CB_REQUESTS / bf16_wall:.3f}, "
+              f"generated tokens/s {n_tokens / bf16_wall:.1f} ({smi})")
+        print(f"phase 16a: {time.perf_counter() - t0:.1f} s")
+
+        # -- 16c. the batcher's semantics ---------------------------------------
+        t0 = time.perf_counter()
+        # a step's logits for each slot against a batch-1 step on its own cache
+        cb.reset()
+        for r in requests()[:CB_SLOTS]:
+            cb.admit(r)
+        for _ in range(3):
+            cb.step()
+        snap = DecodeCache(index=cb._cache.index.clone(),
+                           attn={k: t.clone() for k, t in cb._cache.attn.items()})
+        batched, _ = model8.decode_step(params, cb._last_tok, snap)
+        step_err = 0.0
+        for b in range(CB_SLOTS):
+            one = DecodeCache(index=int(cb._cache.index[b]),
+                              attn={k: t[:, b:b + 1].clone() for k, t in cb._cache.attn.items()})
+            lb, _ = model8.decode_step(params, cb._last_tok[b:b + 1], one)
+            step_err = max(step_err, float((batched[b] - lb[0]).abs().max()))
+            check(torch.allclose(batched[b], lb[0], **CB_STEP_TOL),
+                  f"slot {b}: the batched step's logits != a batch-1 step on its cache")
+        print(f"phase 16c step logits, each of {CB_SLOTS} slots against a batch-1 decode_step on "
+              f"its own cache: max_abs_err {step_err} (max |logit| "
+              f"{float(batched.abs().max())}) within {CB_STEP_TOL}")
+        # greedy tokens against each request served alone (int8 and bf16)
+        int8_alone, _ = serve_alone(model8, params, prompts, gens, CB_MAX_LEN)
+        got = [out[i] for i in range(CB_REQUESTS)]
+        n_eq, n_cut = agreement(model8, params, prompts, got, int8_alone, CB_NEAR_TIE[dt])
+        firsts = [first_mismatch(a, b) for a, b in zip(int8_alone, bf16_alone)]
+        n_same = sum(t is None for t in firsts)
+        n_pre = sum(len(a) if t is None else t for a, t in zip(int8_alone, firsts))
+        print(f"phase 16c tokens: the batcher against each request served alone "
+              f"(ServingEngine.generate, int8 cache): {n_eq} of {n_tokens} tokens equal up to "
+              f"each request's first difference, {n_cut} requests cut there at a near tie (top-2 "
+              f"gap below {CB_NEAR_TIE[dt]}); int8 against bf16 alone: {n_same} of "
+              f"{CB_REQUESTS} requests equal throughout, {n_pre} of {n_tokens} tokens equal up "
+              f"to each request's first difference")
+        del cb, snap, batched, params
+        sync(dev)
+        torch.cuda.empty_cache()
+
+        # mamba2-130m at full width: ssd_scan at B = 1 and ragged S
+        mcfg = get_config("mamba2-130m")
+        mmodel = Model(mcfg)
+        mparams = mmodel.init(0, device=dev)
+        mrng = np.random.default_rng(CB_SEED + 1)
+        mlen = mrng.integers(64, 700, 12)
+        mgen = mrng.integers(8, 17, 12)
+        mprompts = [mrng.integers(0, mcfg.vocab_size, n).astype(np.int32) for n in mlen]
+        mcb = ContinuousBatcher(mmodel, mparams, n_slots=CB_SLOTS, max_len=1024, device=dev)
+        zero_counts()
+        mout = mcb.run([Request(i, p, int(g)) for i, (p, g) in enumerate(zip(mprompts, mgen))])
+        n_ssd, ssd_routes = ssd_scan.launches, dict(ssd_scan.route_launches)
+        check(flash_attention.launches == decode_attention.launches == 0,
+              "mamba2-130m's batcher launched an attention kernel")
+        check(n_ssd == mcfg.num_layers * len(mprompts) and ssd_routes["wgmma"] == n_ssd,
+              f"ssd_scan must launch on the tensor-core route once a layer an admit, got "
+              f"{ssd_routes}")
+        malone, _ = serve_alone(mmodel, mparams, mprompts, mgen, 1024)
+        mgot = [mout[i] for i in range(len(mprompts))]
+        m_eq, m_cut = agreement(mmodel, mparams, mprompts, mgot, malone,
+                                CB_NEAR_TIE[mcfg.dtype])
+        print(f"phase 16c mamba2-130m (full width, {mcfg.num_layers} layers, {mcfg.dtype}) "
+              f"ContinuousBatcher(n_slots={CB_SLOTS}): 12 requests, prompts {mlen.tolist()}: "
+              f"ssd_scan launches={n_ssd} (by route {json.dumps(ssd_routes)}), {m_eq} of "
+              f"{int(mgen.sum())} tokens equal to each request served alone up to its first "
+              f"difference, {m_cut} requests cut there at a near tie")
+        launches["ssd_scan"]["phase 16c mamba2-130m ContinuousBatcher (12 admits)"] = n_ssd
+        del mcb, mparams
+
+        # a reduced qwen2-moe at 12 slots: each row's token routed alone
+        qcfg = reduce_for_smoke(get_config("qwen2-moe-a2.7b"))
+        qmodel = Model(qcfg)
+        qparams = qmodel.init(0, device=dev)
+        qkv_to_fan_in_d((lp["attn"] for lp in qparams["layers"]), qcfg)
+        qrng = np.random.default_rng(CB_SEED + 2)
+        qlen = qrng.integers(5, 60, 14)
+        qprompts = [qrng.integers(0, qcfg.vocab_size, n).astype(np.int32) for n in qlen]
+        qgen = [6] * 14
+        qcb = ContinuousBatcher(qmodel, qparams, n_slots=12, max_len=72, device=dev)
+        qout = qcb.run([Request(i, p, g) for i, (p, g) in enumerate(zip(qprompts, qgen))])
+        qalone, _ = serve_alone(qmodel, qparams, qprompts, qgen, 72)
+        qgot = [qout[i] for i in range(14)]
+        q_eq, q_cut = agreement(qmodel, qparams, qprompts, qgot, qalone, CB_NEAR_TIE[qcfg.dtype])
+        print(f"phase 16c reduced qwen2-moe ({qcfg.n_experts} experts, top-{qcfg.top_k}, "
+              f"{qcfg.dtype}) ContinuousBatcher(n_slots=12): 14 requests: {q_eq} of "
+              f"{sum(qgen)} tokens equal to batch-1 decodes up to each request's first "
+              f"difference, {q_cut} cut at a near tie")
+        print(f"phase 16c: {time.perf_counter() - t0:.1f} s")
+
+        # -- 16d. chunked attention ---------------------------------------------
+        t0 = time.perf_counter()
+        scfg = get_config(CHUNK_ARCH)
+        plain, chunked = Model(scfg), Model(dataclasses.replace(scfg, attn_impl="chunked"))
+        sparams = plain.init(0, device=dev)
+        qkv_to_fan_in_d((lp[b] for stack in ("enc_layers", "dec_layers")
+                         for lp in sparams[stack] for b in ("attn", "xattn") if b in lp), scfg)
+        sb = make_batch(scfg, CHUNK_BATCH, CHUNK_PROMPT, np.random.default_rng(0), device=dev)
+        res = {}
+        for label, m in (("unchunked", plain), ("chunked", chunked)):
+            cache = m.init_cache(CHUNK_BATCH, CHUNK_PROMPT + 1, device=dev)
+            m.prefill(sparams, sb, cache)  # warm-up
+            sync(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            zero_counts()
+            t1 = time.perf_counter()
+            logits, _ = m.prefill(sparams, sb, cache)
+            sync(dev)
+            res[label] = (logits, 1e3 * (time.perf_counter() - t1),
+                          torch.cuda.max_memory_allocated() - base, flash_attention.launches)
+        (lu, mu, pu, fu), (lc, mc, pc, fc) = res["unchunked"], res["chunked"]
+        c_err = float((lc - lu).abs().max())
+        print(f"phase 16d {CHUNK_ARCH} (full width, {scfg.num_enc_layers} encoder layers over "
+              f"{scfg.enc_seq_len} frames, {scfg.dtype}, q/k/v at fan-in d_model) prefill at "
+              f"{CHUNK_BATCH} x {CHUNK_PROMPT}: unchunked {mu:.3f} ms, peak {pu / 1e9:.3f} GB; "
+              f"chunked (attn_block {scfg.attn_block}) {mc:.3f} ms, peak {pc / 1e9:.3f} GB; "
+              f"logits max_abs_err {c_err} (max |logit| {float(lu.abs().max())}) within "
+              f"{CHUNK_LOGIT_TOL}; flash launches {fu} / {fc} (the decoder's causal attention) "
+              f"({smi})")
+        check(torch.allclose(lc, lu, **CHUNK_LOGIT_TOL),
+              "the chunked encoder's prefill logits != the unchunked one's")
+        check(fu == fc == scfg.num_layers, "the decoder's causal prefill must launch flash")
+        del sparams, res, lu, lc
+        torch.cuda.empty_cache()
+
+    # a chunked train step on the card's plain route against the unchunked one
+    tcfg = ModelConfig(**TRAIN_DENSE)
+    tparams = Model(tcfg).init(0, device=dev)
+    tb = make_batch(tcfg, 2, 40, np.random.default_rng(0), device=dev)
+    grads = {}
+    for label, c in (("unchunked", tcfg),
+                     ("chunked", dataclasses.replace(tcfg, attn_impl="chunked", attn_block=16))):
+        leaves = [p.detach().clone().requires_grad_(True) for p in tree_leaves(tparams)]
+        zero_counts()
+        loss, _ = make_loss_fn(Model(c))(tree_unflatten(tparams, leaves), tb)
+        grads[label] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+        check(flash_attention.launches == 0, f"the {label} train step launched flash")
+    (lu, gu), (lc, gc) = grads["unchunked"], grads["chunked"]
+    g_err = max(float((a - b).abs().max()) for a, b in zip(gu, gc))
+    print(f"phase 16d train step (the dense config of tests/test_training.py, f32, plain "
+          f"route): loss {lc} chunked, {lu} unchunked; gradients max_abs_err {g_err} within "
+          f"{CHUNK_GRAD_TOL}")
+    check(math.isclose(lc, lu, rel_tol=1e-5), "the chunked train step's loss differs")
+    check(all(torch.allclose(a, b, **CHUNK_GRAD_TOL) for a, b in zip(gc, gu)),
+          "the chunked train step's gradients differ")
+    print(f"phase 16d: {time.perf_counter() - t0:.1f} s")
+    print(f"continuous phase 16 {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "max_abs_err": errs, "timed": timed}
+
+
 def main() -> int:
     import torch
 
@@ -3069,6 +3502,15 @@ def main() -> int:
         for arch, t in fam["timed"].items():
             attn[name][arch] = t[name]
     attn["flash_attention"]["routes_by_path"] = fam["routes"]
+
+    # -- 16. the int8 KV cache, chunked attention, continuous batching ------
+    cont = continuous_smoke(dev, zero_counts, smi)
+    for name in ("flash_attention", "decode_attention"):
+        attn[name]["launches_by_path"].update(cont["launches"][name])
+        attn[name]["max_abs_err_phase_16"] = cont["max_abs_err"][name]
+        attn[name]["max_abs_err"] = max(attn[name]["max_abs_err"], cont["max_abs_err"][name])
+        attn[name]["phase 16"] = cont["timed"][name]
+    ssd["launches_by_path"].update(cont["launches"]["ssd_scan"])
 
     kernels = {"kernels": [{
         "name": "gus_assign",

@@ -11,7 +11,19 @@ decode through ``kernels.ops.decode_attention``: the Hopper kernels on CUDA
 tensors, their plain versions on CPU tensors.  ``mode="cross"`` and
 ``"bidir"`` (the encoder-decoder family's cross attention and encoder) keep
 the plain :func:`_sdpa` math, as the reference never sends them to its
-flash kernel.
+flash kernel.  With ``attn_impl="chunked"`` the prefill and train paths
+that do not launch the flash kernel take :func:`_sdpa_chunked`, the
+reference's rule (flash where its kernel runs, else chunked, else plain).
+
+With ``kv_cache_dtype="int8"`` the ring holds int8 values and f32 scales
+(``models/quant.py``); decode quantizes the new token's k and v, writes
+them in place, and hands the decode kernel the whole ring dequantized to
+the activation dtype, as the reference hands its Pallas kernel.
+
+Decode takes ``cache_index`` as an ``int`` (every row at the same
+position: ``ServingEngine``) or as a ``(B,)`` integer tensor on the
+device (each row its own position: ``ContinuousBatcher``), with no host
+sync on the second path.
 """
 from __future__ import annotations
 
@@ -25,6 +37,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
+from ..kernels.common import resolve_model_backend
+from .quant import dequantize_kv, quantize_kv
 
 __all__ = [
     "ParamDecl",
@@ -233,19 +247,71 @@ def _sdpa(q, k, v, mask):
     return torch.einsum("bkrst,btkh->bskrh", w, v).reshape(B, S, H, hd)
 
 
+def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, causal: bool, window: Optional[int]):
+    """The reference's ``_sdpa_chunked``, op for op: q in chunks of
+    ``min(cfg.attn_block, S)`` rows, each against a static k range
+    ``[lo, hi)`` (causal: up to the chunk's last row; causal with a window:
+    from its first row's window), f32 scores and softmax, the weights cast
+    to q's dtype before ``P.V``.  Never materializes the (S, T) scores."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    blk = max(min(cfg.attn_block, S), 1)
+    outs = []
+    for i in range(0, S, blk):
+        b = min(blk, S - i)
+        qb = q[:, i:i + b].reshape(B, b, KV, rep, hd)
+        hi = min(i + b, T) if causal else T
+        lo = max(0, i + 1 - (window or T)) if (causal and window) else 0
+        kb, vb = k[:, lo:hi], v[:, lo:hi]
+        logits = torch.einsum("bskrh,btkh->bkrst", qb.float(), kb.float()) / math.sqrt(hd)
+        qi = (i + torch.arange(b, device=q.device))[:, None]
+        kj = (lo + torch.arange(hi - lo, device=q.device))[None, :]
+        m = torch.ones((b, hi - lo), dtype=torch.bool, device=q.device)
+        if causal:
+            m &= kj <= qi
+        if window is not None:
+            m &= kj > qi - window
+        logits = torch.where(m, logits, -1e30)
+        w = torch.softmax(logits, dim=-1).to(q.dtype)
+        outs.append(torch.einsum("bkrst,btkh->bskrh", w, vb).reshape(B, b, H, hd))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
 @functools.lru_cache(maxsize=8)
-def ring_valid(index: int, W: int, window: Optional[int], device: torch.device) -> torch.Tensor:
-    """(1, W) bool validity of a ring-buffer cache after the token at
-    position ``index`` is written into slot ``index % W``: the slot at age
-    ``(slot - pos) % W`` holds token ``index - age``, valid iff
-    ``age <= min(index, W - 1)`` (and ``age < window`` with a window).
-    Cached: every layer of one decode step asks for the same mask."""
+def _ring_valid_at(index: int, W: int, window: Optional[int], device: torch.device):
     slot = index % W
     age = (slot - torch.arange(W, device=device)) % W
     valid = age <= min(index, W - 1)
     if window is not None:
         valid &= age < window
     return valid[None]
+
+
+def ring_valid(index, W: int, window: Optional[int], device: torch.device) -> torch.Tensor:
+    """Validity of a ring-buffer cache after the token at position
+    ``index`` is written into slot ``index % W``: the slot at age
+    ``(slot - pos) % W`` holds token ``index - age``, valid iff
+    ``age <= min(index, W - 1)`` (and ``age < window`` with a window).
+
+    ``index`` an ``int``: a (1, W) mask, cached (every layer of one decode
+    step asks for the same one).  ``index`` a (B,) integer tensor (each row
+    at its own position): a (B, W) mask computed on its device, row by
+    row, with no host sync."""
+    if not isinstance(index, torch.Tensor):
+        return _ring_valid_at(index, W, window, device)
+    age = (index[:, None] % W - torch.arange(W, device=index.device)) % W
+    valid = age <= torch.clamp(index, max=W - 1)[:, None]
+    if window is not None:
+        valid &= age < window
+    return valid
+
+
+def _flash_launches(q: torch.Tensor) -> bool:
+    """Whether a causal prefill call on q's device launches the flash
+    kernel: a CUDA tensor whose model backend resolves to ``"cuda"`` (the
+    reference's ``use_pallas``)."""
+    return q.device.type == "cuda" and resolve_model_backend(None, q.device) == "cuda"
 
 
 def apply_attention(
@@ -257,18 +323,20 @@ def apply_attention(
     mode: str = "causal",          # causal | bidir | cross
     kv_input=None,                  # encoder memory for cross-attention
     cache: Optional[Dict[str, torch.Tensor]] = None,
-    cache_index: Optional[int] = None,
+    cache_index=None,
     window: Optional[int] = None,
 ):
     """Returns (y, kv).  Caching protocol, as the reference's:
 
     * prefill/train: ``cache=None`` -> full attention over x; returns the
       new ``{'k', 'v'}`` (B, S, KV, hd) to seed a cache.
-    * decode: ``cache={'k','v'}`` ring buffers (B, W, KV, hd) and
-      ``cache_index`` = #tokens consumed so far; x is (B, 1, D).  The new
-      token's k/v are written into slot ``cache_index % W`` in place (the
-      reference's ``dynamic_update_slice`` returns a copy) and the same
-      dict is returned.
+    * decode: ``cache={'k','v'}`` ring buffers (B, W, KV, hd) (int8, with
+      f32 ``'k_scale'``/``'v_scale'`` (B, W, KV, 1) for an int8 cache) and
+      ``cache_index`` = #tokens consumed so far, an ``int`` or a (B,)
+      integer tensor (one position a row); x is (B, 1, D).  The new
+      token's k/v are written into slot ``cache_index % W`` of each row in
+      place (the reference's ``dynamic_update_slice`` returns a copy) and
+      the same dict is returned.
     """
     window = window if window is not None else cfg.sliding_window
     q, k, v = _project_qkv(p, x, cfg, kv_input)
@@ -279,12 +347,23 @@ def apply_attention(
         k = rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
 
     if cache is not None and mode != "cross":
-        ck, cv = cache["k"], cache["v"]
-        W = ck.shape[1]
-        slot = cache_index % W
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
-        valid = ring_valid(cache_index, W, window, ck.device).expand(x.shape[0], W)
+        B, W = x.shape[0], cache["k"].shape[1]
+        if isinstance(cache_index, torch.Tensor):  # one position a row
+            at = (torch.arange(B, device=x.device), cache_index % W)
+        else:
+            at = (slice(None), cache_index % W)
+        if "k_scale" in cache:  # int8 cache: quantize, write, dequantize the ring
+            for name, t in (("k", k), ("v", v)):
+                tq, ts = quantize_kv(t[:, 0])
+                cache[name][at] = tq
+                cache[name + "_scale"][at] = ts
+            ck = dequantize_kv(cache["k"], cache["k_scale"], k.dtype)
+            cv = dequantize_kv(cache["v"], cache["v_scale"], v.dtype)
+        else:
+            ck, cv = cache["k"], cache["v"]
+            ck[at] = k[:, 0].to(ck.dtype)
+            cv[at] = v[:, 0].to(cv.dtype)
+        valid = ring_valid(cache_index, W, window, ck.device).expand(B, W)
         y = kops.decode_attention(q[:, 0], ck, cv, valid)[:, None]
         new_cache = cache
     elif mode == "cross":
@@ -293,8 +372,10 @@ def apply_attention(
         new_cache = {"k": k, "v": v}
         y = _sdpa(q, k, v, torch.ones((x.shape[1], k.shape[1]), dtype=torch.bool, device=x.device))
     else:
-        if mode == "causal":
+        if mode == "causal" and (cfg.attn_impl != "chunked" or _flash_launches(q)):
             y = kops.flash_attention(q, k, v, causal=True, window=window)
+        elif cfg.attn_impl == "chunked":
+            y = _sdpa_chunked(q, k, v, cfg, causal=mode == "causal", window=window)
         else:
             S = x.shape[1]
             y = _sdpa(q, k, v, torch.ones((S, S), dtype=torch.bool, device=x.device))

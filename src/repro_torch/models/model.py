@@ -38,10 +38,17 @@ SSD kernel writes the final state out, so prefill runs on it too.
 
 Causal self-attention runs on the flash and decode kernels; the encoder's
 bidirectional attention and the decoder's cross attention stay plain, as
-the reference never sends them to its flash kernel.
+the reference never sends them to its flash kernel.  Every option of
+``ModelConfig`` is served: ``attn_impl="chunked"`` takes the chunked plain
+attention wherever the flash kernel is not launched (``layers.py``), and
+``kv_cache_dtype="int8"`` keeps int8 rings with f32 scales
+(``models/quant.py``).
 
-The ``attn_impl="chunked"`` path and the int8 KV cache raise
-``NotImplementedError`` naming their ROADMAP item (:func:`check_ported`).
+:meth:`Model.decode_step` also takes ``cache.index`` as a (B,) integer
+tensor on the device: then each row is its own batch-1 sequence at its own
+position, which is what the reference's ``ContinuousBatcher`` computes by
+``vmap`` over slots (``serving/continuous.py``).  The MoE layer then
+routes each row's token alone (the grouped dispatch, one group a row).
 """
 from __future__ import annotations
 
@@ -65,44 +72,34 @@ from .layers import (
     norm_decl,
 )
 from .moe import apply_moe, moe_decl
+from .quant import quantize_kv
 from .ssm import apply_mamba, init_ssm_state, mamba_decl, mamba_decode_step
 
-__all__ = ["Model", "DecodeCache", "check_ported"]
+__all__ = ["Model", "DecodeCache"]
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 #: the families whose layers are attention blocks run as one stack
 _DENSE_TRUNK = ("dense", "moe", "vlm")
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve yet."""
-    if cfg.family not in _FAMILIES:
-        raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "kv_cache_dtype='int8' is not ported yet (ROADMAP.md §1 item 15, still to "
-            "port: the int8 KV cache of models/quant.py)"
-        )
-    if cfg.attn_impl == "chunked":
-        raise NotImplementedError(
-            "attn_impl='chunked' is not ported yet (ROADMAP.md §1 item 16, still to "
-            "port: the chunked attention path)"
-        )
-
-
 @dataclasses.dataclass
 class DecodeCache:
-    """Decode-time state.  ``index`` is the absolute #tokens consumed so far.
+    """Decode-time state.  ``index`` is the absolute #tokens consumed so
+    far: an ``int``, or a (B,) integer tensor on the device when each row
+    is at its own position (``ContinuousBatcher``).
 
-    attn:  {'k','v'} (L_attn, B, W, KV, hd) ring buffers (None if attn-free)
+    attn:  {'k','v'} (L_attn, B, W, KV, hd) ring buffers (None if attn-free);
+           int8 with f32 {'k_scale','v_scale'} (L_attn, B, W, KV, 1) when
+           ``kv_cache_dtype="int8"``
     conv:  (L_ssm, B, convw-1, ch)      (None unless ssm/hybrid)
     ssm:   (L_ssm, B, H, N, P)          (None unless ssm/hybrid)
     cross: {'k','v'} (L_dec, B, T_enc, KV, hd) projected encoder memory,
            written once by prefill (None unless encdec)
-    All in the activation dtype, as the reference's.
+    All but the int8 rings and their scales in the activation dtype, as
+    the reference's.
     """
 
-    index: int
+    index: Union[int, torch.Tensor]
     attn: Optional[Dict[str, torch.Tensor]] = None
     conv: Optional[torch.Tensor] = None
     ssm: Optional[torch.Tensor] = None
@@ -115,7 +112,8 @@ def _dtype(name: str) -> torch.dtype:
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        check_ported(cfg)
+        if cfg.family not in _FAMILIES:
+            raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
 
     # ------------------------------------------------------------------ decl
@@ -225,7 +223,10 @@ class Model:
         h = h + a
         x = apply_norm(p["ln2"], h, cfg)
         if "moe" in p:
-            m, aux = apply_moe(p["moe"], x, cfg)
+            # one position a row: each row's token is routed alone, as the
+            # reference's vmap over slots routes a batch of one
+            m, aux = apply_moe(p["moe"], x, cfg,
+                               grouped=True if isinstance(index, torch.Tensor) else None)
         else:
             m, aux = apply_mlp(p["mlp"], x, cfg), torch.zeros((), device=h.device)
         return h + m, kv, aux
@@ -321,10 +322,12 @@ class Model:
                    device=None) -> DecodeCache:
         """Zeroed caches in the activation dtype on ``device`` (default: the
         CUDA device; raises without one): (sites, B, W, KV, hd) ring buffers
-        for the attention sites, (L, B, W-1, ch) conv and (L, B, H, N, P)
-        SSM states for the mamba layers, and for the encoder-decoder family
-        the (L_dec, B, T_enc, KV, hd) cross cache, ``T_enc`` being
-        ``enc_len`` or ``cfg.enc_seq_len``."""
+        for the attention sites (int8, with f32 scales of ones
+        (sites, B, W, KV, 1), when ``kv_cache_dtype="int8"``), (L, B, W-1,
+        ch) conv and (L, B, H, N, P) SSM states for the mamba layers, and
+        for the encoder-decoder family the (L_dec, B, T_enc, KV, hd) cross
+        cache in the activation dtype, ``T_enc`` being ``enc_len`` or
+        ``cfg.enc_seq_len``."""
         cfg = self.cfg
         dev = resolve_device(device)
         dt = _dtype(cfg.dtype)
@@ -332,8 +335,14 @@ class Model:
         if self.n_attn_sites():
             shape = (self.n_attn_sites(), batch, self.cache_window(max_len),
                      cfg.num_kv_heads, cfg.head_dim)
-            attn = {"k": torch.zeros(shape, dtype=dt, device=dev),
-                    "v": torch.zeros(shape, dtype=dt, device=dev)}
+            if cfg.kv_cache_dtype == "int8":
+                attn = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                        "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                        "k_scale": torch.ones(shape[:-1] + (1,), device=dev),
+                        "v_scale": torch.ones(shape[:-1] + (1,), device=dev)}
+            else:
+                attn = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                        "v": torch.zeros(shape, dtype=dt, device=dev)}
         if cfg.family in ("ssm", "hybrid"):
             c1, s1 = init_ssm_state(cfg, batch, dt, dev)
             conv = c1.expand(cfg.num_layers, *c1.shape).clone()
@@ -364,8 +373,12 @@ class Model:
 
         def fill_ring(site, kv):
             for name in ("k", "v"):
+                src = kv[name][:, S - keep:]
+                if "k_scale" in cache.attn:  # int8: values and scales at the same slots
+                    src, scale = quantize_kv(src)
+                    cache.attn[name + "_scale"][site].index_copy_(1, slots, scale)
                 ring = cache.attn[name][site]
-                ring.index_copy_(1, slots, kv[name][:, S - keep:].to(ring.dtype))
+                ring.index_copy_(1, slots, src.to(ring.dtype))
 
         if cfg.family == "encdec":
             mem = self._encode(params, batch)
@@ -397,14 +410,20 @@ class Model:
 
     # ------------------------------------------------------------ decode step
     def decode_step(self, params, tokens, cache: DecodeCache) -> Tuple[torch.Tensor, DecodeCache]:
-        """One new token per sequence.  tokens: (B, 1) int."""
+        """One new token per sequence.  tokens: (B, 1) int.  With
+        ``cache.index`` a (B,) tensor, row b is at position ``index[b]``
+        (its own RoPE position, ring slot and validity) and the returned
+        index is ``index + 1``."""
         cfg = self.cfg
         idx = cache.index
         h = self._embed(params, tokens)
-        positions = torch.full((tokens.shape[0], 1), idx, device=h.device)
+        if isinstance(idx, torch.Tensor):
+            positions = idx[:, None]
+        else:
+            positions = torch.full((tokens.shape[0], 1), idx, device=h.device)
 
         def ring(site):
-            return {"k": cache.attn["k"][site], "v": cache.attn["v"][site]}
+            return {name: t[site] for name, t in cache.attn.items()}
 
         if cfg.family == "encdec":
             for i, lp in enumerate(params["dec_layers"]):

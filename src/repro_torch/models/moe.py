@@ -15,7 +15,14 @@ and the sentinel row, both cut off) -> gather to (E, C, D) -> gated expert
 FFN -> weighted combine.  On one device the reference takes the *grouped*
 dispatch (per batch row, capacity from S) for S > 1 and the *global* one
 (capacity from B*S) for decode; the port has no mesh, so that rule is all
-of :func:`apply_moe`'s choice.
+of :func:`apply_moe`'s choice, with one exception.  A decode step whose
+rows are each at their own position (``DecodeCache.index`` a (B,)
+tensor, the ``ContinuousBatcher``'s step) is the reference's batch-1
+decode ``vmap``-ed over slots: each slot routes its one token alone with
+``capacity(1)`` = 8 slots an expert, and nothing drops.  The global
+dispatch over B tokens (``C = capacity(B)``) can drop choices once B > 8,
+so that step passes ``grouped=True``: one group a row, ``C = capacity(1)``,
+which equals the vmapped reference.
 
 Four choices keep the port's integers and sums the reference's:
 
@@ -36,7 +43,7 @@ reference computes outside any Pallas kernel too.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,10 +83,12 @@ def moe_decl(cfg: ModelConfig) -> Dict[str, Any]:
     return decl
 
 
-def apply_moe(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y, aux_loss): the grouped dispatch for S > 1, the
-    global one for decode (S == 1)."""
-    return _apply_moe(p, x, cfg, grouped=x.shape[1] > 1)
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
+              grouped: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y, aux_loss): by default the grouped dispatch for
+    S > 1, the global one for decode (S == 1); ``grouped=True`` takes the
+    grouped one at any S (a decode step with one position a row)."""
+    return _apply_moe(p, x, cfg, grouped=x.shape[1] > 1 if grouped is None else grouped)
 
 
 class Dispatch(NamedTuple):

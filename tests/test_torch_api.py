@@ -31,10 +31,6 @@ DIFFERENCES = {
         "hier_cells_np",
         "hier_backend_fn",
     },
-    "serving": {
-        "ContinuousBatcher",  # item 17, still to port
-        "Request",            # item 17 (serving/continuous.py)
-    },
     "models": {
         # the reference stacks the layer leaves (init_from_decl(..., stack=));
         # the port keeps one dict per layer (layers.init_tree) and converts

@@ -13,6 +13,9 @@
   pixtral-12b at smoke size, with their stub inputs; the cross cache too).
   Biases and norm scales are perturbed from their zero/one init so that
   they matter.
+* The serving options ``kv_cache_dtype="int8"`` and ``attn_impl="chunked"``
+  build, prefill and decode on a registry config of each family against
+  the reference with the same option.
 
 Stated tolerance: f32 logits ``rtol=atol=1e-3``.  The reference's own two
 attention paths (``use_pallas`` False vs True) already differ by up to
@@ -51,12 +54,23 @@ TOL = dict(rtol=1e-3, atol=1e-3)
 #: own float32 forward lies 7.7e-3 from the same forward in float64 (the
 #: port's 4.1e-3), and the reference's two attention paths 1.2e-3 apart
 ENCDEC_TOL = dict(rtol=1e-3, atol=1e-2)
+#: an int8 cache: where the two packages' k or v differ in the last bit at
+#: a rounding boundary of ``x / scale``, one int8 value differs by a step
+#: (a scale, ~1% of the vector's largest entry); the sharp attention of the
+#: reference's init carries that to the logits: measured 2.8e-3 on the
+#: reduced qwen2-moe's logits of magnitude ~1 at one such step
+INT8_TOL = dict(rtol=1e-3, atol=1e-2)
+#: the encoder-decoder family's self-attention cache with the chunked
+#: encoder, whose f32 sums run in another order and pass the three sharp
+#: attentions of ENCDEC_TOL: an absolute part of 1e-3 of the largest entry
+#: (measured 2.5e-4 of it)
+ENCDEC_CACHE_SHARE = 1e-3
 
 
-def _assert_cache_close(got, want, msg=""):
+def _assert_cache_close(got, want, msg="", share=1e-4):
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3,
-                               atol=1e-4 * float(np.abs(want).max()), err_msg=msg)
+                               atol=share * float(np.abs(want).max()), err_msg=msg)
 
 
 @pytest.mark.parametrize("arch", sorted(JC.REGISTRY))
@@ -255,12 +269,58 @@ def test_new_family_matches_reference_pallas_path(arch):
         _assert_cache_close(ct.attn[name], cj.attn[name], f"decoded {name}")
 
 
-@pytest.mark.parametrize("change,item", [(dict(attn_impl="chunked"), 16),
-                                         (dict(kv_cache_dtype="int8"), 15)])
-def test_unported_options_raise(change, item):
-    cfg = dataclasses.replace(TC.get_config("squeeze-lm"), **change)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}"):
-        Model(cfg)
+SERVING_OPTIONS = {"int8": dict(kv_cache_dtype="int8"), "chunked": dict(attn_impl="chunked",
+                                                                         attn_block=8)}
+OPTION_ARCHS = ["yi-9b", "qwen2-moe-a2.7b", "mamba2-130m", "zamba2-1.2b",
+                "seamless-m4t-medium", "pixtral-12b"]
+
+
+@pytest.mark.parametrize("option", sorted(SERVING_OPTIONS))
+@pytest.mark.parametrize("arch", OPTION_ARCHS)
+def test_serving_option_matches_reference(arch, option):
+    """``kv_cache_dtype="int8"`` and ``attn_impl="chunked"`` (q chunks of 8)
+    build, prefill and decode for a registry config of every family at
+    smoke size, on carried, perturbed weights, against the reference with
+    the same option and ``use_pallas=False`` (whose causal attention then
+    takes the chunked path, as the port's does on the CPU): prefill and 3
+    decode steps' logits at the family's tolerance (``INT8_TOL`` for an
+    int8 cache), greedy tokens exact,
+    the int8 rings equal but for one step at a rounding boundary
+    (``test_torch_quant.py``), a float cache at the cache tolerance."""
+    change = SERVING_OPTIONS[option]
+    ref = dataclasses.replace(JC.reduce_for_smoke(JC.get_config(arch)), **change)
+    port = dataclasses.replace(TC.reduce_for_smoke(TC.get_config(arch)), **change)
+    jm, tm = JModel(ref), Model(port)
+    tree = _perturbed_tree(jm, 8)
+    jp = jax.tree.map(jnp.asarray, tree)
+    tp = params_from_reference(port, tree, device="cpu")
+    B, S, steps = 2, 20, 3
+    jb = JT.make_batch(ref, B, S, np.random.default_rng(9))
+    tb = TT.make_batch(port, B, S, np.random.default_rng(9), device="cpu")
+    tol = ENCDEC_TOL if port.family == "encdec" else INT8_TOL if option == "int8" else TOL
+
+    cj = jm.init_cache(B, S + steps)
+    ct = tm.init_cache(B, S + steps, device="cpu")
+    lj, cj = jm.prefill(jp, jb, cj)
+    lt, ct = tm.prefill(tp, tb, ct)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **tol)
+    for step in range(steps):
+        tok = np.asarray(jnp.argmax(lj[:, -1], -1)).astype(np.int32)[:, None]
+        np.testing.assert_array_equal(torch.argmax(lt[:, -1], -1).numpy(), tok[:, 0],
+                                      err_msg=f"greedy token, step {step}")
+        lj, cj = jm.decode_step(jp, jnp.asarray(tok), cj)
+        lt, ct = tm.decode_step(tp, torch.from_numpy(tok), ct)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **tol, err_msg=f"step {step}")
+    assert (ct.attn is None) == (cj.attn is None)
+    for name in sorted(ct.attn or {}):
+        got, want = ct.attn[name].numpy(), np.asarray(cj.attn[name])
+        assert got.dtype == want.dtype, name
+        if got.dtype == np.int8:
+            off = got.astype(np.int32) - want.astype(np.int32)
+            assert np.abs(off).max() <= 1 and np.count_nonzero(off) <= 1e-3 * off.size, name
+        else:
+            _assert_cache_close(ct.attn[name], cj.attn[name], f"decoded {name}",
+                                share=ENCDEC_CACHE_SHARE if port.family == "encdec" else 1e-4)
 
 
 def test_decl_matches_reference_shapes():
