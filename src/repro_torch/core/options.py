@@ -24,11 +24,15 @@ dispatch (:func:`resolve_backend`).  With no explicit or environment
 choice the backend follows the device: ``"cuda"`` (the kernel) for CUDA
 tensors, ``"torch"`` (the plain loop) for CPU tensors.
 
-``simulate`` and ``simulate_fleet`` raise ``NotImplementedError`` for the
-fields they do not honour yet (:func:`check_ported`); ``simulate`` ignores
-the fleet-only fields (``window``, ``prefetch``, ``devices``), as the
-reference does, so one options value can drive both.  The reference's ``rep_group`` is a JAX device-mesh
-setting and has no counterpart here.
+``simulate`` ignores the fleet-only fields (``window``, ``prefetch``,
+``devices``, ``rep_group``), as the reference does, so one options value
+can drive both.  One default differs from the reference's:
+``rep_group=None`` cuts the replication axis into one group a device
+(``ceil(n_rep / devices)``), where the reference cuts groups of
+``FLEET_REP_GROUP = 8`` (``core/simulator.py``).  A width of 8 keeps XLA's
+compile cache to one program; the port compiles nothing per shape, and
+the results do not depend on the width, so ``rep_group=8`` gives the
+reference's layout and the default gives one launch a device.
 """
 from __future__ import annotations
 
@@ -48,7 +52,6 @@ __all__ = [
     "ENV_SCHEDULER",
     "resolve_options",
     "resolve_backend",
-    "check_ported",
 ]
 
 #: GUS implementations: the plain PyTorch loop and the Hopper kernel
@@ -83,8 +86,12 @@ class EngineOptions:
     window: Optional[int] = None
     #: producer-queue depth overlapping host builds with device compute.
     prefetch: int = 1
-    #: devices for the replication axis (only ``None`` or 1 in this slice).
+    #: devices for the fleet's replication axis (``None`` = every local
+    #: device of the run's device type, at most ``n_rep``).
     devices: Optional[int] = None
+    #: replication-group width, the unit of device dispatch (``None`` = one
+    #: group a device; the reference's default is ``FLEET_REP_GROUP``).
+    rep_group: Optional[int] = None
     #: record the per-decision metric stream (``SimResult.metrics`` /
     #: ``FleetResult.metrics``); off changes no result field.
     metrics: bool = False
@@ -137,8 +144,10 @@ def resolve_options(
     order **explicit > environment > scenario default > built-in default**.
 
     ``backend`` is validated here and resolved at dispatch.  ``prefetch``
-    is clamped to ``>= 0``; ``window``/``devices`` must be ``None`` or
-    ``>= 1``.  Idempotent on an already-resolved value.
+    is clamped to ``>= 0``; ``window``/``devices``/``rep_group`` must be
+    ``None`` or ``>= 1`` (the simulator adds the checks that depend on the
+    run: the visible devices, and a ``rep_group`` above ``n_rep`` is
+    clamped to it).  Idempotent on an already-resolved value.
     """
     if env is None:
         env = os.environ
@@ -170,7 +179,7 @@ def resolve_options(
             f"unknown scheduler {scheduler!r}; expected one of {', '.join(SCHEDULERS)}"
         )
 
-    for field in ("window", "devices"):
+    for field in ("window", "devices", "rep_group"):
         val = getattr(opts, field)
         if val is not None and int(val) < 1:
             raise ValueError(f"{field} must be >= 1 or None, got {val}")
@@ -183,14 +192,3 @@ def resolve_options(
         prefetch=max(0, int(opts.prefetch)),
     )
 
-
-def check_ported(opts: EngineOptions, fleet: bool = True) -> None:
-    """Raise ``NotImplementedError`` for a resolved option this slice does
-    not run yet, naming the ``ROADMAP.md`` item that brings it.  ``fleet``:
-    the caller is ``simulate_fleet`` (``simulate`` ignores ``devices``)."""
-    if fleet and opts.devices not in (None, 1):
-        raise NotImplementedError(
-            f"devices={opts.devices}: the replication axis over several CUDA "
-            "devices is not ported yet (ROADMAP.md §1 item 9, still to port: "
-            "devices>1)"
-        )

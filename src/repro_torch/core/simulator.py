@@ -83,18 +83,31 @@ is unchanged.  Spans carry the reference's categories and feed an active
 trace recorder (:mod:`repro_torch.obs.trace`); scheduler calls and fleet
 windows carry ``torch.profiler`` annotations (:mod:`repro_torch.obs.profiler`).
 
-Not in this slice (raises ``NotImplementedError`` naming its ROADMAP.md
-item): ``devices>1``.
+**Several devices** (``EngineOptions(devices=, rep_group=)``): the dense
+fleet cuts the replication axis into groups of ``rep_group`` replications
+(default: one group a device), each group's carry resident on its device,
+round-robin over the devices, one worker thread a device (at most the
+core count) driving them at once.  Every group runs the same per-frame
+work as the single-device run, and the results are gathered back in
+replication order, so the result is the single-device one bit for bit.
+The hierarchical fleet cuts each window's utility and feasibility tensors
+into contiguous class slabs, one a device, and runs the allocator on the
+run's device (:func:`_hier_device_inputs`).  ``devices=None`` takes every
+local device of the run's device type, at most ``n_rep``; more than exist
+raise ``ValueError`` (:func:`_resolve_fleet_devices`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import os
 import queue as queue_mod
 import threading
 import time
 import types
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -127,7 +140,7 @@ from .impairments import (
     predicted_inflation,
 )
 from .instance import FlatInstance, pad_instance, resolve_device, stack_instances
-from .options import EngineOptions, check_ported, resolve_options
+from .options import EngineOptions, resolve_options
 from .policies import Policy, get_policy
 from .queueing import (
     CongestionConfig,
@@ -297,6 +310,8 @@ class FleetResult:
     final_backlog_per_rep: Optional[np.ndarray] = None
     #: mean compute-inflation factor across (rep, frame, server) cells
     mean_compute_inflation: float = 1.0
+    #: devices the replications ran on (``EngineOptions.devices``; 1 on the
+    #: host policies' loop)
     n_devices: int = 1
     #: frames per window (== n_frames when fully materialized)
     window: Optional[int] = None
@@ -358,6 +373,63 @@ def _pad_bucket_fine(n: int) -> int:
     if n <= 4096:
         return max(4, 1 << max(n - 1, 0).bit_length())
     return ((n + 1023) // 1024) * 1024
+
+
+#: the reference's replication-group width, the unit of its device dispatch
+#: (``EngineOptions(rep_group=8)`` gives its layout; the port's default is
+#: one group a device, :mod:`repro_torch.core.options`)
+FLEET_REP_GROUP = 8
+
+
+def _local_devices(dev: torch.device) -> List[torch.device]:
+    """The devices a fleet on ``dev`` may spread its replications over:
+    every CUDA device of the process for a CUDA run
+    (:func:`~repro_torch.launch.mesh.make_fleet_mesh`), ``dev`` alone
+    otherwise.  The one place the fleet asks what exists, so that a test
+    can hand it several CPU "devices" (torch has no virtual ones)."""
+    if dev.type == "cuda":
+        from repro_torch.launch.mesh import make_fleet_mesh
+
+        return make_fleet_mesh()
+    return [dev]
+
+
+def _resolve_fleet_devices(devices: Optional[int], n_rep: int,
+                           dev: torch.device) -> List[torch.device]:
+    """``EngineOptions.devices`` as the list of devices the replication
+    axis runs on, the reference's ``_resolve_fleet_devices``: ``None`` is
+    every local device, at most ``n_rep`` (more would schedule nothing);
+    more than exist raise, never a fallback to fewer.  One device is
+    ``dev`` itself."""
+    local = _local_devices(dev)
+    if devices is None:
+        n = max(1, min(len(local), n_rep))
+    else:
+        n = int(devices)
+        if n < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
+        if n > len(local):
+            raise ValueError(
+                f"simulate_fleet requested devices={devices} but only {len(local)} "
+                f"local device(s) of type {dev.type!r} are visible; lower devices="
+            )
+    return [dev] if n == 1 else list(local[:n])
+
+
+def _device_scope(dev: torch.device):
+    """``dev`` as the current CUDA device (the kernels launch on its
+    current stream), or nothing to enter for a CPU device."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _group_rows(x, sl: slice, n_rep: int, Tc: int):
+    """Replications ``sl`` of a frame-major window (row ``k * n_rep + r``),
+    frame-major again; the whole window when ``sl`` covers every
+    replication."""
+    if sl.stop - sl.start == n_rep:
+        return x
+    return x.reshape((Tc, n_rep) + tuple(x.shape[1:]))[:, sl].reshape(
+        (-1,) + tuple(x.shape[1:]))
 
 
 def _frame_arrays(
@@ -1151,7 +1223,6 @@ def simulate(
     dev = resolve_device(device)
     scn = get_scenario(scenario)
     opts = resolve_options(options, scenario=scn)
-    check_ported(opts, fleet=False)
     metrics = opts.metrics
     pol = _resolve_policy(scheduler, policy)
     if opts.scheduler == "hierarchical":
@@ -1581,7 +1652,13 @@ def simulate_fleet(
 
     ``device=None`` means ``"cuda"`` (raises without a CUDA device);
     ``options`` takes the fields :func:`~repro_torch.core.options.
-    resolve_options` resolves.  ``options.backend`` picks the GUS
+    resolve_options` resolves.  ``options.devices`` spreads the
+    replications over that many devices of ``device``'s type (``None``:
+    all of them, at most ``n_rep``; more than exist raise ``ValueError``,
+    as does a host policy with more than one) in groups of
+    ``options.rep_group`` (``None``: one group a device), and the
+    hierarchical layout its class slabs; the results are the one-device
+    run's bit for bit (module docstring).  ``options.backend`` picks the GUS
     implementation (dense; composes only with the ``"gus"`` policy) or the
     class allocator's (hierarchical).
 
@@ -1599,7 +1676,6 @@ def simulate_fleet(
     dev = resolve_device(device)
     scn = get_scenario(scenario)
     opts = resolve_options(options, scenario=scn)
-    check_ported(opts)
     metrics = opts.metrics
     hier = opts.scheduler == "hierarchical"
     pol = _resolve_policy(scheduler, policy)
@@ -1610,6 +1686,15 @@ def simulate_fleet(
     else:
         fn = _bind_policy(pol, spec, opts.backend)
     host_side = not hier and (pol is None or not pol.vmappable or not pol.pad)
+    devs = _resolve_fleet_devices(opts.devices, n_rep, dev)  # impossible counts raise first
+    if host_side and opts.devices is None:
+        devs = [dev]  # the host loop drives one device
+    elif host_side and len(devs) > 1:
+        raise ValueError(
+            f"policy {pol.name if pol is not None else 'scheduler'!r} schedules on the "
+            f"host; devices={opts.devices} does not apply: the host loop drives one "
+            "device (use devices=None or 1)"
+        )
     ccfg = cfg.congestion
     acfg = cfg.admission
     T = max(1, int(np.ceil(cfg.horizon_ms / cfg.frame_ms)))
@@ -1649,7 +1734,7 @@ def simulate_fleet(
     if hier:
         return _simulate_fleet_hier(
             spec, cfg, scn, sources, n_rep=n_rep, T=T, W=W, opts=opts, dev=dev,
-            gen_s=gen_s, sw=sw, t_run0=t_run0, engine=engine, metrics=metrics,
+            gen_s=gen_s, sw=sw, t_run0=t_run0, engine=engine, metrics=metrics, devs=devs,
         )
     if host_side:
         return _simulate_fleet_host(
@@ -1675,6 +1760,39 @@ def simulate_fleet(
             return fn(run, keys), carry
         return fn(run), carry
 
+    # --- replication groups, round-robin over the devices ------------------
+    # Every frame is scheduled on its own (the kernel runs one block a frame,
+    # the plain path one row a frame) and the loads are summed per
+    # replication in a fixed order, so a group computes what the same
+    # replications compute in the whole batch, on any device.  Nothing is
+    # compiled per width, so the last group is narrower where rep_group
+    # does not divide n_rep, with no padding replications.
+    n_dev = len(devs)
+    G = -(-n_rep // n_dev) if opts.rep_group is None else min(int(opts.rep_group), n_rep)
+    groups = [slice(a, min(a + G, n_rep)) for a in range(0, n_rep, G)]
+    group_dev = [devs[g % n_dev] for g in range(len(groups))]
+    carries = [
+        PolicyCarry(**{
+            f.name: getattr(carry, f.name)[sl] if f.name == "key"
+            else getattr(carry, f.name)[sl].to(gd)
+            for f in dataclasses.fields(carry)
+        })
+        for sl, gd in zip(groups, group_dev)
+    ]
+    n_workers = min(n_dev, os.cpu_count() or 1)
+    executor = ThreadPoolExecutor(n_workers, "fleet-device") if n_workers > 1 else None
+
+    def each_group(work):
+        """``work(g)`` for every group, each under its device, on the
+        worker threads when there are several devices."""
+        def run(g):
+            with _device_scope(group_dev[g]):
+                return work(g)
+
+        if executor is None:
+            return [run(g) for g in range(len(groups))]
+        return list(executor.map(run, range(len(groups))))
+
     sat_frames = np.zeros((n_rep, T), np.int64)
     served_frames = np.zeros((n_rep, T), np.int64)
     us_frames = np.zeros((n_rep, T), np.float32)
@@ -1684,6 +1802,94 @@ def simulate_fleet(
 
     def build_window(t0: int):
         return _build_window(sources, spec, cfg, scn, t0, min(t0 + W, T), n_pad, sw, pin, engine)
+
+    def dispatch(g, host, n_real, t0: int, Tc: int):
+        """Schedule group g's replications over the window on its device:
+        ``(inst, tq, real, n_real, aj, al, pcs, pes, row_parts)``, the
+        rows frame-major (frame ``t0 + k`` of the group's r-th replication
+        at ``k * R + r``)."""
+        sl, gd = groups[g], group_dev[g]
+        R = sl.stop - sl.start
+        carry = carries[g]
+        rows = functools.partial(_group_rows, sl=sl, n_rep=n_rep, Tc=Tc)
+        n_real = rows(n_real)
+        inst = FlatInstance(**{k: rows(host[k]).to(gd, non_blocking=True) for k in _FIELDS})
+        tq = rows(host["tq"]).to(gd, non_blocking=True) if ccfg.enabled or shed else None
+        link_up = (host["link_up"].to(gd, non_blocking=True)
+                   if engine is not None else None)
+        real = torch.arange(n_pad, device=gd)[None, :] < torch.from_numpy(
+            n_real).to(gd)[:, None]
+        pcs = pes = None
+        if ccfg.enabled or stateful:
+            js, ls, pcs, pes, parts = [], [], [], [], []
+            for k in range(Tc):
+                fr = slice(k * R, (k + 1) * R)
+                frame = FlatInstance(**{f: getattr(inst, f)[fr] for f in _FIELDS})
+                carry, a, pc, pe, prt = _step(
+                    call, frame, carry, ccfg, acfg,
+                    None if keys_all is None else keys_all[sl, t0 + k],
+                    None if tq is None else tq[fr],
+                    None if link_up is None else link_up[:, k],
+                    real[fr] if metrics else None,
+                )
+                js.append(a.j)
+                ls.append(a.l)
+                pcs.append(pc)
+                pes.append(pe)
+                parts.append(prt)
+            aj, al = torch.cat(js), torch.cat(ls)
+            row_parts = _RowParts.cat(parts) if metrics else None
+        else:
+            keys = (None if keys_all is None
+                    else keys_all[sl, t0:t0 + Tc].transpose(1, 0, 2).reshape(-1, 2))
+            # congestion off: unit inflation and an empty backlog, the
+            # same for every frame, so admission needs no carry
+            run = inst
+            zero = torch.zeros_like(inst.gamma) if acfg.enabled or metrics else None
+            keep = None
+            if shed:
+                run, keep = _shed(run, tq, zero, zero, inst.gamma, inst.eta, ccfg)
+            pre, _ = call(run, carry, keys)
+            a = _cap(pre, inst, zero, zero, acfg, False)
+            aj, al = a.j, a.l
+            row_parts = None
+            if metrics:
+                row_parts = _RowParts.of(
+                    real, keep, pre, a, None,
+                    types.SimpleNamespace(backlog_gamma=zero, backlog_eta=zero))
+        carries[g] = carry
+        if gd.type == "cuda":
+            torch.cuda.synchronize(gd)
+        return inst, tq, real, n_real, aj, al, pcs, pes, row_parts
+
+    def score(g, out, Tc: int):
+        """Group g's window scored on its device and brought to the host:
+        ``(sat, served, us, phi, rows)``, each ``(R, Tc, ...)``."""
+        inst, tq, real, n_real, aj, al, pcs, pes, row_parts = out
+        R = groups[g].stop - groups[g].start
+
+        def per_rep(x):  # frame-major (Tc * R, ...) -> (R, Tc, ...)
+            return x.reshape((Tc, R) + x.shape[1:]).swapaxes(0, 1)
+
+        phi = None
+        if ccfg.enabled:
+            phi_c = torch.cat(pcs)
+            mbatch = dataclasses.replace(
+                inst, ctime=congested_ctime(inst, tq, phi_c, torch.cat(pes))
+            )
+            phi = per_rep(phi_c.cpu().numpy())
+        else:
+            mbatch = inst
+        sat = (satisfied_mask(mbatch, aj, al) & real).sum(-1)
+        served = ((aj >= 0) & real).sum(-1)
+        us = mean_us(mbatch, aj, al)
+        rows = None
+        if metrics:
+            mf = _dense_rows(mbatch, aj, al, torch.from_numpy(n_real).to(aj.device),
+                             spec.n_edge, row_parts)
+            rows = [per_rep(x) for x in _to_host(list(mf))]
+        return (per_rep(sat.cpu().numpy()), per_rep(served.cpu().numpy()),
+                per_rep(us.cpu().numpy()), per_rep(n_real), phi, rows)
 
     window_starts = list(range(0, T, W))
     pipe = _WindowPipeline(build_window, window_starts, opts.prefetch, "fleet-window-producer")
@@ -1695,84 +1901,24 @@ def simulate_fleet(
             Tc = t1 - t0
             with sw.span("fleet/dispatch", CAT_DISPATCH, window=wi), \
                     step_annotation("fleet/window", wi):
-                inst = FlatInstance(
-                    **{k: host[k].to(dev, non_blocking=True) for k in _FIELDS}
-                )
-                tq = host["tq"].to(dev, non_blocking=True) if ccfg.enabled or shed else None
-                link_up = (host["link_up"].to(dev, non_blocking=True)
-                           if engine is not None else None)
-                real = torch.arange(n_pad, device=dev)[None, :] < torch.from_numpy(
-                    n_real).to(dev)[:, None]
-                if ccfg.enabled or stateful:
-                    js, ls, pcs, pes, parts = [], [], [], [], []
-                    for k in range(Tc):
-                        sl = slice(k * n_rep, (k + 1) * n_rep)
-                        frame = FlatInstance(**{f: getattr(inst, f)[sl] for f in _FIELDS})
-                        carry, a, pc, pe, rows = _step(
-                            call, frame, carry, ccfg, acfg,
-                            None if keys_all is None else keys_all[:, t0 + k],
-                            None if tq is None else tq[sl],
-                            None if link_up is None else link_up[:, k],
-                            real[sl] if metrics else None,
-                        )
-                        js.append(a.j)
-                        ls.append(a.l)
-                        pcs.append(pc)
-                        pes.append(pe)
-                        parts.append(rows)
-                    aj, al = torch.cat(js), torch.cat(ls)
-                    row_parts = _RowParts.cat(parts) if metrics else None
-                else:
-                    # frame-major rows: frame t0 + k of replication r at k * n_rep + r
-                    keys = (None if keys_all is None
-                            else keys_all[:, t0:t1].transpose(1, 0, 2).reshape(-1, 2))
-                    # congestion off: unit inflation and an empty backlog, the
-                    # same for every frame, so admission needs no carry
-                    run = inst
-                    zero = torch.zeros_like(inst.gamma) if acfg.enabled or metrics else None
-                    keep = None
-                    if shed:
-                        run, keep = _shed(run, tq, zero, zero, inst.gamma, inst.eta, ccfg)
-                    pre, _ = call(run, carry, keys)
-                    a = _cap(pre, inst, zero, zero, acfg, False)
-                    aj, al = a.j, a.l
-                    row_parts = None
-                    if metrics:
-                        row_parts = _RowParts.of(
-                            real, keep, pre, a, None,
-                            types.SimpleNamespace(backlog_gamma=zero, backlog_eta=zero))
-                if pin:
-                    torch.cuda.synchronize(dev)
+                outs = each_group(lambda g: dispatch(g, host, n_real, t0, Tc))
             with sw.span("fleet/window_metrics", CAT_METRICS, window=wi):
-                if ccfg.enabled:
-                    phi_c = torch.cat(pcs)
-                    mbatch = dataclasses.replace(
-                        inst, ctime=congested_ctime(inst, tq, phi_c, torch.cat(pes))
-                    )
-                    phi_frames[:, t0:t1] = (
-                        phi_c.reshape(Tc, n_rep, M).transpose(0, 1).cpu().numpy()
-                    )
-                else:
-                    mbatch = inst
-                sat = (satisfied_mask(mbatch, aj, al) & real).sum(-1)
-                served = ((aj >= 0) & real).sum(-1)
-                us = mean_us(mbatch, aj, al)
-
-                def per_rep(x):  # frame-major (Tc * R,) -> (R, Tc)
-                    return x.reshape(Tc, n_rep).T
-
-                sat_frames[:, t0:t1] = per_rep(sat.cpu().numpy())
-                served_frames[:, t0:t1] = per_rep(served.cpu().numpy())
-                us_frames[:, t0:t1] = per_rep(us.cpu().numpy())
-                n_real_frames[:, t0:t1] = per_rep(n_real)
-                if metrics:
-                    mf = _dense_rows(mbatch, aj, al, torch.from_numpy(n_real).to(dev),
-                                     spec.n_edge, row_parts)
-                    for f, x in zip(MetricsFrame._fields, _to_host(list(mf))):
-                        # frame-major (Tc * R, ...) -> (R, Tc, ...)
-                        m_store[f][:, t0:t1] = x.reshape((Tc, n_rep) + x.shape[1:]).swapaxes(0, 1)
+                scored = each_group(lambda g: score(g, outs[g], Tc))
+                for sl, (sat, served, us, nr, phi, rows) in zip(groups, scored):
+                    sat_frames[sl, t0:t1] = sat
+                    served_frames[sl, t0:t1] = served
+                    us_frames[sl, t0:t1] = us
+                    n_real_frames[sl, t0:t1] = nr
+                    if phi is not None:
+                        phi_frames[sl, t0:t1] = phi
+                    if metrics:
+                        for f, x in zip(MetricsFrame._fields, rows):
+                            m_store[f][sl, t0:t1] = x
+                del outs, scored
     finally:
         pipe.close()
+        if executor is not None:
+            executor.shutdown()
 
     reqs_per_rep = n_real_frames.sum(1)
     sat_per_rep = sat_frames.sum(1)
@@ -1790,9 +1936,11 @@ def simulate_fleet(
         n_served=int(served_frames.sum()),
         satisfied_per_rep=100.0 * sat_per_rep / np.maximum(reqs_per_rep, 1),
         mean_us_per_rep=us_sum_per_rep / np.maximum(reqs_per_rep, 1),
-        final_backlog_per_rep=carry.backlog_gamma.cpu().numpy() if ccfg.enabled else None,
+        final_backlog_per_rep=(
+            np.concatenate([c.backlog_gamma.cpu().numpy() for c in carries])
+            if ccfg.enabled else None),
         mean_compute_inflation=float(np.mean(phi_frames)) if ccfg.enabled else 1.0,
-        n_devices=1,
+        n_devices=n_dev,
         window=W,
         dispatch_s=sw.total("fleet/dispatch"),
         gen_s=gen_s,
@@ -2205,11 +2353,37 @@ def _cap_cells(take, gamma, eta, cover, backlog_g, backlog_e, acfg: AdmissionCon
     return torch.where(refuse, 0, take)
 
 
-def _hier_device_inputs(host, dev):
+#: the class grid's leaves with a class axis (dim 1), which the slabs cut
+_PER_CLASS = ("cover", "A", "C", "w_a", "w_c", "acc", "ctime", "v", "u", "avail")
+
+
+def _hier_device_inputs(host, dev, devs: Sequence[torch.device] = ()):
     """A window's class grid on ``dev`` with its utility and feasibility:
-    ``(inst, us, feas, count)``."""
+    ``(inst, us, feas, count)``.
+
+    With several ``devs``, the reference's ``_hier_class_tensors``: the
+    padded class axis is cut into ``len(devs)`` contiguous slabs, each
+    slab's ``us_tensor``/``hard_feasible`` is computed on its own device
+    and the slabs are concatenated on ``dev``.  Both are elementwise per
+    class row (no reduction across classes to reorder), so the values are
+    the single-device ones bit for bit; the allocator stays on ``dev``, a
+    sequential walk over the classes with the budgets as its carry."""
     inst = FlatInstance(**{k: host[k].to(dev, non_blocking=True) for k in _FIELDS})
-    return inst, us_tensor(inst), hard_feasible(inst), host["count"].to(dev, non_blocking=True)
+    count = host["count"].to(dev, non_blocking=True)
+    if len(devs) <= 1:
+        return inst, us_tensor(inst), hard_feasible(inst), count
+    cuts = np.linspace(0, host["A"].shape[1], len(devs) + 1).astype(int)
+    us_p, fe_p = [], []
+    for d, lo, hi in zip(devs, cuts[:-1], cuts[1:]):
+        if lo == hi:
+            continue
+        sub = FlatInstance(**{
+            k: (host[k][:, lo:hi] if k in _PER_CLASS else host[k]).to(d) for k in _FIELDS
+        })
+        with _device_scope(d):
+            us_p.append(us_tensor(sub).to(dev))
+            fe_p.append(hard_feasible(sub).to(dev))
+    return inst, torch.cat(us_p, 1), torch.cat(fe_p, 1), count
 
 
 def _simulate_fleet_hier(
@@ -2228,6 +2402,7 @@ def _simulate_fleet_hier(
     t_run0: float,
     engine: Optional[ResilienceEngine] = None,
     metrics: bool = False,
+    devs: Sequence[torch.device] = (),
 ) -> FleetResult:
     """Class-aggregate fleet for ``EngineOptions(scheduler="hierarchical")``,
     the reference's ``_simulate_fleet_hier``.
@@ -2295,7 +2470,7 @@ def _simulate_fleet_hier(
         with ``metrics``, the rows' parts ``(w, c_load, bg, be, n_shed,
         n_refused)`` in the ``(n_rep, Tc, ...)`` layout)."""
         nonlocal bg, be
-        inst, us, feas, count = _hier_device_inputs(host, dev)
+        inst, us, feas, count = _hier_device_inputs(host, dev, devs)
         if not ccfg.enabled:
             out = hier_cells(
                 us, feas, inst.v, inst.u, inst.cover, count, inst.gamma, inst.eta,
@@ -2461,7 +2636,7 @@ def _simulate_fleet_hier(
         mean_us_per_rep=us_sum_per_rep / np.maximum(reqs_per_rep, 1),
         final_backlog_per_rep=bg.cpu().numpy() if ccfg.enabled else None,
         mean_compute_inflation=phi_sum / phi_cnt if ccfg.enabled and phi_cnt else 1.0,
-        n_devices=1,
+        n_devices=max(1, len(devs)),
         window=W,
         dispatch_s=sw.total("fleet/dispatch"),
         gen_s=gen_s,

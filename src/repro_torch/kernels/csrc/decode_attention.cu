@@ -496,13 +496,11 @@ int launch_stages(const void* q, const void* k, const void* v, const void* valid
                   int n_split, const long long* st, float scale, int vec, size_t smem,
                   cudaStream_t stream) {
   auto kernel = decode_attention_kernel<T, STAGES, HG>;
-  static size_t smem_set = 0;  // the opt-in already granted to this instantiation
-  if (smem > smem_set) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
-  }
+  // the opt-in holds for the function as loaded on the current device only,
+  // so it is granted on every launch (no flag shared by devices or threads)
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(KV, n_split, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -534,15 +532,14 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out, void* part,
            void* counters, int B, int KV, int rep, int Tk, int hd, int span, int n_split,
            const long long* st, float scale, int vec, cudaStream_t stream) {
-  static int limit = 0;  // the card's opt-in shared memory per block, less the static part
-  if (limit == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaError_t err =
-        cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return (int)err;
-    limit -= 16;
-  }
+  // the current device's opt-in shared memory per block, less the static
+  // part, read on every launch: each device of the process has its own
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  limit -= 16;
   const size_t s2 = smem_bytes(2, sizeof(T), rep, hd);
   if (s2 <= (size_t)limit)
     return launch_heads<T, 2>(q, k, v, valid, out, part, counters, B, KV, rep, Tk, hd, span,

@@ -343,13 +343,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   if ((err = make_map(&tv, v, HD, Tk, KV, B, st + 6, BK)) != 0) return err;
   if ((err = make_map(&to, out, HD, S, H, B, st + 9, 64)) != 0) return err;
   auto kernel = flash_attention_wgmma_kernel<HD>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  // the opt-in holds for the function as loaded on the current device only,
+  // so it is granted on every launch (no flag shared by devices or threads)
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid(H, B, (S + C::BQ - 1) / C::BQ);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, to, H, KV, S, Tk, causal, has_window,
                                              window, scale * LOG2E);

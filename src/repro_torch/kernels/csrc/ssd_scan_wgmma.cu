@@ -463,13 +463,11 @@ int launch(const void* x, const void* dt, const float* A, const void* Bm, const 
   if ((err = make_map(&tb, Bm, N, S, G, B, st + 6, Q)) != 0) return err;
   if ((err = make_map(&tc, Cm, N, S, G, B, st + 9, Q)) != 0) return err;
   auto kernel = ssd_scan_wgmma_kernel<N>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lt::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  // the opt-in holds for the function as loaded on the current device only,
+  // so it is granted on every launch (no flag shared by devices or threads)
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lt::SMEM);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid(H, B);
   kernel<<<grid, Lt::THREADS, Lt::SMEM, stream>>>(
       tx, tb, tc, static_cast<const __nv_bfloat16*>(dt), A, static_cast<__nv_bfloat16*>(y),

@@ -30,6 +30,7 @@ op for op those of ``repro_torch.core.satisfaction``.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -194,9 +195,11 @@ def gus_assign(
     if err != 0:
         msg = lib.gus_error_string(err).decode()
         raise RuntimeError(f"gus_assign kernel launch failed: CUDA error {err} ({msg})")
-    gus_assign.launches += 1
+    with _COUNT_LOCK:  # the multi-device fleet launches from several threads
+        gus_assign.launches += 1
     return out_j, out_l, w, c
 
 
 #: kernel launches since the count was last set to 0
 gus_assign.launches = 0
+_COUNT_LOCK = threading.Lock()

@@ -60,8 +60,9 @@ def main(argv=None):
     ap.add_argument("--fleet", type=int, default=0, metavar="R",
                     help="also run R Monte-Carlo replications")
     ap.add_argument("--devices", type=int, default=None, metavar="N",
-                    help="devices for the fleet's replication axis (only 1 is "
-                         "ported: ROADMAP.md item 9)")
+                    help="shard the fleet's replication axis across N local "
+                         "devices of --device's type (default: all; asking for "
+                         "more than exist raises, never falls back)")
     ap.add_argument("--window", type=int, default=None, metavar="W",
                     help="run the fleet W frames at a time (bounded memory on "
                          "long horizons)")
@@ -202,7 +203,7 @@ def main(argv=None):
                 )
                 fr = simulate_fleet(spec, cfg, **sim_kw, scenario=scn, n_rep=args.fleet,
                                     seed=args.seed, options=fleet_opts, device=dev)
-            except (ValueError, NotImplementedError) as e:  # --devices > 1, ILP frame, ...
+            except ValueError as e:  # bad --devices, ILP uncapped frame, ...
                 raise SystemExit(str(e.args[0]))
             print(f"=== fleet: {args.fleet} replications on {fr.n_devices} device(s) "
                   f"({fr.device}) ===")

@@ -32,7 +32,9 @@ from ..core.instance import resolve_device
 from .layers import ParamDecl
 from .model import Model
 
-__all__ = ["params_from_reference", "params_to_reference", "params_to", "to_numpy"]
+__all__ = [
+    "params_from_reference", "params_to_reference", "params_to", "to_numpy", "specs_to_reference",
+]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -118,6 +120,20 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return np.asarray(tree)[i]
+
+
+def specs_to_reference(cfg: ModelConfig, specs: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's per-layer logical specs (``Model.param_logical_specs``)
+    in the reference's layout: each layer stack's axes (every layer of a
+    stack has the same) with the stacked ``"layers"`` axis prepended."""
+    stacks = Model(cfg).stack_sizes()
+
+    def stacked(tree):
+        if isinstance(tree, dict):
+            return {k: stacked(v) for k, v in tree.items()}
+        return ("layers",) + tuple(tree)
+
+    return {k: stacked(v[0]) if k in stacks else v for k, v in specs.items()}
 
 
 def params_to(params, device):

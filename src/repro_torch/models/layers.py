@@ -3,8 +3,11 @@
 The port's counterpart of ``repro/models/layers.py``.  Params are plain
 nested dicts of tensors; every parameter is declared once (shape + init
 kind) in a decl tree, and :func:`init_leaf` draws it from a
-``torch.Generator`` on the target device.  The reference's ``shard(...)``
-annotations and logical axes are single-device no-ops here and are dropped.
+``torch.Generator`` on the target device.  Each declaration names the
+logical axes of its dimensions (:func:`specs_from_decl`), and activations
+carry the reference's ``shard(...)`` annotations: no-ops outside
+``sharding.use_sharding``, a DTensor redistribution inside it
+(``launch/steps.py``).
 
 Attention in causal mode goes through ``kernels.ops.flash_attention`` and
 decode through ``kernels.ops.decode_attention``: the Hopper kernels on CUDA
@@ -34,15 +37,18 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from ..kernels.common import resolve_model_backend
+from ..sharding import current_ctx, placements_for, shard
 from .quant import dequantize_kv, quantize_kv
 
 __all__ = [
     "ParamDecl",
     "init_leaf",
+    "specs_from_decl",
     "norm_decl",
     "apply_norm",
     "mlp_decl",
@@ -62,6 +68,7 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class ParamDecl:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]   # one logical axis name a dimension (sharding.py)
     init: str = "fan_in"     # fan_in | zeros | ones | normal | a_log | dt_bias
     scale: float = 1.0
 
@@ -97,6 +104,14 @@ def init_leaf(d: ParamDecl, dtype: torch.dtype, generator: torch.Generator,
     return x.mul_(d.scale / math.sqrt(max(fan_in, 1))).to(dtype)
 
 
+def specs_from_decl(decl: Dict[str, Any], stack: bool = False):
+    """The logical axes of every leaf of a decl tree, in its layout;
+    ``stack=True`` prepends the reference's stacked ``"layers"`` axis."""
+    if isinstance(decl, ParamDecl):
+        return ("layers",) + decl.logical if stack else decl.logical
+    return {k: specs_from_decl(v, stack) for k, v in decl.items()}
+
+
 def init_tree(decl: Dict[str, Any], dtype, generator, device) -> Dict[str, Any]:
     """Materialize a decl tree, leaf by leaf in insertion order."""
     return {
@@ -112,9 +127,9 @@ def init_tree(decl: Dict[str, Any], dtype, generator, device) -> Dict[str, Any]:
 
 def norm_decl(cfg: ModelConfig, dim: Optional[int] = None) -> Dict[str, ParamDecl]:
     dim = dim or cfg.d_model
-    d = {"scale": ParamDecl((dim,), "ones")}
+    d = {"scale": ParamDecl((dim,), ("embed",), "ones")}
     if cfg.norm == "layernorm":
-        d["bias"] = ParamDecl((dim,), "zeros")
+        d["bias"] = ParamDecl((dim,), ("embed",), "zeros")
     return d
 
 
@@ -164,14 +179,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float, rotary_pct: flo
 
 def mlp_decl(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, ParamDecl]:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    decl = {"w_up": ParamDecl((d, f)), "w_down": ParamDecl((f, d))}
+    decl = {
+        "w_up": ParamDecl((d, f), ("embed", "ff")),
+        "w_down": ParamDecl((f, d), ("ff", "embed")),
+    }
     if cfg.gated_mlp:
-        decl["w_gate"] = ParamDecl((d, f))
+        decl["w_gate"] = ParamDecl((d, f), ("embed", "ff"))
     if cfg.mlp_bias:
-        decl["b_up"] = ParamDecl((f,), "zeros")
-        decl["b_down"] = ParamDecl((d,), "zeros")
+        decl["b_up"] = ParamDecl((f,), ("ff",), "zeros")
+        decl["b_down"] = ParamDecl((d,), ("embed",), "zeros")
         if cfg.gated_mlp:
-            decl["b_gate"] = ParamDecl((f,), "zeros")
+            decl["b_gate"] = ParamDecl((f,), ("ff",), "zeros")
     return decl
 
 
@@ -191,6 +209,7 @@ def apply_mlp(p, x, cfg: ModelConfig):
         h = _act(cfg, g) * u
     else:
         h = _act(cfg, u)
+    h = shard(h, "batch", None, "ff")
     y = h @ p["w_down"]
     if cfg.mlp_bias:
         y = y + p["b_down"]
@@ -205,30 +224,64 @@ def attn_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
     d, hd = cfg.d_model, cfg.head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     decl = {
-        "w_q": ParamDecl((d, H, hd)),
-        "w_k": ParamDecl((d, KV, hd)),
-        "w_v": ParamDecl((d, KV, hd)),
-        "w_o": ParamDecl((H, hd, d)),
+        "w_q": ParamDecl((d, H, hd), ("embed", "heads", "head_dim")),
+        "w_k": ParamDecl((d, KV, hd), ("embed", "kv_heads", "head_dim")),
+        "w_v": ParamDecl((d, KV, hd), ("embed", "kv_heads", "head_dim")),
+        "w_o": ParamDecl((H, hd, d), ("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias:
-        decl["b_q"] = ParamDecl((H, hd), "zeros")
-        decl["b_k"] = ParamDecl((KV, hd), "zeros")
-        decl["b_v"] = ParamDecl((KV, hd), "zeros")
+        decl["b_q"] = ParamDecl((H, hd), ("heads", "head_dim"), "zeros")
+        decl["b_k"] = ParamDecl((KV, hd), ("kv_heads", "head_dim"), "zeros")
+        decl["b_v"] = ParamDecl((KV, hd), ("kv_heads", "head_dim"), "zeros")
     if cfg.attn_out_bias:
-        decl["b_o"] = ParamDecl((d,), "zeros")
+        decl["b_o"] = ParamDecl((d,), ("embed",), "zeros")
     return decl
 
 
-def _project(x, w):
-    """einsum("bsd,dhk->bshk") as one matrix product."""
-    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+def _flatten(t, start: int, end: int):
+    """``t.flatten(start, end)``; a DTensor is flattened on each rank's
+    shard and wrapped again, so that neither the view nor, in the backward,
+    its gradient splits a sharded dimension anew (a gradient may come back
+    sharded where the merged dimension would cut a head).  The rules shard
+    at most the first merged dimension, whole; a partial sum is reduced
+    first."""
+    if not isinstance(t, DTensor):
+        return t.flatten(start, end)
+    if any(not isinstance(p, (Shard, Replicate)) for p in t.placements):
+        t = t.redistribute(t.device_mesh, [p if isinstance(p, Shard) else Replicate()
+                                           for p in t.placements])
+    pl = []
+    for p in t.placements:
+        if isinstance(p, Shard) and start < p.dim <= end:
+            raise ValueError(f"cannot merge dimensions {start}..{end} of a tensor sharded on "
+                             f"dimension {p.dim}")
+        pl.append(Shard(p.dim - (end - start)) if isinstance(p, Shard) and p.dim > end else p)
+    return DTensor.from_local(t.to_local().flatten(start, end), t.device_mesh, pl,
+                              run_check=False)
+
+
+def _project(x, w, heads: str):
+    """einsum("bsd,dhk->bshk") as one matrix product.  Under
+    ``use_sharding`` the product (B, S, H * hd) is first laid out as its
+    (B, S, H, hd) view will be, with the heads on the mesh axes of the
+    logical axis ``heads`` (or gathered where those cannot split H), so
+    that the split into heads stays local."""
+    y = x @ _flatten(w, 1, 2)
+    if isinstance(y, DTensor) and current_ctx()[0] is not None:
+        H = w.shape[1]
+        pl = placements_for((y.shape[0], y.shape[1], H, y.shape[2] // H),
+                            ("batch", None, heads, None), y.device_mesh, current_ctx()[1])
+        pl = tuple(Shard(2) if isinstance(q, Shard) and q.dim == 2 else q for q in pl)
+        if tuple(y.placements) != pl:
+            y = y.redistribute(y.device_mesh, pl)
+    return y.unflatten(-1, w.shape[1:])
 
 
 def _project_qkv(p, x, cfg: ModelConfig, kv_input=None):
     kv_input = x if kv_input is None else kv_input
-    q = _project(x, p["w_q"])
-    k = _project(kv_input, p["w_k"])
-    v = _project(kv_input, p["w_v"])
+    q = _project(x, p["w_q"], "heads")
+    k = _project(kv_input, p["w_k"], "kv_heads")
+    v = _project(kv_input, p["w_v"], "kv_heads")
     if cfg.qkv_bias:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
     return q, k, v
@@ -346,6 +399,10 @@ def apply_attention(
         q = rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
         k = rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
 
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
+
     if cache is not None and mode != "cross":
         B, W = x.shape[0], cache["k"].shape[1]
         if isinstance(cache_index, torch.Tensor):  # one position a row
@@ -381,7 +438,8 @@ def apply_attention(
             y = _sdpa(q, k, v, torch.ones((S, S), dtype=torch.bool, device=x.device))
         new_cache = {"k": k, "v": v}
 
-    out = y.flatten(2) @ p["w_o"].flatten(0, 1)
+    y = shard(y, "batch", None, "heads", None)
+    out = _flatten(y, 2, 3) @ _flatten(p["w_o"], 0, 1)
     if cfg.attn_out_bias:
         out = out + p["b_o"]
     return out, new_cache

@@ -57,9 +57,11 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..core.instance import resolve_device
+from ..sharding import shard
 from .layers import (
     ParamDecl,
     apply_attention,
@@ -70,6 +72,7 @@ from .layers import (
     make_positions,
     mlp_decl,
     norm_decl,
+    specs_from_decl,
 )
 from .moe import apply_moe, moe_decl
 from .quant import quantize_kv
@@ -104,6 +107,25 @@ class DecodeCache:
     conv: Optional[torch.Tensor] = None
     ssm: Optional[torch.Tensor] = None
     cross: Optional[Dict[str, torch.Tensor]] = None
+
+
+def _scatter_rows(h: DTensor, pos, vals) -> DTensor:
+    """``h[b, pos[b]] = vals[b]`` for every row b of a DTensor ``h`` (B, S,
+    D), on each rank's shard: ``pos`` (B, P) and ``vals`` (B, P, D) are laid
+    out as ``h`` is on the batch (and ``vals`` on D; the rules never shard
+    S), so every row's write is local."""
+    mesh = h.device_mesh
+
+    def like(t, dims):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        pl = [p if isinstance(p, Shard) and p.dim in dims else Replicate() for p in h.placements]
+        return t if list(t.placements) == pl else t.redistribute(mesh, pl)
+
+    hl = h.to_local()
+    rows = torch.arange(hl.shape[0], device=hl.device)[:, None]
+    out = hl.index_put((rows, like(pos, (0,)).to_local()), like(vals, (0, 2)).to_local())
+    return DTensor.from_local(out, mesh, h.placements, run_check=False)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -145,11 +167,11 @@ class Model:
         hold one such dict per layer)."""
         cfg = self.cfg
         d: Dict[str, Any] = {
-            "embed": ParamDecl((cfg.vocab_size, cfg.d_model), "normal", 0.02),
+            "embed": ParamDecl((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), "normal", 0.02),
             "ln_f": norm_decl(cfg),
         }
         if not cfg.tie_embeddings:
-            d["lm_head"] = ParamDecl((cfg.d_model, cfg.vocab_size))
+            d["lm_head"] = ParamDecl((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
         if cfg.family == "encdec":
             d["enc_layers"] = self._block_decl(cross=False)
             d["dec_layers"] = self._block_decl(cross=True)
@@ -166,6 +188,31 @@ class Model:
         if cfg.family == "encdec":
             return {"enc_layers": cfg.num_enc_layers, "dec_layers": cfg.num_layers}
         return {"layers": cfg.num_layers}
+
+    def _per_layer(self, fn) -> Dict[str, Any]:
+        """``fn`` of each subtree of :meth:`decl`, in the parameters'
+        layout: a list of one a layer for each layer stack."""
+        stacks = self.stack_sizes()
+        return {name: [fn(sub) for _ in range(stacks[name])] if name in stacks else fn(sub)
+                for name, sub in self.decl().items()}
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """The parameters as ``meta`` tensors (shapes and ``param_dtype``,
+        no storage), in the layout :meth:`init` returns."""
+        dt = _dtype(self.cfg.param_dtype)
+
+        def meta(sub):
+            if isinstance(sub, ParamDecl):
+                return torch.empty(sub.shape, dtype=dt, device="meta")
+            return {k: meta(v) for k, v in sub.items()}
+
+        return self._per_layer(meta)
+
+    def param_logical_specs(self) -> Dict[str, Any]:
+        """The logical axes of every parameter, in the layout :meth:`init`
+        returns (``models/carry.py::specs_to_reference`` gives the
+        reference's stacked tree)."""
+        return self._per_layer(specs_from_decl)
 
     # ------------------------------------------------------------------ init
     def init(self, generator: Union[int, torch.Generator] = 0, *, device=None) -> Dict[str, Any]:
@@ -193,11 +240,15 @@ class Model:
         ``batch["vision_embeds"]`` (B, P, D) written at each row's
         ``batch["vision_positions"]`` (B, P)."""
         dt = _dtype(self.cfg.dtype)
-        h = params["embed"][tokens.long()].to(dt)
+        # laid out before the patches are written (a no-op on one device)
+        h = shard(params["embed"][tokens.long()].to(dt), "batch", None, "embed")
         if self.cfg.family == "vlm" and batch is not None and "vision_embeds" in batch:
             vp = batch["vision_positions"].long()
             rows = torch.arange(h.shape[0], device=h.device)[:, None]
-            h[rows, vp] = batch["vision_embeds"].to(dt)
+            ve = batch["vision_embeds"].to(dt)
+            if isinstance(h, DTensor):
+                return _scatter_rows(h, vp, ve)
+            h[rows, vp] = ve
         return h
 
     def _unembed(self, params, h) -> torch.Tensor:
@@ -209,7 +260,7 @@ class Model:
             logits = h @ params["lm_head"]
         if cfg.logits_softcap:
             logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
-        return logits.float()
+        return shard(logits.float(), "batch", None, "vocab")
 
     # ----------------------------------------------------------------- blocks
     def _dense_block(self, p, h, positions, *, window=None, cache=None, index=None):
@@ -248,7 +299,7 @@ class Model:
         """The encoder over the stubbed frame embeddings (B, T_enc, D):
         bidirectional attention blocks, then ``ln_enc``."""
         cfg = self.cfg
-        mem = batch["enc_embeds"].to(_dtype(cfg.dtype))
+        mem = shard(batch["enc_embeds"].to(_dtype(cfg.dtype)), "batch", None, "embed")
         pos = make_positions(mem.shape[0], mem.shape[1], mem.device)
         for lp in params["enc_layers"]:
             a, _ = apply_attention(lp["attn"], apply_norm(lp["ln1"], mem, cfg), cfg,
@@ -367,18 +418,27 @@ class Model:
         positions = make_positions(B, S, h.device)
         if cache.attn is not None:
             W = cache.attn["k"].shape[2]
-            # keep the last min(S, W) tokens; slot = pos % W matches decode
+            # keep the last min(S, W) tokens; slot = pos % W matches decode:
+            # positions S - keep .. S - 1 land in at most two runs of slots
             keep = min(S, W)
-            slots = torch.arange(S - keep, S, device=h.device) % W
+            start = (S - keep) % W
+            runs = [(start, 0, min(keep, W - start))]
+            if runs[0][2] < keep:
+                runs.append((0, runs[0][2], keep - runs[0][2]))
+
+        def write(ring, src):
+            """``src`` (B, keep, ...) into its slots of ``ring`` (B, W, ...),
+            by slices (copies into views, which DTensor takes too)."""
+            for slot, at, n in runs:
+                ring[:, slot:slot + n] = src[:, at:at + n].to(ring.dtype)
 
         def fill_ring(site, kv):
             for name in ("k", "v"):
                 src = kv[name][:, S - keep:]
                 if "k_scale" in cache.attn:  # int8: values and scales at the same slots
                     src, scale = quantize_kv(src)
-                    cache.attn[name + "_scale"][site].index_copy_(1, slots, scale)
-                ring = cache.attn[name][site]
-                ring.index_copy_(1, slots, src.to(ring.dtype))
+                    write(cache.attn[name + "_scale"][site], scale)
+                write(cache.attn[name][site], src)
 
         if cfg.family == "encdec":
             mem = self._encode(params, batch)

@@ -47,13 +47,21 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..configs.base import ModelConfig
+from ..sharding import shard
 from .layers import ParamDecl, _act, apply_mlp, mlp_decl
 
 __all__ = [
     "moe_decl", "apply_moe", "router_aux_loss", "capacity", "dispatch", "combine", "Dispatch",
 ]
+
+
+# dtype of the dispatch one-hot/cumsum intermediates; int16 halves the bytes
+# of the rank tensor (safe while a group routes fewer than 32768 choices) —
+# the reference's perf variant (launch/perf.py), read at each call
+DISPATCH_DTYPE = "int32"
 
 
 def capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -69,15 +77,15 @@ def moe_decl(cfg: ModelConfig) -> Dict[str, Any]:
     d, f = cfg.d_model, cfg.effective_moe_d_ff
     E = cfg.n_experts
     decl: Dict[str, Any] = {
-        "router": ParamDecl((d, E), "normal", 0.02),
-        "w_gate": ParamDecl((E, d, f)),
-        "w_up": ParamDecl((E, d, f)),
-        "w_down": ParamDecl((E, f, d)),
+        "router": ParamDecl((d, E), ("embed", "experts"), "normal", 0.02),
+        "w_gate": ParamDecl((E, d, f), ("experts", "embed", "expert_ff")),
+        "w_up": ParamDecl((E, d, f), ("experts", "embed", "expert_ff")),
+        "w_down": ParamDecl((E, f, d), ("experts", "expert_ff", "embed")),
     }
     if cfg.n_shared_experts:
         fs = cfg.shared_expert_d_ff or f
         decl["shared"] = mlp_decl(cfg, d_ff=fs * cfg.n_shared_experts)
-        decl["shared_gate"] = ParamDecl((d, 1), "normal", 0.02)
+        decl["shared_gate"] = ParamDecl((d, 1), ("embed", None), "normal", 0.02)
     if cfg.dense_residual:
         decl["dense"] = mlp_decl(cfg)
     return decl
@@ -137,7 +145,17 @@ def dispatch(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, *,
     """Route x (B, S, D) and assign slots: per batch row with capacity C(S)
     (``grouped``), or over all B*S tokens with C(B*S).  Choices are ranked
     within their expert in token-major order, so earlier tokens win slots;
-    a dropped choice goes to the overflow slot C, which is cut off."""
+    a dropped choice goes to the overflow slot C, which is cut off.
+
+    On DTensors (the sharded steps) the routing runs on the whole batch,
+    the same on every rank, and its tensors come back replicated."""
+    if isinstance(x, DTensor):
+        full = dispatch(x.full_tensor(), _full(router), cfg, grouped=grouped)
+        rep = [Replicate()] * x.device_mesh.ndim
+        return Dispatch(*(
+            DTensor.from_local(t, x.device_mesh, rep, run_check=False)
+            if isinstance(t, torch.Tensor) else t for t in full
+        ))
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     xs = x if grouped else x.reshape(1, B * S, D)
@@ -145,8 +163,9 @@ def dispatch(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, *,
     C = capacity(n, cfg)
     probs, gate_vals, expert_idx = route(xs, router, cfg)
     e_f = expert_idx.reshape(G, n * K)
-    onehot = F.one_hot(e_f, E).to(torch.int32)                    # (G, n*K, E)
-    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    idt = getattr(torch, DISPATCH_DTYPE)
+    onehot = F.one_hot(e_f, E).to(idt)                            # (G, n*K, E)
+    pos = torch.cumsum(onehot, dim=1, dtype=idt) - onehot
     pos = (pos * onehot).sum(-1, dtype=torch.int32)
     keep = pos < C
     slot = torch.where(keep, pos, C).long()
@@ -161,10 +180,18 @@ def dispatch(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, *,
     return Dispatch(probs, expert_idx, pos, keep, tok_map[..., :C], gate_map[..., :C], C)
 
 
-def _expert_ffn(xe: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
-    """(E, N, D) rows -> (E, N, D): the gated expert FFN, three bmm."""
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _expert_ffn(xe: torch.Tensor, p, cfg: ModelConfig, axes) -> torch.Tensor:
+    """(E, N, D) rows -> (E, N, D): the gated expert FFN, three bmm.
+    ``axes``: the logical names of the first two axes (the reference's
+    sharding of its expert activations)."""
+    xe = shard(xe, *axes, "embed")
     h = _act(cfg, torch.bmm(xe, p["w_gate"]))
     h = h * torch.bmm(xe, p["w_up"])
+    h = shard(h, *axes, "expert_ff")
     return torch.bmm(h, p["w_down"])
 
 
@@ -178,6 +205,12 @@ def combine(weighted: torch.Tensor, e_f, pos, keep, K: int) -> torch.Tensor:
     choice adding nothing.  This is the order in which the reference's
     scatter-add of the flattened (e, c) updates reaches each token."""
     *lead, E, C, D = weighted.shape
+    # each token reads its own slots among all E x C: on DTensors the slots
+    # are gathered first; the groups, where there are several (grouped: one
+    # a batch row), may stay split on the batch axes
+    split = bool(lead) and lead[0] > 1
+    weighted = shard(weighted, *(("batch",) if split else ()),
+                     *(None,) * (weighted.dim() - split))
     T = e_f.shape[-1] // K
     e_t, order = torch.sort(e_f.reshape(*lead, T, K), dim=-1)  # experts distinct per token
     pos_t = torch.gather(pos.reshape(*lead, T, K), -1, order)
@@ -220,15 +253,23 @@ def _apply_moe(p, x: torch.Tensor, cfg: ModelConfig, grouped: bool):
     rows = d.tok_map.reshape(G, E * C).long()
     xe = torch.gather(xpad, 1, rows[..., None].expand(G, E * C, D))    # sentinel: zeros
     xe = xe.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
-    ye = _expert_ffn(xe, p, cfg).reshape(E, G, C, D).transpose(0, 1)   # (G, E, C, D)
+    # the reference's layouts: per row (grouped) the rows' slots on the batch
+    # axes and the experts replicated; one group (global) the experts sharded
+    axes = (None, "batch") if grouped else ("experts", "capacity")
+    ye = _expert_ffn(xe, p, cfg, axes).reshape(E, G, C, D).transpose(0, 1)  # (G, E, C, D)
     y = combine(ye * d.gate_map[..., None], d.expert_idx.reshape(G, n * K), d.pos, d.keep, K)
-    return _always_on(p, x, y.reshape(B, S, D), cfg), aux
+    y = shard(y.reshape(B, S, D), "batch", None, "embed")
+    return _always_on(p, x, y, cfg), aux
 
 
 def router_aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     """Switch-style load-balance loss: E * sum_e f_e * P_e, where f_e is the
     fraction of routed choices sent to e and P_e the mean router prob."""
-    f = torch.bincount(expert_idx.reshape(-1), minlength=n_experts).float()
+    idx = _full(expert_idx).reshape(-1)
+    # bincount by a scatter of ones: integer counts in any order, and a
+    # shape that does not depend on the data (the dry-run's fake tensors)
+    f = torch.zeros(n_experts, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx)).float()
     f = f / expert_idx.numel()
     P = probs.float().mean(dim=0)
     return n_experts * torch.sum(f * P)

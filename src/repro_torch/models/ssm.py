@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from ..kernels.ssd_scan import ssd_reference
+from ..sharding import shard
 from .layers import ParamDecl
 
 __all__ = [
@@ -50,14 +51,14 @@ def mamba_decl(cfg: ModelConfig) -> Dict[str, Any]:
     di, H, P, G, N = _dims(cfg)
     conv_ch = di + 2 * G * N
     return {
-        "in_proj": ParamDecl((d, 2 * di + 2 * G * N + H)),
-        "conv_w": ParamDecl((cfg.ssm_conv, conv_ch), "normal", 0.2),
-        "conv_b": ParamDecl((conv_ch,), "zeros"),
-        "A_log": ParamDecl((H,), "a_log"),
-        "dt_bias": ParamDecl((H,), "dt_bias"),
-        "D": ParamDecl((H,), "ones"),
-        "norm_scale": ParamDecl((di,), "ones"),
-        "out_proj": ParamDecl((di, d)),
+        "in_proj": ParamDecl((d, 2 * di + 2 * G * N + H), ("embed", "d_inner")),
+        "conv_w": ParamDecl((cfg.ssm_conv, conv_ch), ("conv", "d_inner"), "normal", 0.2),
+        "conv_b": ParamDecl((conv_ch,), ("d_inner",), "zeros"),
+        "A_log": ParamDecl((H,), ("ssm_heads",), "a_log"),
+        "dt_bias": ParamDecl((H,), ("ssm_heads",), "dt_bias"),
+        "D": ParamDecl((H,), ("ssm_heads",), "ones"),
+        "norm_scale": ParamDecl((di,), ("d_inner",), "ones"),
+        "out_proj": ParamDecl((di, d), ("d_inner", "embed")),
     }
 
 
@@ -109,7 +110,7 @@ def apply_mamba(p, x, cfg: ModelConfig, conv_state=None, return_state=False):
     xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
     xBC = F.silu(xBC)
     xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
-    xs = xs.unflatten(-1, (H, P))
+    xs = shard(xs.unflatten(-1, (H, P)), "batch", None, "ssm_heads", "ssm_headdim")
     Bm = Bm.unflatten(-1, (G, N))
     Cm = Cm.unflatten(-1, (G, N))
     dt = _softplus(dt + p["dt_bias"])                         # (B, S, H)

@@ -22,12 +22,23 @@ import torch
 
 from ..core.instance import resolve_device
 from ..models.model import DecodeCache, Model
+from ..sharding import shard
 
 __all__ = ["ServingEngine", "make_serve_step", "make_prefill_step", "GenerationResult"]
 
 
+#: cast the logits to bf16 before the serve step's argmax, halving the
+#: bytes of a sharded-vocab logits exchange (the reference's perf variant,
+#: ``launch/perf.py``'s ``local_argmax``; greedy tokens change only at
+#: exact ties in bf16).  Read at each call.
+LOCAL_ARGMAX = False
+
+
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
-    """(B, V) logits -> (B, 1) int32 tokens, first maximal index."""
+    """(B, V) logits -> (B, 1) int32 tokens, first maximal index.  Under
+    ``use_sharding`` the logits are gathered on the vocab axis first (a
+    no-op on one device)."""
+    logits = shard(logits, "batch", None)
     return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
 
 
@@ -37,7 +48,10 @@ def make_serve_step(model: Model):
 
     def serve_step(params, tokens, cache: DecodeCache):
         logits, cache = model.decode_step(params, tokens, cache)
-        return _greedy(logits[:, -1, :]), cache
+        lg = logits[:, -1, :]
+        if LOCAL_ARGMAX:
+            lg = lg.to(torch.bfloat16)
+        return _greedy(lg), cache
 
     return serve_step
 

@@ -18,6 +18,7 @@ import torch
 
 from ..kernels.common import model_backend
 from ..models.model import Model
+from ..sharding import shard
 from .optimizer import (
     AdamWConfig,
     AdamWState,
@@ -41,7 +42,9 @@ class TrainState(NamedTuple):
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
     """Mean next-token CE in nats.  logits: (B, S, V) f32, labels: (B, S)."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    # a vocab-sharded DTensor (the sharded train step) is gathered on the
+    # vocab first: the gold logit is one entry of each row
+    gold = torch.gather(shard(logits, "batch", None, None), -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)

@@ -14,7 +14,10 @@ import pytest
 
 pytest.importorskip("torch")
 
-SUBPACKAGES = ["core", "obs", "serving", "models", "training", "configs", "kernels.ops"]
+SUBPACKAGES = [
+    "core", "obs", "serving", "models", "training", "configs", "kernels.ops", "launch",
+    "sharding", "roofline",
+]
 
 DIFFERENCES = {
     "core": {
@@ -30,16 +33,29 @@ DIFFERENCES = {
         "hier_cells",
         "hier_cells_np",
         "hier_backend_fn",
+        # not a name: with rep_group=None the port cuts the fleet's
+        # replications into one group a device (ceil(n_rep / devices)), the
+        # reference into groups of FLEET_REP_GROUP = 8 (one compiled program
+        # for XLA); rep_group=8 gives the reference's layout, and the
+        # results do not depend on the width
     },
     "models": {
         # the reference stacks the layer leaves (init_from_decl(..., stack=));
         # the port keeps one dict per layer (layers.init_tree) and converts
         # in models/carry.py
         "init_from_decl",
-        "specs_from_decl",    # item 9, still to port: sharding specs
     },
     "kernels.ops": {
         "on_tpu",             # TPU only: the port's route follows the tensors' device
+    },
+    "sharding": {
+        # a jax NamedSharding; the port's counterpart gives the DTensor
+        # placements of the same layout (sharding.placements_for)
+        "named_sharding_for",
+    },
+    "roofline": {
+        # the TPU v5e's rates; the port's spec is the H100's (roofline.H100)
+        "V5E",
     },
 }
 

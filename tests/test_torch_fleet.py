@@ -162,14 +162,14 @@ def test_demo_cluster_spec_matches_reference():
 
 @pytest.mark.parametrize("case,item", [("devices", "item 9"), ("hier-devices", "item 9")])
 def test_unported_options_raise(case, item):
-    """What this slice does not run raises NotImplementedError naming its
-    ROADMAP item, instead of running something else — on the dense and on
-    the hierarchical layout."""
+    """``devices=2`` (ROADMAP item 9, now ported) on a CPU run, which sees
+    one device, raises ValueError instead of running on fewer devices —
+    on the dense and on the hierarchical layout."""
     spec = P.demo_cluster_spec()
     cfg = P.SimConfig(**BASE)
     opts = dict(scheduler="hierarchical") if case.startswith("hier-") else {}
     opts["devices"] = 2
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
+    with pytest.raises(ValueError, match="local device"):
         P.simulate_fleet(spec, cfg, n_rep=2, options=P.EngineOptions(**opts), device="cpu")
 
 
