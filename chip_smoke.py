@@ -14,7 +14,8 @@ any phase fails:
    source, all started together), prints the card's name and power limit,
    and whether the tensor-core flash and SSD libraries' SASS hold
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), by ``cuobjdump -sass``
-   where the toolkit has it;
+   where the toolkit has it (the flash library's hd-160 instantiation on
+   its own as well);
 2. holds each kernel against its plain PyTorch version on the card — the
    GUS kernel's integer assignments must be equal (0 mismatches) on the
    golden frames, the paper's 20 000-instance numerical batch (plain and
@@ -56,8 +57,9 @@ any phase fails:
    threefry key per replication and frame) and ``gus-ordered``: 64
    replications equal to the CPU, then 1024 in windows of 5, counted;
 6. holds the attention kernels against their plain versions on the card
-   (ragged lengths, GQA rep 1/4/8, window None and 8, head_dim 64, 128 and
-   160, f32 and bf16: both flash routes; decode in one span and in several,
+   (ragged lengths, GQA rep 1/4/8, window None and 8, head_dim 64, 96, 128
+   and 160, f32 and bf16: both flash routes in both dtypes, bf16 at hd 96
+   on the CUDA cores; decode in one span and in several,
    masks partly and wholly invalid, a span with no valid position, and
    both kernels' serving-path launch shapes), then a small dense model
    (f32, GQA rep 4, a 16-token window whose ring wraps: the CUDA-core flash
@@ -179,8 +181,11 @@ any phase fails:
    depth, and arctic-480b at full width cut to 1 layer, each at batch 8
    with 32 greedy tokens and both attention kernels held against their
    plain versions at its launch shapes first (timed at qwen2-moe's and
-   pixtral's): flash launches once a decoder layer on the route its head
-   dim gives, decode once a layer and step, the encoder's and the cross
+   pixtral's; at pixtral's, and at stablelm-12b's prefill shape, which is
+   timed only, flash on the CUDA-core route forced beside its own): flash
+   launches once a decoder layer on the route its head dim gives (40 on
+   the tensor-core route for pixtral), decode once a layer and step, the
+   encoder's and the cross
    attention plain; f32 prefill + decode against one forward on a
    dropless qwen2-moe at full width and 4 layers;
 16. serves the int8 KV cache, chunked attention and continuous batching
@@ -388,6 +393,21 @@ def library_ms(fn, reps, timer=time_events):
         return None
 
 
+def flash_simt_ms(fn, reps):
+    """``fn``'s time by CUDA events with every flash launch forced onto the
+    CUDA-core route (``flash_attention.cu``), for comparison at the
+    tensor-core route's own shapes; the port's route rule is restored
+    after."""
+    import repro_torch.kernels.flash_attention as flash_module
+
+    rule = flash_module.flash_route
+    flash_module.flash_route = lambda *a: "simt"
+    try:
+        return time_events(fn, reps, warmup=1)
+    finally:
+        flash_module.flash_route = rule
+
+
 def attention_bounds(B, H, KV, S, T, n_valid, hd, dtype):
     """((ms, by) of flash, (ms, by) of decode) at a serving launch shape.
     Flash over an S-token causal prompt: q, k, v and out once, two dot
@@ -454,16 +474,22 @@ class AttentionLaunch:
                      decode_attention(self.dq, k, v, self.valid, backend="cuda"),
                      decode_attention_ref(self.dq, k, v, self.valid), self.dtype)
 
-    def time(self, where):
+    def time(self, where, simt=False):
         """Each kernel, its plain version and ``scaled_dot_product_attention``
         timed by CUDA events next to the bound, and the kernel and the
         yardstick again as device time (``time_graph``): ``{name: {"ms",
         "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "library_graph_ms"}}``."""
+        "library_graph_ms"}}``; flash's entry also names its ``"route"``,
+        and with ``simt`` holds ``"simt_ms"``, flash with the CUDA-core
+        route forced (``flash_simt_ms``)."""
         import torch
 
         from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
-        from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+        from repro_torch.kernels.flash_attention import (
+            flash_attention,
+            flash_attention_ref,
+            flash_route,
+        )
 
         sdpa = torch.nn.functional.scaled_dot_product_attention
         q, k, v, dq, valid = self.fq, self.fk, self.fv, self.dq, self.valid
@@ -487,6 +513,7 @@ class AttentionLaunch:
 
         out = {
             "flash_attention": {
+                "route": flash_route(q.dtype, self.hd),
                 "ms": time_events(flash, 10),
                 "graph_ms": time_graph(flash, 10),
                 "plain_ms": time_events(lambda: flash_attention_ref(q, k, v), 3, warmup=1),
@@ -504,8 +531,12 @@ class AttentionLaunch:
                 "library_graph_ms": library_ms(decode_lib, 60, time_graph),
             },
         }
+        if simt:
+            out["flash_attention"]["simt_ms"] = flash_simt_ms(flash, 3)
         for name, t in out.items():
             extra = f" valid={n_valid}" if name == "decode_attention" else " causal"
+            if "route" in t:
+                extra += f" ({t['route']} route)"
             print(
                 f"time {name} {where} launch {self.label(name)}{extra} {self.dtype}: kernel "
                 f"{t['ms']:.4f} ms eager, {t['graph_ms']:.4f} ms device (graph replay), plain "
@@ -513,6 +544,8 @@ class AttentionLaunch:
                 f"device/bound {t['graph_ms'] / t['bound_ms']:.2f}x, library "
                 f"scaled_dot_product_attention {t['library_ms']} ms eager, "
                 f"{t['library_graph_ms']} ms device"
+                + (f"; CUDA-core route forced {t['simt_ms']:.4f} ms eager" if "simt_ms" in t
+                   else "")
             )
         return out
 
@@ -569,7 +602,8 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
             (2, 16, 2, 77, 128, None),    # rep 8, ragged
             (1, 8, 1, 130, 64, 8),        # rep 8, window 8, ragged
             (1, 8, 1, 300, 128, 100),     # rep 8, a window that starts mid-tile
-            (1, 4, 2, 40, 160, 16),       # hd 160: the CUDA-core route in bf16 too
+            (1, 4, 2, 40, 160, 16),       # hd 160: the tensor-core route's tail atom in bf16
+            (1, 4, 2, 90, 96, None),      # hd 96: the CUDA-core route in bf16 too
         ):
             q = randn(dev, (B, S, H, hd), dtype, 1).transpose(1, 2)  # model-layout views
             k = randn(dev, (B, S, KV, hd), dtype, 2).transpose(1, 2)
@@ -1161,11 +1195,13 @@ def profile_serving(model, params, prompt_batch, steps=4):
             print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
 
 
-def sass_check(lib, label, required=("HGMMA",)):
+def sass_check(lib, label, required=("HGMMA",), function=None):
     """Print the counts of wgmma (``HGMMA``) and TMA (``UTMALDG``,
     ``UTMASTG``) instructions in the library's SASS; fail if one of
     ``required`` is missing.  ``label`` names the library in the messages.
-    Skipped, with a line that says so, where the toolkit has no cuobjdump."""
+    With ``function``, only the functions whose (mangled) name holds it
+    are counted, and there must be one.  Skipped, with a line that says so,
+    where the toolkit has no cuobjdump."""
     import shutil
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -1176,6 +1212,10 @@ def sass_check(lib, label, required=("HGMMA",)):
         print(f"sass {label} {lib.name}: cuobjdump not found, not checked")
         return
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
+    if function is not None:
+        parts = [p for p in sass.split("Function : ")[1:] if function in p.split("\n", 1)[0]]
+        check(parts, f"the {label} library holds no function named like {function}")
+        sass = "".join(parts)
     found = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
     print(f"sass {label} {lib.name}: instruction counts {json.dumps(found)}")
     for op in required:
@@ -2241,6 +2281,9 @@ MOE_TIE_RTOL = 1e-5
 FAMILY_SERVE = (("qwen2-moe-a2.7b", 1024, {}), ("seamless-m4t-medium", 1024, {}),
                 ("pixtral-12b", 2048, {}), ("arctic-480b", 1024, {"num_layers": 1}))
 FAMILY_MAIN = "qwen2-moe-a2.7b"
+#: hd-160 launch shapes timed on both flash routes: pixtral-12b's (served)
+#: and stablelm-12b's prefill (timed only, not served): (arch, prompt)
+FLASH_HD160 = (("pixtral-12b", 2048), ("stablelm-12b", 1024))
 #: (d) f32 prefill + decode vs one forward: a dropless copy of qwen2-moe
 #: (capacity factor n_experts / top_k) at full width and 4 layers
 MOE_ACC_LAYERS = 4
@@ -2423,8 +2466,10 @@ def families_smoke(dev, zero_counts):
         base = torch.cuda.memory_allocated()
         launch = AttentionLaunch(dev, cfg, SERVE_BATCH, prompt, gen, 21)
         launch.compare(errs, f"{arch} launch")
-        if arch in (FAMILY_MAIN, "pixtral-12b"):
+        if arch == FAMILY_MAIN:
             timed[arch] = launch.time(f"{arch}")
+        elif arch in dict(FLASH_HD160):
+            timed[arch] = launch.time(f"{arch}", simt=True)
         del launch
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
@@ -2481,6 +2526,19 @@ def families_smoke(dev, zero_counts):
         launches["decode_attention"][path] = n_decode
         routes[path] = route
         print(f"serve {path}: {time.perf_counter() - t0:.1f} s")
+
+    # stablelm-12b's prefill shape (hd 160, S 1024): timed only, not served
+    t0 = time.perf_counter()
+    for arch, prompt in FLASH_HD160:
+        if arch in timed:
+            continue
+        launch = AttentionLaunch(dev, get_config(arch), SERVE_BATCH, prompt, gen, 22)
+        launch.compare(errs, f"{arch} launch")
+        timed[arch] = launch.time(f"{arch}", simt=True)
+        del launch
+        sync(dev)
+        torch.cuda.empty_cache()
+    print(f"hd-160 launch shapes timed only: {time.perf_counter() - t0:.1f} s")
 
     # -- 15d. f32 at full width: prefill + decode == forward, dropless MoE ---
     t0 = time.perf_counter()
@@ -3547,6 +3605,8 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     sass_check(builds["flash_attention_wgmma"].path, "tensor-core flash", ("HGMMA", "UTMALDG"))
+    sass_check(builds["flash_attention_wgmma"].path, "tensor-core flash at hd 160",
+               ("HGMMA", "UTMALDG", "UTMASTG"), function="flash_attention_wgmma_kernelILi160E")
     sass_check(builds["ssd_scan_wgmma"].path, "tensor-core SSD", ("HGMMA", "UTMALDG"))
 
     # -- 2. kernel vs plain version on the card -----------------------------
@@ -4127,6 +4187,12 @@ def main() -> int:
         # the main path's route; f32 and other head dims take flash_attention.cu
         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:118",
+        "route_rule": {
+            "wgmma": "bfloat16 at head_dim 64, 128, 160: "
+                     "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+            "simt": "float32, and bfloat16 at other head dims: "
+                    "src/repro_torch/kernels/csrc/flash_attention.cu",
+        },
         **attn["flash_attention"],
     }, {
         "name": "decode_attention",

@@ -4,7 +4,7 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (pallas_call at flash_attention.py:118, body _kernel at :35) for bf16
-// inputs at head_dim 64 and 128; f32 inputs and other head dims take
+// inputs at head_dim 64, 128 and 160; f32 inputs and other head dims take
 // flash_attention.cu (the route rule is flash_attention.py::flash_route).
 // It computes what that kernel computes: for each (batch b, query head h)
 // the f32 scores q.k * (1/sqrt(hd)), -1e30 where masked (ragged tail,
@@ -36,7 +36,8 @@
 //     compute;
 //   * every tile lands with the 128-byte swizzle that the wgmma descriptors
 //     expect: rows of 64 bf16 (one swizzle atom), so hd = 128 is two atoms
-//     along the contraction axis;
+//     along the contraction axis; hd = 160 is two such atoms and a tail atom
+//     of 32 columns with the 64-byte swizzle (below);
 //   * S = Q.K^T is wgmma m64n128k16 from shared memory (both K-major); the
 //     online softmax runs on the f32 accumulator in registers (a row lives
 //     in the 4 lanes of a quad); P is rounded to bf16 in registers and is
@@ -53,10 +54,30 @@
 //   * the grid puts the query-tile index on its slowest axis, last tile
 //     first, so the heaviest causal tiles start in the first wave.
 //
+// hd 160 (pixtral-12b, stablelm-12b).  160 columns are 2.5 atoms of the
+// 128-byte swizzle.  Padding to three atoms (192 columns) would make a Q
+// tile of 128 rows 48 KB and a K or V tile of 128 keys 48 KB: 48 + 2 * 96 =
+// 240 KB for two stages, over the 227 KB a block may have.  So each tile is
+// cut into two 128-byte-swizzle atoms (columns 0-127, boxes of 64 columns)
+// and a tail atom of columns 128-159 whose 64-byte rows take the 64-byte
+// swizzle (a second tensor map per tensor, boxes of 32 columns, XOR of the
+// 16-byte chunk with bits 7-8 of the address; descriptors of layout type
+// B64, 512 bytes between 8-row groups).  A Q tile is then 40 KB and a K or
+// V tile 40 KB: 40 + 2 * 80 = 200 KB, hd 128's pipeline (two consumers, 128
+// keys a tile, two stages) unchanged.  S = Q.K^T takes 10 k-steps of 16:
+// 8 over the full atoms, 2 over the tail.  O += P.V is m64n128k16 over the
+// full atoms plus m64n32k16 over the tail, so the 64 x 160 f32 accumulator
+// is 64 + 16 registers a thread beside S's 64 and P's 32; the consumers get
+// 240 registers (the producer 24).  The epilogue writes the tail columns
+// with the 64-byte pattern and stores them as a third box.
+//
 // What bounds it on this card.  At yi-9b's prefill launch (B 8, H 32,
 // KV 4, S 1024, hd 128, causal) the causal dot products are 68.7 GFLOP:
 // 0.069 ms at the bf16 tensor-core rate, against 0.045 ms for q, k, v and
-// out at 3.35 TB/s, so operations bound it.  Left for later: a consumer
+// out at 3.35 TB/s, so operations bound it.  At pixtral-12b's (B 8, H 32,
+// KV 8, S 2048, hd 160) they are 343.6 GFLOP: 0.348 ms, against 0.063 ms
+// of bytes; operations again.  The n32 tail product runs the tensor cores
+// at a narrower width than the n128 one.  Left for later: a consumer
 // waits for its own S before its softmax (no overlap with its next
 // tile's product inside a warpgroup), and no block is persistent.
 //
@@ -72,6 +93,7 @@ using namespace hopper;
 
 constexpr int BK = 128;                 // keys per tile
 constexpr int KV_ATOM = BK * 128;       // one 64-column swizzle atom of a K or V tile
+constexpr int TAIL_ROW = 64;            // bytes of a row of the 32-column tail atom
 constexpr int WG_ROW_BYTES = 64 * 128;  // a consumer's 64 rows inside a Q atom
 constexpr float NEG = -1e30f;           // the running max's floor, as the Pallas mask value
 constexpr float LOG2E = 1.4426950408889634f;
@@ -92,23 +114,32 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // hd 64: three consumer warpgroups (192 query rows) and a 3-stage ring;
-// hd 128: two consumers (128 rows), 2 stages.  setmaxnreg splits the 64K
-// registers of the SM between the producer and the consumers.
+// hd 128 and 160: two consumers (128 rows), 2 stages.  setmaxnreg splits
+// the 64K registers of the SM between the producer and the consumers.
+// Each tile is ATOMS 128-byte-swizzle atoms of 64 columns, then (hd 160)
+// a tail atom of TAIL = 32 columns with the 64-byte swizzle.
 template <int HD>
 struct Tiles {
-  static constexpr int ATOMS = HD / 64;                  // swizzle atoms along hd
+  static constexpr int ATOMS = HD / 64;                  // 128-byte swizzle atoms along hd
+  static constexpr int TAIL = HD % 64;                   // columns of the tail atom
+  static_assert(TAIL == 0 || TAIL == 32, "hd is 64, 128 or 160");
   static constexpr int NWG = HD == 64 ? 3 : 2;           // consumer warpgroups
   static constexpr int BQ = 64 * NWG;                    // query rows per block
   static constexpr int THREADS = 128 * (NWG + 1);
-  static constexpr int PRODUCER_REGS = HD == 64 ? 24 : 40;
-  static constexpr int CONSUMER_REGS = HD == 64 ? 160 : 232;
+  static constexpr int PRODUCER_REGS = HD == 128 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = HD == 64 ? 160 : HD == 128 ? 232 : 240;
   static constexpr int STAGES = HD == 64 ? 3 : 2;        // K/V ring depth
   static constexpr int Q_ATOM = BQ * 128;                // one swizzle atom of the Q tile
-  static constexpr int Q_BYTES = ATOMS * Q_ATOM;
-  static constexpr int KV_BYTES = ATOMS * KV_ATOM;       // one K or V tile of BK keys
+  static constexpr int Q_TAIL = ATOMS * Q_ATOM;          // the Q tile's tail atom
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_TAIL = ATOMS * KV_ATOM;        // a K or V tile's tail atom
+  static constexpr int KV_BYTES = BK * HD * 2;           // one K or V tile of BK keys
   static constexpr int BAR_OFFSET = Q_BYTES + STAGES * 2 * KV_BYTES;
   // + the mbarriers, + slack to align the base to the swizzle's 1024 bytes
   static constexpr int SMEM = BAR_OFFSET + 8 * (2 * STAGES + 1) + 1024;
+  static_assert(SMEM <= 232448, "shared memory");
+  // every atom starts on the 128-byte swizzle's 1024-byte period
+  static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "atom alignment");
   static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 128 * NWG <= 65536, "register file");
 };
 
@@ -127,8 +158,14 @@ __global__ void __launch_bounds__(Tiles<HD>::THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
-                             const __grid_constant__ CUtensorMap tm_o, int H, int KV, int S,
+                             const __grid_constant__ CUtensorMap tm_o,
+                             const __grid_constant__ CUtensorMap tm_qt,
+                             const __grid_constant__ CUtensorMap tm_kt,
+                             const __grid_constant__ CUtensorMap tm_vt,
+                             const __grid_constant__ CUtensorMap tm_ot, int H, int KV, int S,
                              int Tk, int causal, int has_window, int window, float scale_log2) {
+  // tm_qt .. tm_ot: the tail atom's maps (32-column boxes, 64-byte swizzle),
+  // read only where TAIL > 0
   using C = Tiles<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -165,6 +202,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int a = 0; a < C::ATOMS; ++a)
         tma_load(q_s + a * C::Q_ATOM, &tm_q, q_bar, 64 * a, q0, h, b);
+      if constexpr (C::TAIL > 0) tma_load(q_s + C::Q_TAIL, &tm_qt, q_bar, 64 * C::ATOMS, q0, h, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % C::STAGES;
         mbar_wait(empty(s), ((i / C::STAGES) & 1) ^ 1);
@@ -174,6 +212,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int a = 0; a < C::ATOMS; ++a) {
           tma_load(k_s(s) + a * KV_ATOM, &tm_k, full(s), 64 * a, k0, kvh, b);
           tma_load(v_s(s) + a * KV_ATOM, &tm_v, full(s), 64 * a, k0, kvh, b);
+        }
+        if constexpr (C::TAIL > 0) {
+          tma_load(k_s(s) + C::KV_TAIL, &tm_kt, full(s), 64 * C::ATOMS, k0, kvh, b);
+          tma_load(v_s(s) + C::KV_TAIL, &tm_vt, full(s), 64 * C::ATOMS, k0, kvh, b);
         }
       }
     }
@@ -187,14 +229,18 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int ra = warp * 16 + lane / 4;         // local rows of the thread: ra, ra + 8
     const int col_l = 2 * (lane % 4);            // its first column in each 8-column block
     const uint32_t q_wg = q_s + cw * WG_ROW_BYTES;
+    const uint32_t q_wg_t = q_s + C::Q_TAIL + cw * 64 * TAIL_ROW;  // its rows in the tail atom
 
     auto visible = [&](int row, int col) {
       return col < Tk && (!causal || col <= row) && (!has_window || col > row - window);
     };
 
-    float o[HD / 2];
+    // the accumulator: columns 0 .. 64 ATOMS - 1 in o, the tail's in o_t
+    float o[32 * C::ATOMS], o_t[C::TAIL > 0 ? C::TAIL / 2 : 1];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < 32 * C::ATOMS; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < C::TAIL / 2; ++i) o_t[i] = 0.f;
     float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
 
     mbar_wait(q_bar, 0);
@@ -214,11 +260,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < 4 * C::ATOMS; ++kk) {
         const uint32_t off = (kk % 4) * 32;
         wgmma_ss_n128(sc, smem_desc(q_wg + (kk / 4) * C::Q_ATOM + off, 16, 1024),
                       smem_desc(k_s(s) + (kk / 4) * KV_ATOM + off, 16, 1024), kk > 0);
       }
+      // the tail's k-steps: 64-byte rows, 8-row groups 512 bytes apart
+#pragma unroll
+      for (int kk = 0; kk < C::TAIL / 16; ++kk)
+        wgmma_ss_n128(sc, smem_desc_b64(q_wg_t + kk * 32, 16, 512),
+                      smem_desc_b64(k_s(s) + C::KV_TAIL + kk * 32, 16, 512), 1);
       wgmma_commit();
       if (cw < C::NWG - 1 || i < n_tiles - 1) named_arrive(4 + (cw + 1) % C::NWG);
       wgmma_wait_all();
@@ -272,24 +323,35 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       l_a = l_a * al_a + rs_a;
       l_b = l_b * al_b + rs_b;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < 8 * C::ATOMS; ++j) {
         o[4 * j] *= al_a;
         o[4 * j + 1] *= al_a;
         o[4 * j + 2] *= al_b;
         o[4 * j + 3] *= al_b;
       }
+#pragma unroll
+      for (int j = 0; j < C::TAIL / 8; ++j) {
+        o_t[4 * j] *= al_a;
+        o_t[4 * j + 1] *= al_a;
+        o_t[4 * j + 2] *= al_b;
+        o_t[4 * j + 3] *= al_b;
+      }
 
       // O += P V (64 x HD, f32); V's rows are keys, read MN-major: 16 keys
-      // per k-slice (2048 bytes), the hd atoms ATOM_BYTES apart
+      // per k-slice (2048 bytes), the hd atoms KV_ATOM apart; the tail's
+      // 16 keys are 1024 bytes, one 32-column atom
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t dv = smem_desc(v_s(s) + kk * 16 * 128, KV_ATOM, 1024);
-        if constexpr (HD == 128) {
+        if constexpr (C::ATOMS == 2) {
           wgmma_rs_n128(o, p[kk], dv);
         } else {
           wgmma_rs_n64(o, p[kk], dv);
         }
+        if constexpr (C::TAIL > 0)
+          wgmma_rs_n32(o_t, p[kk],
+                       smem_desc_b64(v_s(s) + C::KV_TAIL + kk * 16 * TAIL_ROW, BK * TAIL_ROW, 512));
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -307,7 +369,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
       const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < 8 * C::ATOMS; ++j) {
         const uint32_t atom = q_wg + (j / 8) * C::Q_ATOM + col_l * 2;
         const uint32_t at_a = atom + ra * 128 + (((j % 8) ^ (ra % 8)) * 16);
         const uint32_t at_b = atom + (ra + 8) * 128 + (((j % 8) ^ ((ra + 8) % 8)) * 16);
@@ -316,12 +378,24 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at_b),
                      "r"(pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b)) : "memory");
       }
+      // the tail: 64-byte rows, chunk j of row r at chunk j ^ ((r / 2) % 4)
+#pragma unroll
+      for (int j = 0; j < C::TAIL / 8; ++j) {
+        const uint32_t at_a = q_wg_t + ra * TAIL_ROW + ((j ^ ((ra / 2) % 4)) * 16) + col_l * 2;
+        const uint32_t at_b =
+            q_wg_t + (ra + 8) * TAIL_ROW + ((j ^ (((ra + 8) / 2) % 4)) * 16) + col_l * 2;
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at_a),
+                     "r"(pack_bf16(o_t[4 * j] * inv_a, o_t[4 * j + 1] * inv_a)) : "memory");
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at_b),
+                     "r"(pack_bf16(o_t[4 * j + 2] * inv_b, o_t[4 * j + 3] * inv_b)) : "memory");
+      }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
       if (t == 0) {
 #pragma unroll
         for (int a = 0; a < C::ATOMS; ++a)
           tma_store(&tm_o, q_wg + a * C::Q_ATOM, 64 * a, r0, h, b);
+        if constexpr (C::TAIL > 0) tma_store(&tm_ot, q_wg_t, 64 * C::ATOMS, r0, h, b);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       }
@@ -342,6 +416,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   if ((err = make_map(&tk, k, HD, Tk, KV, B, st + 3, BK)) != 0) return err;
   if ((err = make_map(&tv, v, HD, Tk, KV, B, st + 6, BK)) != 0) return err;
   if ((err = make_map(&to, out, HD, S, H, B, st + 9, 64)) != 0) return err;
+  CUtensorMap tqt = tq, tkt = tk, tvt = tv, tot = to;  // unread without a tail
+  if constexpr (C::TAIL > 0) {
+    constexpr CUtensorMapSwizzle SW64 = CU_TENSOR_MAP_SWIZZLE_64B;
+    if ((err = make_map(&tqt, q, HD, S, H, B, st, C::BQ, C::TAIL, SW64)) != 0) return err;
+    if ((err = make_map(&tkt, k, HD, Tk, KV, B, st + 3, BK, C::TAIL, SW64)) != 0) return err;
+    if ((err = make_map(&tvt, v, HD, Tk, KV, B, st + 6, BK, C::TAIL, SW64)) != 0) return err;
+    if ((err = make_map(&tot, out, HD, S, H, B, st + 9, 64, C::TAIL, SW64)) != 0) return err;
+  }
   auto kernel = flash_attention_wgmma_kernel<HD>;
   // the opt-in holds for the function as loaded on the current device only,
   // so it is granted on every launch (no flag shared by devices or threads)
@@ -349,14 +431,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(H, B, (S + C::BQ - 1) / C::BQ);
-  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, to, H, KV, S, Tk, causal, has_window,
-                                             window, scale * LOG2E);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, to, tqt, tkt, tvt, tot, H, KV, S, Tk,
+                                             causal, has_window, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 only; hd 64 or 128.  strides: 12 element strides, in order q (b, h,
+// bf16 only; hd 64, 128 or 160.  strides: 12 element strides, in order q (b, h,
 // s), k (b, kv, t), v (b, kv, t), out (b, h, s), each a multiple of 8 (16
 // bytes); the last axis of every tensor has unit stride and every base is
 // 16-byte aligned.  The wrapper guarantees these, H % KV == 0 and T > 0.
@@ -371,6 +453,9 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
     return launch<64>(q, k, v, out, B, H, KV, S, T, strides, causal, has_window, window, scale, s);
   if (hd == 128)
     return launch<128>(q, k, v, out, B, H, KV, S, T, strides, causal, has_window, window, scale,
+                       s);
+  if (hd == 160)
+    return launch<160>(q, k, v, out, B, H, KV, S, T, strides, causal, has_window, window, scale,
                        s);
   return (int)cudaErrorInvalidValue;
 }

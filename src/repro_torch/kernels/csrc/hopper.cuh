@@ -99,6 +99,14 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (1ull << 62);
 }
 
+// the same with the 64-byte swizzle, layout type 2 (B64) at bit 62: rows of
+// 32 bf16, the XOR pattern repeating every 8 rows (512 bytes)
+__device__ __forceinline__ uint64_t smem_desc_b64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -171,6 +179,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 32, f32) += a (64 x 16, bf16 in registers) * b (16 x 32): b in
+// shared memory, MN-major (trans-b = 1)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 128, f32) += a (64 x 16, bf16 in registers) * b (16 x 128): b in
 // shared memory, MN-major (trans-b = 1)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -226,21 +248,24 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A 4-D bf16 map over (cols, rows, heads, batch) with the given element
-// strides (batch, head, row; unit stride on cols), boxes of 64 columns x
-// box_rows rows, 128-byte swizzle, zero fill out of bounds.
+// strides (batch, head, row; unit stride on cols), boxes of box_cols
+// columns x box_rows rows, zero fill out of bounds.  By default a box is 64
+// columns with the 128-byte swizzle; a box of 32 columns takes the 64-byte
+// swizzle (a box's row must not be wider than its swizzle).
 inline int make_map(CUtensorMap* map, const void* ptr, int cols, int rows, int heads, int batch,
-                    const long long* st, int box_rows) {
+                    const long long* st, int box_rows, int box_cols = 64,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return ERR_NO_ENCODE;
   const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)heads,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }

@@ -9,8 +9,10 @@ bound with ``ctypes``) or raises; on CPU tensors it runs
 plain version or to the other kernel.  The route is chosen before the
 launch by :func:`flash_route`, from the dtype and the head dim alone:
 
-* ``"wgmma"``: ``csrc/flash_attention_wgmma.cu``, bf16 at head_dim 64 or
-  128, both products on the tensor cores (wgmma), tiles fed by TMA;
+* ``"wgmma"``: ``csrc/flash_attention_wgmma.cu``, bf16 at head_dim 64, 128
+  or 160, both products on the tensor cores (wgmma), tiles fed by TMA (at
+  160, two 128-byte-swizzle atoms of 64 columns and a 32-column tail atom
+  with the 64-byte swizzle);
 * ``"simt"``: ``csrc/flash_attention.cu``, f32 and every other head dim
   (a multiple of 4 up to 256), f32 products on the CUDA cores.
 
@@ -59,12 +61,13 @@ NEG_INF = -1e30
 #: largest head dimension the kernels take (and hd % 4 == 0)
 MAX_HEAD_DIM = 256
 #: head dimensions of the tensor-core kernel (bf16 only)
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 160)
 
 
 def flash_route(dtype, hd: int) -> str:
     """The kernel a CUDA launch takes: ``"wgmma"`` for bf16 at a head dim
-    of :data:`WGMMA_HEAD_DIMS`, else ``"simt"``."""
+    of :data:`WGMMA_HEAD_DIMS` (64, 128, 160), else ``"simt"`` (f32 at
+    every head dim, bf16 at the others)."""
     return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "simt"
 
 

@@ -60,6 +60,8 @@ def _f32(x):
         (2, 4, 2, 48, 64, None, 16),   # rep 2
         (1, 4, 1, 37, 32, 8, 16),      # rep 4, window, ragged
         (1, 8, 2, 64, 64, 16, 32),     # rep 4, window spanning blocks
+        (1, 8, 2, 45, 160, 12, 16),    # hd 160 (pixtral's 32 / 8 heads): rep 4, window, ragged
+        (2, 2, 2, 29, 160, None, 16),  # hd 160, rep 1, ragged S
     ],
 )
 def test_flash_plain_matches_pallas_and_ref(B, H, KV, S, hd, win, blk, dtype):

@@ -6,10 +6,11 @@ with that reason (a CUDA kernel has no CPU mode).  On a GPU machine run:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_attention_cuda.py
 
-Flash attention has two routes (``flash_route``): bf16 at head_dim 64 or
-128 runs the tensor-core kernel (``flash_attention_wgmma.cu``), f32 and
+Flash attention has two routes (``flash_route``): bf16 at head_dim 64, 128
+or 160 runs the tensor-core kernel (``flash_attention_wgmma.cu``), f32 and
 other head dims the CUDA-core kernel (``flash_attention.cu``); the cases
-below cover both, and ``flash_attention.route_launches`` shows which ran.
+below cover both, in bf16 too (hd 32 and 96), and
+``flash_attention.route_launches`` shows which ran.
 Decode is split-K: the cases cover one span and several.
 
 Tolerances are those of ``tests/test_kernels.py``: f32 ``rtol=2e-4,
@@ -75,7 +76,8 @@ def _randn(shape, dtype, dev, seed):
         (2, 16, 2, 77, 128, None),   # rep 8, ragged
         (1, 8, 1, 130, 64, 8),       # rep 8, window, ragged
         (1, 4, 2, 50, 32, None),     # small head dim
-        (1, 4, 2, 40, 160, 16),      # stablelm's head dim (two 32-column groups past 128)
+        (1, 4, 2, 40, 160, 16),      # pixtral's / stablelm's head dim (a 32-column tail atom)
+        (1, 4, 2, 90, 96, None),     # bf16 at hd 96 stays on the CUDA cores
         (1, 8, 1, 300, 128, 100),    # rep 8, a window that starts mid-tile
         (2, 4, 1, 257, 64, 200),     # rep 4, window 200, ragged against 128 and 192 rows
         (1, 4, 4, 384, 64, None),    # whole tiles of both routes
@@ -92,6 +94,36 @@ def test_flash_kernel_equals_plain(cuda, B, H, KV, S, hd, window, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     assert flash_attention.route_launches[route] == before[route] + 1
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize(
+    "B,H,KV,S,window,causal",
+    [
+        (2, 8, 2, 300, None, True),     # rep 4, ragged S (300 = 2 x 128 + 44)
+        (1, 32, 8, 77, None, True),     # B 1 at S 77, pixtral's heads
+        (1, 8, 2, 400, 100, True),      # a window that starts mid-tile (rows 256+)
+        (2, 4, 4, 200, None, False),    # not causal, rep 1
+        (1, 8, 8, 256, 64, True),       # rep 1, whole tiles, window
+        (8, 32, 8, 2048, None, True),   # pixtral-12b's prefill launch
+    ],
+)
+def test_flash_hd160_tensor_core_route_equals_plain(cuda, B, H, KV, S, window, causal):
+    """bf16 at hd 160 runs the tensor-core kernel (two 128-byte-swizzle atoms
+    and a 64-byte-swizzle tail atom per tile): one ``wgmma`` launch, none on
+    the CUDA-core route, within the bf16 tolerance of the plain version."""
+    hd, dtype = 160, torch.bfloat16
+    q = _randn((B, S, H, hd), dtype, cuda, 21).transpose(1, 2)  # model-layout views
+    k = _randn((B, S, KV, hd), dtype, cuda, 22).transpose(1, 2)
+    v = _randn((B, S, KV, hd), dtype, cuda, 23).transpose(1, 2)
+    assert flash_route(dtype, hd) == "wgmma"
+    before = dict(flash_attention.route_launches)
+    got = flash_attention(q, k, v, causal=causal, window=window, backend="cuda")
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches == {"wgmma": before["wgmma"] + 1,
+                                              "simt": before["simt"]}
+    assert bool(torch.isfinite(got.float()).all())
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
@@ -127,7 +159,7 @@ def test_decode_kernel_equals_plain(cuda, B, KV, rep, T, hd, dtype):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 160])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_model_layout_views_are_read_in_place(cuda, dtype, hd):
     """The adapters hand the kernels transposed views and one layer's slice

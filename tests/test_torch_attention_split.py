@@ -151,13 +151,14 @@ def test_decode_splits_cover_the_cache(B, KV, T):
         (torch.float32, 128, "simt"),
         (torch.bfloat16, 32, "simt"),
         (torch.bfloat16, 96, "simt"),
-        (torch.bfloat16, 160, "simt"),
+        (torch.bfloat16, 160, "wgmma"),
         (torch.bfloat16, 256, "simt"),
+        (torch.float32, 160, "simt"),
     ],
 )
 def test_flash_route_rule(dtype, hd, route):
-    """bf16 at hd 64/128 goes to the tensor-core kernel; f32 and every other
-    head dim to the CUDA-core kernel."""
+    """bf16 at hd 64/128/160 goes to the tensor-core kernel; f32 and every
+    other head dim to the CUDA-core kernel."""
     assert flash_route(dtype, hd) == route
 
 
@@ -177,3 +178,27 @@ def test_tma_strides_take_model_layout_views_and_refuse_misalignment():
     assert flat.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 == 2
     with pytest.raises(ValueError, match="16-byte boundary"):
         tma_strides("f", "q", shifted)
+
+
+def test_tma_strides_take_pixtral_layout_views_and_refuse_misalignment():
+    """hd 160 (pixtral-12b, stablelm-12b): the model's (B, S, H, 160) q and
+    (B, S, KV, 160) k/v views have 320-byte head strides and 10 240 / 2 560
+    byte rows, all multiples of 16 bytes; a view whose rows are 162 columns
+    apart is refused, and so is a base off the 16-byte boundary."""
+    B, S, H, KV, hd = 2, 24, 32, 8, 160
+    q = torch.zeros((B, S, H, hd), dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.zeros((B, S, KV, hd), dtype=torch.bfloat16).transpose(1, 2)
+    assert tma_strides("f", "q", q) == [S * H * hd, hd, H * hd]
+    assert tma_strides("f", "k", k) == [S * KV * hd, hd, KV * hd]
+    assert [2 * st for st in tma_strides("f", "q", q)[1:]] == [320, 10240]
+    assert [2 * st for st in tma_strides("f", "k", k)[1:]] == [320, 2560]
+    out = torch.zeros((B, H, S, hd), dtype=torch.bfloat16)  # the wrapper's own output
+    assert tma_strides("f", "out", out) == [H * S * hd, S * hd, hd]
+    wide = torch.zeros((B, S, H, hd + 2), dtype=torch.bfloat16)[..., :hd].transpose(1, 2)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        tma_strides("f", "q", wide)
+    flat = torch.zeros(B * S * KV * hd + 8, dtype=torch.bfloat16)
+    shifted = flat[1:1 + B * S * KV * hd].view(B, S, KV, hd).transpose(1, 2)
+    assert shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tma_strides("f", "k", shifted)
