@@ -106,7 +106,9 @@ any phase fails:
    kernel a second time as device time: one replay of a captured CUDA
    graph of many launches, which leaves out the Python wrapper's host
    time; the SSD's CUDA-core route at the same bf16 shapes beside its
-   tensor-core route; the GUS kernel also at one frame (B=1, eager and
+   tensor-core route, and both SSD routes from an initial state
+   (``apply_mamba``'s ``ssm_state``) at both launch shapes in f32 and bf16,
+   held against the plain version and timed; the GUS kernel also at one frame (B=1, eager and
    device time) and on its window with every budget spent (its chain
    floor); the ordered policy at the paper batch, the scaled entry (priority
    weights) beside the plain entry at the fleet window, in turns, and the
@@ -220,8 +222,12 @@ any phase fails:
    of one), yi-9b's sharded prefill and 31 serve steps at full width on
    phase 7's weights wrapped as DTensors without a copy (48 flash and
    1 488 decode launches on the local shards, greedy tokens equal to phase
-   7's) and mamba2-130m's sharded prefill (24 ``ssd_scan`` launches); with
-   two cards or more, yi-9b tensor parallel over them, one process a card;
+   7's) and mamba2-130m's sharded prefill (24 ``ssd_scan`` launches); the
+   sharded train step (two steps, float32, 8 x 128) of mamba2-130m at full
+   width and depth and of yi-9b and seamless-m4t-medium at full width cut
+   to 2 layers, each bit-equal to the unsharded step from the same weights
+   and batch, with no kernel launched; with two cards or more, yi-9b
+   tensor parallel over them, one process a card;
 18. prints one JSON line listing every ported kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -789,15 +795,17 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
 
 
 def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=SSM_PROMPT,
-              gen=SERVE_GEN, acc_prompt=SSM_ACC_PROMPT, acc_steps=SSM_ACC_STEPS):
+              gen=SERVE_GEN, acc_prompt=SSM_ACC_PROMPT, acc_steps=SSM_ACC_STEPS, smi=""):
     """Phases 8-10 and the SSM slice's part of phase 11: the SSD kernel
     against its plain version, flash and decode at the hybrid's shapes, the
     small ``ssm`` and ``hybrid`` models on the card against the CPU, the
     counted main paths (``hybrid_cfg`` and ``ssm_cfg`` served at their own
     width and depth, ``batch`` x ``prompt`` tokens, ``gen`` greedy tokens;
     one teacher-forcing forward of ``ssm_cfg``), f32 decode against forward
-    at full width, the SSD kernel timed at both launch shapes and the
-    attention kernels at the hybrid's.  Returns ``ssd_scan``'s entry of the
+    at full width, the SSD kernel timed at both launch shapes (and, from an
+    initial state, held against its plain version there in f32 and bf16
+    and timed beside the zero-state launch) and the attention kernels at
+    the hybrid's.  Returns ``ssd_scan``'s entry of the
     ``kernels`` line without its name, route, source and replaced kernel,
     and the attention kernels' entries at the hybrid's launch shapes."""
     import numpy as np
@@ -828,11 +836,14 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         Cm = torch.randn((B, G, S, N), generator=g, device=dev).to(dtypes[dtype])
         return x, dt, A, Bm, Cm
 
-    def compare_ssd(label, args, chunk, dtype, final):
+    def compare_ssd(label, args, chunk, dtype, final, h0=None):
+        """The kernel against the plain version (from ``h0`` where given);
+        returns y's max abs error."""
         route = ssd_route(args[0].dtype, args[0].shape[3], args[3].shape[3], chunk)
         before = ssd_scan.route_launches[route]
-        got = ssd_scan(*args, chunk=chunk, return_final_state=final, backend="cuda")
-        want = ssd_scan_ref(*args, chunk, return_final_state=final)
+        got = ssd_scan(*args, chunk=chunk, return_final_state=final, initial_state=h0,
+                       backend="cuda")
+        want = ssd_scan_ref(*args, chunk, return_final_state=final, initial_state=h0)
         sync(dev)
         (got, gst), (want, wst) = (got, want) if final else ((got, None), (want, None))
         err = float((got.float() - want.float()).abs().max())
@@ -850,6 +861,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         check(ok, f"ssd_scan kernel != plain version on {label} {dtype}")
         check(ssd_scan.route_launches[route] == before + 1,
               f"ssd_scan did not launch its {route} route")
+        return err
 
     # -- 8. the SSD kernel vs its plain version; flash and decode at the
     #       hybrid's shapes ---------------------------------------------------
@@ -1089,6 +1101,35 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
               f"none (no single PyTorch call computes SSD); x {cfg.num_layers} launches per "
               f"prefill = {t['graph_ms'] * cfg.num_layers:.3f} ms")
 
+    # the scan from an initial state h0 (apply_mamba's ssm_state) at both
+    # launch shapes, f32 (the CUDA-core route) and bf16 (the main path's
+    # route): against the plain version from the same h0, and timed
+    initial = {}
+    for cfg in (hybrid_cfg, ssm_cfg):
+        B, H, G, S, P, N = launch_shape(cfg)
+        Q = cfg.ssd_chunk
+        h0 = torch.randn((B, H, N, P), generator=torch.Generator(device=dev).manual_seed(22),
+                         device=dev)
+        for dtype in ("float32", "bfloat16"):
+            args = (main_args[cfg.arch_id] if dtype == cfg.dtype
+                    else ssd_inputs(B, H, G, S, P, N, dtype, 21))
+            label = f"{cfg.arch_id} launch from an initial state"
+            err = compare_ssd(f"{label} B={B} H={H} G={G} S={S} P={P} N={N} Q={Q} state=True",
+                              args, Q, dtype, True, h0=h0)
+
+            def run(args=args, Q=Q, h0=h0):
+                ssd_scan(*args, chunk=Q, return_final_state=True, initial_state=h0,
+                         backend="cuda")
+
+            route = ssd_route(args[0].dtype, P, N, Q)
+            t = {"route": route, "max_abs_err": err, "graph_ms": time_graph(run, 10)}
+            initial[f"{cfg.arch_id} {dtype}"] = t
+            zero = f", zero-state launch {timing[cfg.arch_id]['graph_ms']:.4f} ms" \
+                if dtype == cfg.dtype else ""
+            print(f"time ssd_scan {label} {dtype} ({route} route): {t['graph_ms']:.4f} ms "
+                  f"device (graph replay){zero}; max_abs_err {err} [{smi}]")
+        del h0
+
     attn_timed = hybrid_launch.time(hybrid_cfg.arch_id)
     print(f"{hybrid_cfg.arch_id} attention max_abs_err: flash {attn_err['flash_attention']} "
           f"decode {attn_err['decode_attention']}")
@@ -1107,7 +1148,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         "max_abs_err": max(errs.values()), "max_abs_err_by_route": errs,
         "ms": t["ms"], "graph_ms": t["graph_ms"], "simt_ms": t["simt_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": None, ssm_cfg.arch_id: mamba,
+        "library_ms": None, ssm_cfg.arch_id: mamba, "initial_state": initial,
     }, attn_timed
 
 
@@ -3004,9 +3045,25 @@ def continuous_smoke(dev, zero_counts, smi):
 #: its one-card run; (c) the sharded prefill and serve steps at full width
 #: on a DeviceMesh of every card: yi-9b's 8 x 1024 + 31 steps on phase 7's
 #: weights (the same seed on the same card) wrapped as DTensors without a
-#: copy, and mamba2-130m's prefill; with two cards or more, yi-9b tensor
-#: parallel over them, one process a card
+#: copy, and mamba2-130m's prefill; the sharded train step (below); with
+#: two cards or more, yi-9b tensor parallel over them, one process a card
 SHARD_GEN = SERVE_GEN
+#: 17c's train steps: the sharded train step (``build_train_step``, the
+#: train rules) on the 1 x 1 mesh against the unsharded ``make_train_step``
+#: from the same weights and batch, SHARD_TRAIN_STEPS steps each, in
+#: float32, at phase 14's 128 tokens a row: (arch, layers, batch)
+#: mamba2-130m at full width and depth, batch 8 (phase 14's); yi-9b and
+#: seamless-m4t-medium at full width cut to 2 layers (yi-9b's ~9e9
+#: parameters with their gradients and AdamW moments need ~144 GB; at 2
+#: layers ~0.87e9, ~14 GB), yi-9b at batch 8 and seamless at 2: its encoder
+#: attends over the audio stub's 4096 frames, whose f32 scores take 8 GiB a
+#: layer at batch 8 (2 at batch 2).  On one device the sharded step's
+#: DTensor ops and the two torch 2.11 workarounds
+#: (``models/model.py::_take_rows``, the plain attention on local heads)
+#: compute what the unsharded step computes, so the losses, gradient
+#: norms, parameters and moments are held bit for bit
+SHARD_TRAIN = (("mamba2-130m", None, 8), ("yi-9b", 2, 8), ("seamless-m4t-medium", 2, 2))
+SHARD_TRAIN_STEPS = 2
 
 
 def devices_smoke(dev, zero_counts, fleet, fr, launches, city_fleet, fh, win_args, city_host,
@@ -3239,11 +3296,11 @@ def local_shard_kernels(dev):
     return errs
 
 
-def _mesh_group(world: int, rank: int, store_dir: str, device_type: str = "cuda"):
+def _mesh_group(world: int, rank: int, store_dir: str, device_type: str = "cuda", shape=None):
     """This process as rank ``rank`` of a group of ``world`` ranks (NCCL on
     the cards; ``gloo`` where the phase is rehearsed on the CPU) met
-    through a FileStore in ``store_dir``, and the 1 x world ``("data",
-    "model")`` mesh over it."""
+    through a FileStore in ``store_dir``, and the ``("data", "model")``
+    mesh of ``shape`` over it (1 x world by default)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_test_mesh
@@ -3251,7 +3308,7 @@ def _mesh_group(world: int, rank: int, store_dir: str, device_type: str = "cuda"
     store = dist.FileStore(str(Path(store_dir) / "store"), world)
     dist.init_process_group("nccl" if device_type == "cuda" else "gloo", store=store, rank=rank,
                             world_size=world)
-    return make_test_mesh(1, world, device_type=device_type)
+    return make_test_mesh(*(shape or (1, world)), device_type=device_type)
 
 
 def sharded_serve(model, mesh, params, prompt_batch, gen, wrap):
@@ -3377,9 +3434,258 @@ def sharded_steps(dev, zero_counts, serve_tokens):
             check(n_ssd == scfg.num_layers, f"{label}: {n_ssd} ssd_scan launches")
             check(torch.equal(tok, want), f"{label}: tokens != the unsharded prefill's")
             out["ssd_scan"][label] = n_ssd
+            del sparams, p, b, c, cache
+
+            for arch, layers, batch in SHARD_TRAIN:
+                torch.cuda.empty_cache()
+                label = sharded_train(dev, mesh, arch, layers, batch, zero_counts)
+                for name in out:
+                    out[name][label] = 0
         finally:
             dist.destroy_process_group()
     return out
+
+
+def train_config(arch, layers):
+    """:data:`SHARD_TRAIN`'s config of ``arch``: full width, float32
+    parameters and activations, cut to ``layers`` layers where given."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", param_dtype="float32")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers,
+                                  **({"num_enc_layers": layers} if cfg.num_enc_layers else {}))
+    return cfg
+
+
+def train_steps(model, params, batch, mesh=None):
+    """:data:`SHARD_TRAIN_STEPS` train steps from ``params`` on ``batch``:
+    the sharded step (``build_train_step``, the train rules) on ``mesh``,
+    or the unsharded ``make_train_step`` without one.  Returns the state
+    (whole tensors), each step's metrics and wall (host clock, synced)."""
+    from repro_torch.launch import steps as st
+    from repro_torch.training import AdamWConfig, TrainState, adamw_init, make_train_step
+
+    dev = batch["tokens"].device
+    state = TrainState(params, adamw_init(params))
+    if mesh is None:
+        fn = make_train_step(model, AdamWConfig())
+    else:
+        fn = st.build_train_step(model, mesh, _train_shape(batch))[0]
+        state = st.distribute(state, st.state_shardings(model, mesh, st.TRAIN_RULES), mesh)
+        batch = st.distribute(batch, st.batch_shardings(model.cfg, batch, mesh,
+                                                        st.TRAIN_RULES), mesh)
+    walls, metrics = [], []
+    for _ in range(SHARD_TRAIN_STEPS):
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = fn(state, batch)
+        sync(dev)
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v.full_tensor() if hasattr(v, "full_tensor") else v)
+                        for k, v in m.items()})
+    if mesh is not None:
+        state = _whole(state)
+    return state, metrics, walls
+
+
+def _train_shape(batch):
+    """The train ``ShapeSpec`` of a batch."""
+    from repro_torch.launch.specs import ShapeSpec
+
+    B, S = batch["tokens"].shape
+    return ShapeSpec("smoke", S, B, "train")
+
+
+def _whole(tree):
+    """Every DTensor of a tree as its whole tensor (a collective)."""
+    from repro_torch.training import TrainState
+    from repro_torch.training.optimizer import AdamWState
+
+    if isinstance(tree, TrainState):
+        return TrainState(_whole(tree.params), AdamWState(
+            step=_whole(tree.opt.step), m=_whole(tree.opt.m), v=_whole(tree.opt.v)))
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_whole(v) for v in tree]
+    return tree.full_tensor() if hasattr(tree, "full_tensor") else tree
+
+
+def train_inputs(cfg, dev, batch_size, fan_in_d=False):
+    """The model, its weights (phase 7's seed: every card draws the same)
+    and a batch of ``batch_size`` x TRAIN_SEQ tokens (and the family's
+    stubs), the train step's inputs only; with ``fan_in_d``, q/k/v
+    rescaled to a fan-in of d_model."""
+    import numpy as np
+
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.models import Model
+    from repro_torch.training import make_batch
+
+    model = Model(cfg)
+    params = model.init(0, device=dev)
+    if fan_in_d:
+        qkv_to_fan_in_d((lp[b] for stack in ("layers", "enc_layers", "dec_layers")
+                         for lp in params.get(stack, []) for b in ("attn", "xattn")
+                         if isinstance(lp, dict) and b in lp), cfg)
+    batch = make_batch(cfg, batch_size, TRAIN_SEQ, np.random.default_rng(0), device=dev)
+    keys = input_specs(cfg, _train_shape(batch))
+    return model, params, {k: batch[k] for k in keys}
+
+
+def held_train(got, want):
+    """``(ok, summary)`` of a sharded train run ``got`` against the
+    unsharded ``want`` (each ``(state, metrics, walls)``) at phase 14's
+    wide limits: the loss at TRAIN_LOSS_RTOL, the gradient norm at
+    WIDE_GNORM_RTOL, each leaf of m and v at TRAIN_STATE_TOL on all but
+    WIDE_OFF_SHARE of its elements, the parameters likewise in all and
+    each within 2 lr."""
+    import torch
+
+    from repro_torch.training import AdamWConfig
+    from repro_torch.training.optimizer import tree_leaves
+
+    (gs, gm, _), (ws, wm, _) = got, want
+    ok = all(abs(g["loss"] - w["loss"]) <= TRAIN_LOSS_RTOL * abs(w["loss"])
+             and abs(g["grad_norm"] - w["grad_norm"]) <= WIDE_GNORM_RTOL * w["grad_norm"]
+             for g, w in zip(gm, wm))
+    worst = {}
+    for name, a, b in (("m", gs.opt.m, ws.opt.m), ("v", gs.opt.v, ws.opt.v)):
+        shares = [int((~torch.isclose(x, y, **TRAIN_STATE_TOL)).sum()) / y.numel()
+                  for x, y in zip(tree_leaves(a), tree_leaves(b))]
+        worst[name] = max(shares)
+        ok = ok and worst[name] <= WIDE_OFF_SHARE
+    off = n = 0
+    worst["params_abs"] = 0.0
+    for x, y in zip(tree_leaves(gs.params), tree_leaves(ws.params)):
+        off += int((~torch.isclose(x, y, **TRAIN_STATE_TOL)).sum())
+        n += y.numel()
+        worst["params_abs"] = max(worst["params_abs"], float((x - y).abs().max()))
+    worst["params"] = off / n
+    ok = ok and worst["params"] <= WIDE_OFF_SHARE and worst["params_abs"] <= 2 * AdamWConfig().lr
+    return ok, worst
+
+
+def sharded_train(dev, mesh, arch, layers, batch_size, zero_counts):
+    """One of 17c's train runs (:data:`SHARD_TRAIN`) on the 1 x 1 mesh:
+    ``arch`` in float32 at full width (cut to ``layers`` layers where
+    given), the sharded and the unsharded steps from the same weights and
+    batch, held bit for bit; no kernel launches (the train step asks for
+    the plain route).  Returns the label."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = train_config(arch, layers)
+    model, params, batch = train_inputs(cfg, dev, batch_size)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    got = train_steps(model, params, batch, mesh)
+    n = (flash_attention.launches, decode_attention.launches, ssd_scan.launches)
+    want = train_steps(model, params, batch)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    diffs, equal = {}, got[1] == want[1]
+    (gs, _, _), (ws, _, _) = got, want
+    for name, a, b in (("params", gs.params, ws.params), ("m", gs.opt.m, ws.opt.m),
+                       ("v", gs.opt.v, ws.opt.v)):
+        pairs = list(zip(tree_leaves(a), tree_leaves(b)))
+        diffs[name] = max(float((g - w).abs().max()) for g, w in pairs)
+        equal = equal and all(torch.equal(g, w) for g, w in pairs)
+    label = (f"phase 17c {arch} sharded train steps (1x1 mesh, float32, {cfg.num_layers} "
+             f"layers, {batch_size} x {TRAIN_SEQ})")
+    print(f"{label}: {SHARD_TRAIN_STEPS} steps {', '.join(f'{w:.3f}' for w in got[2])} s "
+          f"(unsharded {', '.join(f'{w:.3f}' for w in want[2])} s), peak {peak:.2f} GB; loss "
+          f"{[m['loss'] for m in got[1]]}, grad_norm {[m['grad_norm'] for m in got[1]]}; "
+          f"against the unsharded steps: metrics equal {got[1] == want[1]}, max abs diff "
+          f"{json.dumps(diffs)}, bitwise {equal}; kernel launches (flash, decode, ssd) {n}")
+    check(n == (0, 0, 0), f"{label}: a kernel launched in the train step ({n})")
+    check(equal, f"{label}: != the unsharded train step bit for bit ({diffs})")
+    return label
+
+
+def train_worker(rank: int, world: int, store_dir: str, data: int, model_axis: int,
+                 device_type: str = "cuda") -> int:
+    """One card of the sharded train steps over several cards
+    (``tools/multi_card_check.py``, ``chip_smoke.py --train-worker``): the
+    ``data x model_axis`` mesh, each of :data:`SHARD_TRAIN` in float32 with
+    q/k/v at a fan-in of d_model (at the init as drawn every softmax is
+    nearly one-hot, and float32 rounding alone then moves the step past any
+    limit), the sharded steps on every rank, the unsharded ones on rank 0,
+    held at :func:`held_train`'s limits; rank 0 writes the result."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device_type, rank if device_type == "cuda" else None)
+    if device_type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = _mesh_group(world, rank, store_dir, device_type, shape=(data, model_axis))
+    res = {}
+    try:
+        for arch, layers, batch_size in SHARD_TRAIN:
+            cfg = train_config(arch, layers)
+            model, params, batch = train_inputs(cfg, dev, batch_size, fan_in_d=True)
+            got = train_steps(model, params, batch, mesh)
+            if rank == 0:
+                want = train_steps(model, params, batch)
+                ok, worst = held_train(got, want)
+                res[arch] = {"ok": ok, "worst": worst, "walls": got[2], "unsharded": want[2],
+                             "loss": [m["loss"] for m in got[1]],
+                             "want_loss": [m["loss"] for m in want[1]],
+                             "grad_norm": [m["grad_norm"] for m in got[1]],
+                             "want_grad_norm": [m["grad_norm"] for m in want[1]]}
+                del want
+            del got, params, batch
+            if device_type == "cuda":
+                torch.cuda.empty_cache()
+            dist.barrier()
+        if rank == 0:
+            (Path(store_dir) / "train.json").write_text(json.dumps(res))
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_train_over_cards(data: int, model_axis: int):
+    """:func:`train_worker` on ``data * model_axis`` cards, one process a
+    card; returns rank 0's result by arch (each held, ``check``ed)."""
+    import tempfile
+
+    world = data * model_axis
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--train-worker", str(r), str(world), d, str(data),
+                                   str(model_axis)]) for r in range(world)]
+        # a rank that fails leaves the others waiting in a collective: stop
+        # them all as soon as one exits non-zero
+        deadline = time.monotonic() + 900
+        try:
+            while time.monotonic() < deadline:
+                rcs = [p.poll() for p in procs]
+                if None not in rcs or any(rc for rc in rcs if rc is not None):
+                    break
+                time.sleep(1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        rcs = [p.returncode for p in procs]
+        check(rcs == [0] * world, f"train workers ({data}x{model_axis}) exited {rcs}")
+        out = Path(d) / "train.json"
+        res = json.loads(out.read_text()) if out.exists() else {}
+    for arch, r in res.items():
+        print(f"sharded train steps {arch} ({data}x{model_axis} mesh over {world} cards, "
+              f"float32, q/k/v at fan-in d): walls {r['walls']} s (unsharded {r['unsharded']} "
+              f"s on rank 0's card), loss {r['loss']} vs {r['want_loss']}, grad_norm "
+              f"{r['grad_norm']} vs {r['want_grad_norm']}, worst {json.dumps(r['worst'])}, "
+              f"within the wide limits: {r['ok']}")
+        check(r["ok"], f"{arch} sharded train steps on {data}x{model_axis} != the unsharded "
+              f"steps at the wide limits ({r['worst']})")
+    return res
 
 
 #: the tensor-parallel logits' check: yi-9b at full width and depth in
@@ -3992,7 +4298,7 @@ def main() -> int:
     # -- 8.-10. the SSD kernel, the ssm and hybrid models, their main paths,
     #          SSD timing ---------------------------------------------------
     ssd, hybrid_attn = ssm_smoke(dev, zero_counts, get_config(SSM_HYBRID_ARCH),
-                                 get_config(SSM_ARCH))
+                                 get_config(SSM_ARCH), smi=smi)
     for name in ("flash_attention", "decode_attention"):
         attn[name][SSM_HYBRID_ARCH] = hybrid_attn[name]  # the same kernel on the hybrid's path
 
@@ -4224,4 +4530,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-worker"]:  # one card of phase 17c's tensor-parallel run
         sys.exit(tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--train-worker"]:  # one card of the sharded train steps over cards
+        sys.exit(train_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], int(sys.argv[5]),
+                              int(sys.argv[6])))
     sys.exit(main())

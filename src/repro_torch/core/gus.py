@@ -141,8 +141,8 @@ def gus_schedule_batch(
     *,
     relax_compute: bool = False,
     relax_comm: bool = False,
-    prio=None,
     backend: Optional[str] = None,
+    prio=None,
     device=None,
 ) -> Assignment:
     """GUS over a leading instance-batch axis (one kernel launch for the

@@ -264,11 +264,15 @@ def _instance_arrays(seed: int, cfg: GeneratorConfig) -> dict:
 
 
 def generate_instance(
-    seed: int, cfg: Optional[GeneratorConfig] = None, *, device=None
+    seed: int, cfg: Optional[GeneratorConfig] = None, *, as_numpy: bool = False, device=None
 ) -> FlatInstance:
-    """Draw one MUS instance per the paper's numerical setup, on ``device``."""
-    dev = resolve_device(device)
-    return FlatInstance.from_numpy(_instance_arrays(seed, cfg or GeneratorConfig()), dev)
+    """Draw one MUS instance per the paper's numerical setup, on ``device``;
+    with ``as_numpy``, an instance of numpy leaves on the host, as the
+    reference's (``device`` is then not read)."""
+    arrays = _instance_arrays(seed, cfg or GeneratorConfig())
+    if as_numpy:
+        return FlatInstance(**arrays)
+    return FlatInstance.from_numpy(arrays, resolve_device(device))
 
 
 def generate_batch(

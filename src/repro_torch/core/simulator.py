@@ -326,11 +326,11 @@ class FleetResult:
     prefetch: int = 0
     #: per-span wall-clock totals of the run's Stopwatch
     timings: Optional[Dict[str, float]] = None
-    #: the device the fleet ran on (``"cpu"`` or the CUDA device's name)
-    device: str = "cpu"
     #: per-(rep, frame) metric stream (``metrics=True`` only; None
     #: otherwise): each row reports the backlog carried *after* its frame
     metrics: Optional[MetricsResult] = None
+    #: the device the fleet ran on (``"cpu"`` or the CUDA device's name)
+    device: str = "cpu"
 
     @property
     def satisfied_pct(self) -> float:
@@ -696,7 +696,8 @@ class _RepFrameSource:
                 # rng_mode=None defers to the scenario, as in the reference
                 reqs = stream_trace(scn, rep_seed, n_edge, n_services, cfg)
             else:
-                reqs = scn.generate_arrivals(self.rng, n_edge, n_services, cfg, rng_mode=rng_mode)
+                # defers to the scenario, as in the reference
+                reqs = scn.generate_arrivals(self.rng, n_edge, n_services, cfg)
             self.buckets = bucket_arrivals(reqs, cfg.frame_ms, T)
         self._next = 0
 

@@ -18,13 +18,15 @@
 //   * handles a ragged last chunk itself: positions past S are staged as
 //     dt = x = B = C = 0, which is the reference's right-padding rule
 //     (ssd_reference) and leaves y at real positions and the state exact;
-//   * starts from a zero state and optionally writes out the final state
+//   * starts from a given initial state h0 (B, H, N, P) f32 (the
+//     reference's initial_state; apply_mamba's ssm_state), or from a zero
+//     state where h0 is null, and optionally writes out the final state
 //     (B, H, N, P) in f32, so that prefill runs on the kernel too.
 //
 // Layouts (kernel layout, any strides, unit stride on the last axis of x,
 // B, C and y): x (B, H, S, P), dt (B, H, S) (any strides), A (H,) f32,
-// Bm/Cm (B, G, S, N), y (B, H, S, P); the final state (B, H, N, P) f32
-// contiguous.
+// Bm/Cm (B, G, S, N), y (B, H, S, P); the initial and the final state
+// (B, H, N, P) f32 contiguous.
 // The model passes transposed views of its (B, S, H, P) / (B, S, G, N)
 // activations, so nothing is copied to change the layout.
 //
@@ -114,7 +116,7 @@ template <typename T, int NPJ>
 __global__ void __launch_bounds__(THREADS, 1)
 ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* __restrict__ A,
                 const T* __restrict__ Bm, const T* __restrict__ Cm, T* __restrict__ y,
-                float* __restrict__ final_state,
+                float* __restrict__ final_state, const float* __restrict__ h0,
                 int H, int G, int S, int P, int N, int Q,
                 long long xsb, long long xsh, long long xss,
                 long long dsb, long long dsh, long long dss,
@@ -149,7 +151,7 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* 
   T* yb = y + b * ysb + h * ysh;
   const long long sbase = ((long long)b * H + h) * N * P;
 
-  for (int e = tid; e < N * P; e += THREADS) St[e] = 0.f;
+  for (int e = tid; e < N * P; e += THREADS) St[e] = h0 != nullptr ? h0[sbase + e] : 0.f;
 
   int pc[NPJ];
   bool pok[NPJ];
@@ -334,8 +336,8 @@ size_t smem_bytes(int P, int N, int Q) {
 
 template <typename T, int NPJ>
 int launch(const void* x, const void* dt, const float* A, const void* Bm, const void* Cm,
-           void* y, float* final_state, int B, int H, int G, int S, int P, int N, int Q,
-           const long long* st, cudaStream_t stream) {
+           void* y, float* final_state, const float* h0, int B, int H, int G, int S, int P,
+           int N, int Q, const long long* st, cudaStream_t stream) {
   auto kernel = ssd_scan_kernel<T, NPJ>;
   const size_t smem = smem_bytes(P, N, Q);
   cudaError_t err =
@@ -344,7 +346,7 @@ int launch(const void* x, const void* dt, const float* A, const void* Bm, const 
   dim3 grid(H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt), A, static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<T*>(y), final_state, H, G, S, P, N, Q,
+      static_cast<const T*>(Cm), static_cast<T*>(y), final_state, h0, H, G, S, P, N, Q,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
       st[12], st[13], st[14]);
   return (int)cudaGetLastError();
@@ -352,31 +354,35 @@ int launch(const void* x, const void* dt, const float* A, const void* Bm, const 
 
 template <typename T>
 int dispatch(const void* x, const void* dt, const float* A, const void* Bm, const void* Cm,
-             void* y, float* final_state, int B, int H, int G, int S, int P, int N, int Q,
-             const long long* st, cudaStream_t stream) {
-  if (P <= 32) return launch<T, 1>(x, dt, A, Bm, Cm, y, final_state, B, H, G, S, P, N, Q, st, stream);
-  return launch<T, 2>(x, dt, A, Bm, Cm, y, final_state, B, H, G, S, P, N, Q, st, stream);
+             void* y, float* final_state, const float* h0, int B, int H, int G, int S, int P,
+             int N, int Q, const long long* st, cudaStream_t stream) {
+  if (P <= 32)
+    return launch<T, 1>(x, dt, A, Bm, Cm, y, final_state, h0, B, H, G, S, P, N, Q, st, stream);
+  return launch<T, 2>(x, dt, A, Bm, Cm, y, final_state, h0, B, H, G, S, P, N, Q, st, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, dt, Bm, Cm and y share it).  strides:
 // 15 element strides, in order x (b, h, s), dt (b, h, s), Bm (b, g, s),
-// Cm (b, g, s), y (b, h, s).  final_state is (B, H, N, P) f32 contiguous,
-// or null.  The wrapper guarantees H % G == 0, P <= 64,
+// Cm (b, g, s), y (b, h, s).  final_state and the initial state h0 are
+// (B, H, N, P) f32 contiguous, or null (h0 null: a zero initial state).  The wrapper guarantees H % G == 0, P <= 64,
 // N <= 128 with N % 4 == 0, 4 <= Q <= 128 with Q % 4 == 0, and a unit
 // stride on the last axis of x, Bm, Cm and y.  Returns a cudaError_t
 // (0 = launched).
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, const void* Bm,
-                               const void* Cm, void* y, void* final_state, int dtype, int B,
+                               const void* Cm, void* y, void* final_state, const void* h0,
+                               int dtype, int B,
                                int H, int G, int S, int P, int N, int Q,
                                const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* Af = static_cast<const float*>(A);
   float* fin = static_cast<float*>(final_state);
+  const float* init = static_cast<const float*>(h0);
   if (dtype == 0)
-    return dispatch<float>(x, dt, Af, Bm, Cm, y, fin, B, H, G, S, P, N, Q, strides, s);
-  return dispatch<__nv_bfloat16>(x, dt, Af, Bm, Cm, y, fin, B, H, G, S, P, N, Q, strides, s);
+    return dispatch<float>(x, dt, Af, Bm, Cm, y, fin, init, B, H, G, S, P, N, Q, strides, s);
+  return dispatch<__nv_bfloat16>(x, dt, Af, Bm, Cm, y, fin, init, B, H, G, S, P, N, Q, strides,
+                                 s);
 }
 
 extern "C" const char* ssd_scan_error_string(int err) {

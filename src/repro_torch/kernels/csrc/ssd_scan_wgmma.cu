@@ -13,8 +13,9 @@
 //   state   = exp(cs_Q) * state  +  sum_j B_j (exp(cs_Q - cs_j) dt_j x_j)^T
 // Like ssd_scan.cu it reads SSM group g = h / (H / G) of B and C by
 // index, takes a ragged last chunk as dt = x = B = C = 0 (TMA's zero fill
-// past S; dt loaded as 0), starts from a zero state and optionally writes
-// the final state (B, H, N, P) in f32.
+// past S; dt loaded as 0), starts from a given initial state h0
+// (B, H, N, P) f32 (zero where h0 is null) and optionally writes the final
+// state (B, H, N, P) in f32.
 //
 // Roundings.  wgmma takes bf16 operands.  C.B^T multiplies the bf16 inputs
 // exactly and sums in f32.  Three operands are f32 values that the
@@ -171,7 +172,7 @@ ssd_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                       const __grid_constant__ CUtensorMap tm_c,
                       const __nv_bfloat16* __restrict__ dt, const float* __restrict__ A,
                       __nv_bfloat16* __restrict__ y, float* __restrict__ final_state,
-                      int H, int G, int S, long long dsb, long long dsh, long long dss,
+                      const float* __restrict__ h0, int H, int G, int S, long long dsb, long long dsh, long long dss,
                       long long ysb, long long ysh, long long yss) {
   using Lt = Layout<N>;
   extern __shared__ uint8_t smem_raw[];
@@ -256,9 +257,20 @@ ssd_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   // the chunk's row half of the warpgroup's hl-th y accumulator
   auto half_of = [&](int hl) { return Lt::NWG == 1 ? hl : cw; };
 
-  float st[NS / 2];  // state^T (P x NS columns from n0), f32, the update's accumulator
+  // state^T (P x NS columns from n0), f32, the update's accumulator: h0's
+  // entries in the accumulator's layout (as the final state is written), or 0
+  float st[NS / 2];
+  if (h0 != nullptr) {
+    const float* hs = h0 + ((size_t)b * H + h) * N * P;
 #pragma unroll
-  for (int i = 0; i < NS / 2; ++i) st[i] = 0.f;
+    for (int jb = 0; jb < NS / 8; ++jb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        st[4 * jb + e] = hs[(n0 + 8 * jb + cq + e % 2) * P + ra + 8 * (e / 2)];
+  } else {
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) st[i] = 0.f;
+  }
 
   // the state's hi or lo term into the [p][n] buffer, bf16, swizzled; each
   // warpgroup writes its own columns
@@ -299,7 +311,10 @@ ssd_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     for (int hl = 0; hl < HALVES; ++hl)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[hl][i] = 0.f;
-    if (c > 0) {  // the state is zero before the first chunk
+    // the state is zero before the first chunk unless h0 is given; then
+    // the first chunk's C.state runs from h0's hi + lo terms, as every
+    // later chunk's from the carried state
+    if (c > 0 || h0 != nullptr) {
 #pragma unroll
       for (int term = 0; term < 2; ++term) {
         put_state(term == 1);
@@ -454,8 +469,8 @@ ssd_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 
 template <int N>
 int launch(const void* x, const void* dt, const float* A, const void* Bm, const void* Cm,
-           void* y, float* final_state, int B, int H, int G, int S, const long long* st,
-           cudaStream_t stream) {
+           void* y, float* final_state, const float* h0, int B, int H, int G, int S,
+           const long long* st, cudaStream_t stream) {
   using Lt = Layout<N>;
   CUtensorMap tx, tb, tc;
   int err;
@@ -471,7 +486,7 @@ int launch(const void* x, const void* dt, const float* A, const void* Bm, const 
   dim3 grid(H, B);
   kernel<<<grid, Lt::THREADS, Lt::SMEM, stream>>>(
       tx, tb, tc, static_cast<const __nv_bfloat16*>(dt), A, static_cast<__nv_bfloat16*>(y),
-      final_state, H, G, S, st[3], st[4], st[5], st[12], st[13], st[14]);
+      final_state, h0, H, G, S, st[3], st[4], st[5], st[12], st[13], st[14]);
   return (int)cudaGetLastError();
 }
 
@@ -481,19 +496,21 @@ int launch(const void* x, const void* dt, const float* A, const void* Bm, const 
 // strides, in order x (b, h, s), dt (b, h, s), Bm (b, g, s), Cm (b, g, s),
 // y (b, h, s); those of x, Bm and Cm are multiples of 8 (16 bytes) with
 // 16-byte aligned bases, those of y even with a 4-byte aligned base; the
-// last axis of x, Bm, Cm and y has unit stride.  final_state is
-// (B, H, N, P) f32 contiguous, or null.  The wrapper guarantees these,
+// last axis of x, Bm, Cm and y has unit stride.  final_state and the
+// initial state h0 are (B, H, N, P) f32 contiguous, or null (h0 null: a
+// zero initial state).  The wrapper guarantees these,
 // H % G == 0 and S > 0.  Returns a cudaError_t, or ERR_NO_ENCODE /
 // ERR_ENCODE (0 = launched).
 extern "C" int ssd_scan_wgmma_launch(const void* x, const void* dt, const void* A,
                                      const void* Bm, const void* Cm, void* y, void* final_state,
-                                     int B, int H, int G, int S, int N,
+                                     const void* h0, int B, int H, int G, int S, int N,
                                      const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* Af = static_cast<const float*>(A);
   float* fin = static_cast<float*>(final_state);
-  if (N == 64) return launch<64>(x, dt, Af, Bm, Cm, y, fin, B, H, G, S, strides, s);
-  if (N == 128) return launch<128>(x, dt, Af, Bm, Cm, y, fin, B, H, G, S, strides, s);
+  const float* init = static_cast<const float*>(h0);
+  if (N == 64) return launch<64>(x, dt, Af, Bm, Cm, y, fin, init, B, H, G, S, strides, s);
+  if (N == 128) return launch<128>(x, dt, Af, Bm, Cm, y, fin, init, B, H, G, S, strides, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -39,7 +39,7 @@ from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import flash_attention as _flash_kernel
 from .ssd_scan import ssd_scan as _ssd_kernel
 
-__all__ = ["flash_attention", "decode_attention", "ssd"]
+__all__ = ["flash_attention", "decode_attention", "ssd", "on_local_heads"]
 
 
 def _keep_only(t: DTensor, local_dims) -> DTensor:
@@ -133,19 +133,29 @@ def _kernel_route(backend: Optional[str], t: torch.Tensor) -> bool:
     return t.device.type == "cuda" and resolve_model_backend(backend, t.device) == "cuda"
 
 
+def on_local_heads(fn, q: DTensor, k, v, *, kernel: bool = False, name: str = "attention"):
+    """``fn(q, k, v) -> (B, S, H, hd)`` in model layout (q (B, S, H, hd),
+    k/v (B, T, KV, hd)) run on each rank's shards of the batch and the
+    heads (module docstring) and wrapped back as a DTensor with q's
+    placements.  ``kernel``: ``fn`` launches a kernel, which refuses a KV
+    cache sharded on its sequence."""
+    q = _keep_only(q, (0, 2))
+    k = _match(k, q, 0, 2, 0, 1, 2, kernel, name)
+    v = _match(v, q, 0, 2, 0, 1, 2, kernel, name)
+    return _wrap(fn(q.to_local(), _local_kv(q, k, 2, 2, name), _local_kv(q, v, 2, 2, name)), q)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-                    backend: Optional[str] = None):
+                    block_q: int = 128, block_k: int = 128, backend: Optional[str] = None):
     """Model layout: q (B, S, H, hd); k/v (B, T, KV, hd) -> (B, S, H, hd).
-    DTensors: on each rank's shards (module docstring)."""
+    DTensors: on each rank's shards (module docstring).  ``block_q`` and
+    ``block_k`` are the Pallas kernel's tile sizes, taken and not read: the
+    Hopper kernels fix their own tiles (128 keys a tile on both routes)."""
     if isinstance(q, DTensor):
-        q = _keep_only(q, (0, 2))
-        kern = _kernel_route(backend, q.to_local())
-        k = _match(k, q, 0, 2, 0, 1, 2, kern, "flash_attention")
-        v = _match(v, q, 0, 2, 0, 1, 2, kern, "flash_attention")
-        y = flash_attention(q.to_local(), _local_kv(q, k, 2, 2, "flash_attention"),
-                            _local_kv(q, v, 2, 2, "flash_attention"), causal=causal,
-                            window=window, backend=backend)
-        return _wrap(y, q)
+        return on_local_heads(
+            lambda ql, kl, vl: flash_attention(ql, kl, vl, causal=causal, window=window,
+                                               backend=backend),
+            q, k, v, kernel=_kernel_route(backend, q.to_local()), name="flash_attention")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _flash_kernel(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -154,11 +164,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     return out
 
 
-def decode_attention(q, k, v, valid, *, backend: Optional[str] = None):
+def decode_attention(q, k, v, valid, *, block_k: int = 512, backend: Optional[str] = None):
     """Model layout: q (B, H, hd) one token, head ``g * rep + r`` serving
     KV group g; k/v cache (B, T, KV, hd); valid (B, T) bool -> (B, H, hd).
     DTensors: on each rank's shards (module docstring); ``valid`` may be a
-    plain tensor, the same on every rank."""
+    plain tensor, the same on every rank.  ``block_k`` is the Pallas
+    kernel's tile size, taken and not read: the Hopper kernel sizes its
+    split-K spans itself (``decode_attention.decode_splits``)."""
     if isinstance(q, DTensor):
         q = _keep_only(q, (0, 1))
         kern = _kernel_route(backend, q.to_local())
@@ -182,12 +194,14 @@ def decode_attention(q, k, v, valid, *, backend: Optional[str] = None):
 
 
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, return_final_state: bool = False,
-        backend: Optional[str] = None):
+        initial_state=None, backend: Optional[str] = None):
     """Model layout: x (B, S, H, P), dt (B, S, H), A (H,) f32, Bm/Cm
-    (B, S, G, N) -> y (B, S, H, P) [, final state (B, H, N, P) f32].
-    DTensors: on each rank's shards of batch, heads and head channels
-    (module docstring), the groups of B/C cut to the local heads' where
-    they are replicated."""
+    (B, S, G, N) -> y (B, S, H, P) [, final state (B, H, N, P) f32], the
+    scan from ``initial_state`` (B, H, N, P), taken in f32, or from a zero
+    state.  DTensors: on each rank's shards of batch, heads and head
+    channels (module docstring), the groups of B/C cut to the local heads'
+    where they are replicated, the initial state laid out as the final
+    one."""
     if isinstance(x, DTensor):
         x = _keep_only(x, (0, 2, 3))
         kw = dict(chunk=chunk, return_final_state=return_final_state, backend=backend)
@@ -206,6 +220,8 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, return_final_state: bool = False,
         A = laid(A, {2: 0})
         Bm = _match(laid(Bm, {0: 0}), x, 0, 2, 0, 1, 2, False, "ssd")
         Cm = _match(laid(Cm, {0: 0}), x, 0, 2, 0, 1, 2, False, "ssd")
+        if initial_state is not None:
+            kw["initial_state"] = _local(laid(initial_state, {0: 0, 2: 1, 3: 3}), x)
         res = ssd(x.to_local(), _local(dt, x), _local(A, x), _local_kv(x, Bm, 2, 2, "ssd"),
                   _local_kv(x, Cm, 2, 2, "ssd"), **kw)
         y, fin = res if return_final_state else (res, None)
@@ -219,6 +235,7 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, return_final_state: bool = False,
     res = _ssd_kernel(
         x.transpose(1, 2), dt.transpose(1, 2), A, Bm.transpose(1, 2), Cm.transpose(1, 2),
         chunk=chunk, return_final_state=return_final_state,
+        initial_state=None if initial_state is None else initial_state.float().contiguous(),
         backend=backend, out=y.transpose(1, 2),
     )
     return (y, res[1]) if return_final_state else y

@@ -24,8 +24,11 @@ Kernel layout: x ``(B, H, S, P)``, dt ``(B, H, S)``, A ``(H,)`` f32,
 Bm/Cm ``(B, G, S, N)`` with query head h reading SSM group
 ``h // (H // G)`` (the groups are never repeated over heads), y
 ``(B, H, S, P)`` in x's dtype, and optionally the final state
-``(B, H, N, P)`` in f32.  The kernel reads x, Bm, Cm and y through their
-strides (unit stride on the last axis; dt any strides), so ``ops.ssd``
+``(B, H, N, P)`` in f32.  The scan starts from ``initial_state`` (B, H,
+N, P), f32 contiguous on the kernel route (the reference's
+``ssd_reference(initial_state=)``), or from a zero state.  The kernel
+reads x, Bm, Cm and y through their strides (unit stride on the last
+axis; dt any strides), so ``ops.ssd``
 hands it transposed views of the model's ``(B, S, ...)`` tensors and an
 output view.  Unlike the Pallas kernel it takes any S: positions past S in
 the last chunk count as dt = 0, the reference's own padding rule, which is
@@ -158,26 +161,28 @@ def ssd_reference(x, dt, A, B, C, chunk: int, initial_state=None, return_final_s
     return y
 
 
-def ssd_scan_ref(x, dt, A, Bm, Cm, chunk: int, return_final_state=False):
+def ssd_scan_ref(x, dt, A, Bm, Cm, chunk: int, return_final_state=False, initial_state=None):
     """Plain PyTorch SSD on the tensors' device, kernel layout: x
     (B, H, S, P), dt (B, H, S), A (H,), Bm/Cm (B, G, S, N) -> y (B, H, S, P)
-    in x's dtype [, final state (B, H, N, P) f32].  With G = H this is the
-    reference's ``ref.ssd_ref``."""
+    in x's dtype [, final state (B, H, N, P) f32], from ``initial_state``
+    (B, H, N, P; taken in f32) or a zero state.  With G = H and no initial
+    state this is the reference's ``ref.ssd_ref``."""
     out = ssd_reference(
         x.transpose(1, 2), dt.transpose(1, 2), A, Bm.transpose(1, 2), Cm.transpose(1, 2),
-        chunk, return_final_state=return_final_state,
+        chunk, initial_state=initial_state, return_final_state=return_final_state,
     )
     if return_final_state:
         return out[0].transpose(1, 2), out[1]
     return out.transpose(1, 2)
 
 
-def check_ssd_inputs(x, dt, A, Bm, Cm, chunk: int, *, out=None, state_out=None) -> None:
+def check_ssd_inputs(x, dt, A, Bm, Cm, chunk: int, *, out=None, state_out=None,
+                     initial_state=None) -> None:
     """Raise unless the kernel takes these tensors: one device, x/dt/Bm/Cm
     (and out) f32 or bf16 of one dtype, A f32, the shapes of the kernel
     layout with H % G == 0, chunk and N multiples of 4 up to 128, P up to
     64, a unit stride on the last axis of x, Bm, Cm and out, and the state
-    output (B, H, N, P) f32 contiguous."""
+    output and the initial state (B, H, N, P) f32 contiguous."""
     dev = x.device
     if x.dim() != 4 or Bm.dim() != 4:
         raise ValueError("ssd_scan: x and Bm must be 4-D (B, H, S, P) and (B, G, S, N)")
@@ -202,19 +207,20 @@ def check_ssd_inputs(x, dt, A, Bm, Cm, chunk: int, *, out=None, state_out=None) 
     if A.device != dev or A.dtype != torch.float32 or tuple(A.shape) != (H,) or (
             H > 1 and A.stride(0) != 1):
         raise ValueError(f"ssd_scan: A must be a contiguous ({H},) float32 tensor on {dev}")
-    if state_out is not None and (
-            state_out.device != dev or state_out.dtype != torch.float32
-            or tuple(state_out.shape) != (Bsz, H, N, P) or not state_out.is_contiguous()):
-        raise ValueError(
-            f"ssd_scan: state_out must be a contiguous ({Bsz}, {H}, {N}, {P}) float32 "
-            f"tensor on {dev}")
+    for name, t in (("state_out", state_out), ("initial_state", initial_state)):
+        if t is not None and (
+                t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != (Bsz, H, N, P) or not t.is_contiguous()):
+            raise ValueError(
+                f"ssd_scan: {name} must be a contiguous ({Bsz}, {H}, {N}, {P}) float32 "
+                f"tensor on {dev}")
 
 
 def _library() -> ctypes.CDLL:
     lib = load_library("ssd_scan")
     if not getattr(lib, "_argtypes_set", False):
         lib.ssd_scan_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
             + [ctypes.c_void_p]
         )
         lib.ssd_scan_launch.restype = ctypes.c_int
@@ -228,7 +234,7 @@ def _wgmma_library() -> ctypes.CDLL:
     lib = load_library("ssd_scan_wgmma")
     if not getattr(lib, "_argtypes_set", False):
         lib.ssd_scan_wgmma_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
             + [ctypes.c_void_p]
         )
         lib.ssd_scan_wgmma_launch.restype = ctypes.c_int
@@ -250,13 +256,15 @@ def _pair_strides(name: str, t: torch.Tensor):
 
 def ssd_scan(
     x, dt, A, Bm, Cm, *, chunk: int = 128, return_final_state: bool = False,
-    backend: Optional[str] = None, out: Optional[torch.Tensor] = None,
+    initial_state: Optional[torch.Tensor] = None, backend: Optional[str] = None,
+    out: Optional[torch.Tensor] = None,
 ):
     """SSD in kernel layout: x (B, H, S, P), dt (B, H, S), A (H,) f32, Bm/Cm
     (B, G, S, N) -> y (B, H, S, P) in x's dtype, written into ``out`` when
     given (any strides, unit last stride); with ``return_final_state``,
     ``(y, final_state)`` with the state (B, H, N, P) in f32; the
-    recurrence starts from a zero state.
+    recurrence starts from ``initial_state`` (B, H, N, P; f32 contiguous on
+    the kernel route, which refuses anything else), or from a zero state.
 
     ``backend`` as for the attention kernels: ``"torch"`` is the plain
     version on the tensors' device, ``"cuda"`` the kernel; ``None`` defers
@@ -270,24 +278,27 @@ def ssd_scan(
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {dev.type}")
     if dev.type == "cpu" or resolve_model_backend(backend, dev) == "torch":
-        res = ssd_scan_ref(x, dt, A, Bm, Cm, chunk, return_final_state)
+        res = ssd_scan_ref(x, dt, A, Bm, Cm, chunk, return_final_state, initial_state)
         if out is None:
             return res
         if return_final_state:
             return out.copy_(res[0]), res[1]
         return out.copy_(res)
-    check_no_grad("ssd_scan", x, dt, A, Bm, Cm)
+    check_no_grad("ssd_scan", x, dt, A, Bm, Cm,
+                  *(() if initial_state is None else (initial_state,)))
     Bsz, H, S, P = x.shape
     N = Bm.shape[3]
     if out is None:
         out = torch.empty((Bsz, H, S, P), dtype=x.dtype, device=dev)
     state = (torch.empty((Bsz, H, N, P), dtype=torch.float32, device=dev)
              if return_final_state else None)
-    check_ssd_inputs(x, dt, A, Bm, Cm, chunk, out=out, state_out=state)
+    check_ssd_inputs(x, dt, A, Bm, Cm, chunk, out=out, state_out=state,
+                     initial_state=initial_state)
     if Bsz == 0 or H == 0 or S == 0:
         if state is not None:
-            return out, state.zero_()
+            return out, (state.zero_() if initial_state is None else state.copy_(initial_state))
         return out
+    h0 = initial_state.data_ptr() if initial_state is not None else None
     route = ssd_route(x.dtype, P, N, chunk)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -300,7 +311,7 @@ def ssd_scan(
             )
             err = lib.ssd_scan_wgmma_launch(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                out.data_ptr(), state.data_ptr() if state is not None else None,
+                out.data_ptr(), state.data_ptr() if state is not None else None, h0,
                 Bsz, H, Bm.shape[1], S, N, strides, stream,
             )
             errstr = lib.ssd_scan_wgmma_error_string
@@ -312,7 +323,7 @@ def ssd_scan(
             )
             err = lib.ssd_scan_launch(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                out.data_ptr(), state.data_ptr() if state is not None else None,
+                out.data_ptr(), state.data_ptr() if state is not None else None, h0,
                 DTYPES[x.dtype], Bsz, H, Bm.shape[1], S, P, N, chunk, strides, stream,
             )
             errstr = lib.ssd_scan_error_string

@@ -152,8 +152,10 @@ def apply_norm(p, x, cfg: ModelConfig):
 # RoPE
 # ---------------------------------------------------------------------------
 
-def make_positions(batch: int, seq: int, device) -> torch.Tensor:
-    return torch.arange(seq, device=device)[None, :].expand(batch, seq)
+def make_positions(batch: int, seq: int, offset=0, *, device=None) -> torch.Tensor:
+    """(batch, seq) positions ``offset .. offset + seq - 1`` on ``device``
+    (``offset`` an int, or a tensor that broadcasts against (batch, seq))."""
+    return (torch.arange(seq, device=device)[None, :] + offset).expand(batch, seq)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float, rotary_pct: float = 1.0):
@@ -220,7 +222,9 @@ def apply_mlp(p, x, cfg: ModelConfig):
 # Attention (GQA, optional sliding window, optional cross-attention, caching)
 # ---------------------------------------------------------------------------
 
-def attn_decl(cfg: ModelConfig) -> Dict[str, ParamDecl]:
+def attn_decl(cfg: ModelConfig, cross: bool = False) -> Dict[str, ParamDecl]:
+    """The attention block's parameters; ``cross`` is inert (the
+    reference's: a cross-attention block declares the same leaves)."""
     d, hd = cfg.d_model, cfg.head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     decl = {
@@ -289,7 +293,15 @@ def _project_qkv(p, x, cfg: ModelConfig, kv_input=None):
 
 def _sdpa(q, k, v, mask):
     """Plain scaled-dot-product GQA attention (the reference's ``_sdpa``).
-    q: (B,S,H,hd), k/v: (B,T,KV,hd), mask: (B,1,S,T) or (S,T) bool."""
+    q: (B,S,H,hd), k/v: (B,T,KV,hd), mask: (B,1,S,T) or (S,T) bool.
+
+    DTensors (mask (S,T), the same on every rank) run on each rank's shards
+    of the batch and the heads, as the attention kernels do
+    (``kernels.ops.on_local_heads``): torch 2.11's DTensor cannot fold the
+    einsum's batch dimensions where the batch and the heads are sharded on
+    two mesh axes.  On one device it is the same arithmetic, bit for bit."""
+    if isinstance(q, DTensor):
+        return kops.on_local_heads(lambda a, b, c: _sdpa(a, b, c, mask), q, k, v, name="_sdpa")
     B, S, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd)
@@ -305,7 +317,12 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, causal: bool, window: Optional[i
     ``min(cfg.attn_block, S)`` rows, each against a static k range
     ``[lo, hi)`` (causal: up to the chunk's last row; causal with a window:
     from its first row's window), f32 scores and softmax, the weights cast
-    to q's dtype before ``P.V``.  Never materializes the (S, T) scores."""
+    to q's dtype before ``P.V``.  Never materializes the (S, T) scores.
+    DTensors run on each rank's shards, as :func:`_sdpa`."""
+    if isinstance(q, DTensor):
+        return kops.on_local_heads(
+            lambda a, b, c: _sdpa_chunked(a, b, c, cfg, causal=causal, window=window),
+            q, k, v, name="_sdpa_chunked")
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     rep = H // KV

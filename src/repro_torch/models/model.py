@@ -57,7 +57,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..core.instance import resolve_device
@@ -128,6 +128,28 @@ def _scatter_rows(h: DTensor, pos, vals) -> DTensor:
     return DTensor.from_local(out, mesh, h.placements, run_check=False)
 
 
+def _take_rows(table, idx):
+    """``table[idx]``: the rows of the embedding table (V, D) at the token
+    ids ``idx`` (B, S).  On a DTensor table, each rank takes its own
+    tokens' rows from the whole table, as local tensors, and the table's
+    local gradient is declared a partial sum over the mesh axes that split
+    the tokens: torch 2.11's DTensor has no strategy for the lookup's
+    backward (an ``index_put`` with the tokens sharded on the batch).  The
+    table is gathered first, as DTensor's own lookup does.  On one device
+    this is the same lookup and backward as ``table[idx]``, bit for bit."""
+    if not isinstance(table, DTensor):
+        return table[idx]
+    mesh = table.device_mesh
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in idx.placements]
+    if list(idx.placements) != pl:
+        idx = idx.redistribute(mesh, pl)
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if isinstance(p, Shard) else Replicate() for p in pl])
+    return DTensor.from_local(whole[idx.to_local()], mesh, pl, run_check=False)
+
+
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
@@ -158,7 +180,7 @@ class Model:
         d = self._attn_block_decl()
         if cross:
             d["ln_x"] = norm_decl(cfg)
-            d["xattn"] = attn_decl(cfg)
+            d["xattn"] = attn_decl(cfg, cross=True)
         return d
 
     def decl(self) -> Dict[str, Any]:
@@ -241,7 +263,7 @@ class Model:
         ``batch["vision_positions"]`` (B, P)."""
         dt = _dtype(self.cfg.dtype)
         # laid out before the patches are written (a no-op on one device)
-        h = shard(params["embed"][tokens.long()].to(dt), "batch", None, "embed")
+        h = shard(_take_rows(params["embed"], tokens.long()).to(dt), "batch", None, "embed")
         if self.cfg.family == "vlm" and batch is not None and "vision_embeds" in batch:
             vp = batch["vision_positions"].long()
             rows = torch.arange(h.shape[0], device=h.device)[:, None]
@@ -300,7 +322,7 @@ class Model:
         bidirectional attention blocks, then ``ln_enc``."""
         cfg = self.cfg
         mem = shard(batch["enc_embeds"].to(_dtype(cfg.dtype)), "batch", None, "embed")
-        pos = make_positions(mem.shape[0], mem.shape[1], mem.device)
+        pos = make_positions(mem.shape[0], mem.shape[1], device=mem.device)
         for lp in params["enc_layers"]:
             a, _ = apply_attention(lp["attn"], apply_norm(lp["ln1"], mem, cfg), cfg,
                                    positions=pos, mode="bidir")
@@ -323,7 +345,7 @@ class Model:
         h = self._embed(params, tokens, batch)
         positions = batch.get("positions")
         if positions is None:
-            positions = make_positions(B, S, h.device)
+            positions = make_positions(B, S, device=h.device)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if self.cfg.family == "encdec":
             mem = self._encode(params, batch)
@@ -415,7 +437,7 @@ class Model:
         tokens = batch["tokens"]
         B, S = tokens.shape
         h = self._embed(params, tokens, batch)
-        positions = make_positions(B, S, h.device)
+        positions = make_positions(B, S, device=h.device)
         if cache.attn is not None:
             W = cache.attn["k"].shape[2]
             # keep the last min(S, W) tokens; slot = pos % W matches decode:

@@ -99,10 +99,12 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def apply_mamba(p, x, cfg: ModelConfig, conv_state=None, return_state=False):
-    """Full-sequence forward from a zero SSM state.  x: (B, S, D) -> y  or
-    (y, (conv_state, ssm_state)) when ``return_state`` (used by prefill to
-    seed the decode cache; the SSM state is f32)."""
+def apply_mamba(p, x, cfg: ModelConfig, conv_state=None, ssm_state=None, return_state=False):
+    """Full-sequence forward.  x: (B, S, D) -> y  or  (y, (conv_state,
+    ssm_state)) when ``return_state`` (used by prefill to seed the decode
+    cache; the SSM state is f32).  ``ssm_state`` (B, H, N, P) is the
+    scan's initial state (zero when ``None``), as in the reference's plain
+    path; it reaches the SSD kernel on either route."""
     B, S, D = x.shape
     di, H, P, G, N = _dims(cfg)
     zall = x @ p["in_proj"]
@@ -116,7 +118,8 @@ def apply_mamba(p, x, cfg: ModelConfig, conv_state=None, return_state=False):
     dt = _softplus(dt + p["dt_bias"])                         # (B, S, H)
     A = -torch.exp(p["A_log"].float())
 
-    res = kops.ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssd_chunk, return_final_state=return_state)
+    res = kops.ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssd_chunk, return_final_state=return_state,
+                   initial_state=ssm_state)
     y, final_state = res if return_state else (res, None)
     y = y + p["D"][None, None, :, None] * xs
     y = y.reshape(B, S, di)

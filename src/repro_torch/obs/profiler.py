@@ -9,6 +9,9 @@ run's device is CUDA — and exports a Chrome trace into ``log_dir``
 :func:`annotate` marks host-dispatched regions (the scheduler call, each
 fleet dispatch) with ``torch.profiler.record_function`` plus an NVTX range
 when CUDA is present, and :func:`step_annotation` marks each fleet window.
+Keywords given to :func:`annotate` go into its trace event's ``args``, as
+the reference's ``TraceAnnotation`` carries them into its event's metadata
+(the profile records inputs, ``record_shapes``, for that).
 
 With no profile active — the default — both helpers return one shared
 ``nullcontext`` instance, so instrumented call sites cost a function call
@@ -57,7 +60,7 @@ def profile_trace(log_dir, device=None):
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     try:
-        prof = torch.profiler.profile(activities=activities)
+        prof = torch.profiler.profile(activities=activities, record_shapes=True)
         prof.start()
     except Exception as e:  # no profiler backend on this host
         warnings.warn(f"torch profiler unavailable ({e}); running unprofiled")
@@ -79,14 +82,21 @@ def profile_trace(log_dir, device=None):
 
 
 class _Range:
-    """``record_function(name)``, with an NVTX range around it on CUDA."""
+    """``record_function(name)``, with an NVTX range around it on CUDA;
+    with keywords, a record function that carries them as its event's
+    args."""
 
     __slots__ = ("name", "nvtx", "rf")
 
-    def __init__(self, name: str, nvtx: bool) -> None:
+    def __init__(self, name: str, nvtx: bool, kwargs=None) -> None:
         self.name = name
         self.nvtx = nvtx
-        self.rf = torch.profiler.record_function(name)
+        if kwargs:
+            from torch._C._profiler import _RecordFunctionFast
+
+            self.rf = _RecordFunctionFast(name, keyword_values=kwargs)
+        else:
+            self.rf = torch.profiler.record_function(name)
 
     def __enter__(self):
         if self.nvtx:
@@ -100,12 +110,12 @@ class _Range:
             torch.cuda.nvtx.range_pop()
 
 
-def annotate(name: str):
-    """A ``record_function`` (+ NVTX) range under an active profile, else
-    a no-op."""
+def annotate(name: str, **kwargs):
+    """A ``record_function`` (+ NVTX) range under an active profile, its
+    event's args holding ``kwargs``, else a no-op."""
     if not _ACTIVE:
         return _NOOP
-    return _Range(name, _NVTX)
+    return _Range(name, _NVTX, kwargs)
 
 
 def step_annotation(name: str, step: int):

@@ -16,8 +16,19 @@ reference's fleet calls a raw callable inside its jitted scan, which
 cannot trace the NumPy oracle ``gus_schedule_np``; there the port's
 oracle is held against the reference's jitted ``gus_schedule``, which the
 reference's own tests hold equal to it (``tests/test_scenarios.py``).
+
+F5, the materialized fleet's arrivals.  The reference's replication source
+draws a non-streamed trace with ``generate_arrivals`` and no ``rng_mode``,
+which defers to the scenario's own mode; so an explicit
+``rng_mode="paper-default"`` on a scenario whose mode is ``"vectorized"``
+(``mega-city``) still draws the scenario's way.  The port passed the mode
+on and drew another trace (1 058 requests against 1 026 at the settings
+below).  Both fleets, with and without a window, at the tolerances of
+``tests/test_torch_fleet.py``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -231,3 +242,34 @@ def test_f2_refusals(entry):
         with pytest.raises(ValueError, match="raw scheduler callable"):
             fn(spec(), cfg, pkg.gus_schedule_np,
                options=pkg.EngineOptions(scheduler="hierarchical"), **kw)
+
+
+# ---------------------------------------------------------------------- F5
+
+F5_CLUSTER = dict(n_edge=3, n_cloud=1, n_services=4, n_variants=6)
+
+
+def f5_fleets(scheduler, window):
+    kw = dict(scenario=None, n_rep=1, seed=0)
+    ref_opts = dict(streaming=False, rng_mode="paper-default", window=window)
+    out = []
+    for pkg, policy, extra in ((R, "gus", {}), (P, "gus", {"device": "cpu"})):
+        scn = dataclasses.replace(pkg.get_scenario("mega-city"), rate_per_edge_per_s=30.0)
+        opts = pkg.EngineOptions(**ref_opts, **(
+            {"scheduler": "hierarchical"} if scheduler == "hierarchical" else {}))
+        if scheduler == "hierarchical":
+            policy = "gus" if pkg is R else "gus-hier"
+        out.append(pkg.simulate_fleet(
+            pkg.demo_cluster_spec(**F5_CLUSTER), pkg.SimConfig(horizon_ms=9000.0),
+            policy=policy, **{**kw, "scenario": scn}, options=opts, **extra))
+    return out
+
+
+@pytest.mark.parametrize("window", [None, 1], ids=["whole", "window1"])
+@pytest.mark.parametrize("scheduler", ["dense", "hierarchical"])
+def test_f5_materialized_fleet_defers_to_the_scenario_rng_mode(scheduler, window):
+    ref, got = f5_fleets(scheduler, window)
+    assert_fleet_equal(ref, got)
+    assert got.n_requests == ref.n_requests == 1026
+    if scheduler == "hierarchical":
+        np.testing.assert_array_equal(got.mean_us_per_rep, ref.mean_us_per_rep)

@@ -105,6 +105,58 @@ def test_ssd_kernel_equals_plain(cuda, B, H, G, S, P, N, Q, dtype, final):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
+@pytest.mark.parametrize("final", [False, True], ids=["y", "y+state"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "B,H,G,S,P,N,Q",
+    [
+        (2, 4, 1, 2000, 64, 64, 128),   # ragged S, G = 1 (zamba2's N)
+        (1, 8, 2, 300, 64, 128, 128),   # G = 2, ragged, N = 128 (mamba2's N)
+        (2, 6, 3, 77, 64, 64, 128),     # S below one chunk: h0 is all the carry
+        (1, 6, 2, 77, 32, 16, 16),      # the CUDA-core route's small shapes
+    ],
+)
+def test_ssd_kernel_initial_state_equals_plain(cuda, B, H, G, S, P, N, Q, dtype, final):
+    """Both routes from an initial state h0 (``apply_mamba``'s
+    ``ssm_state``) against the plain version from the same h0; a zero h0
+    gives the zero-state launch's result bit for bit."""
+    x, dt, A, Bm, Cm = _inputs(B, H, G, S, P, N, dtype, cuda, S + N + 1)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    h0 = torch.randn((B, H, N, P), generator=g, device=cuda)
+    route = ssd_route(dtype, P, N, Q)
+    r0 = dict(ssd_scan.route_launches)
+    got = ssd_scan(x, dt, A, Bm, Cm, chunk=Q, return_final_state=final, initial_state=h0,
+                   backend="cuda")
+    want = ssd_scan_ref(x, dt, A, Bm, Cm, Q, return_final_state=final, initial_state=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.route_launches == {k: r0[k] + (k == route) for k in r0}
+    if final:
+        (got, got_st), (want, want_st) = got, want
+        _close_state(got_st, want_st)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    zero = torch.zeros_like(h0)
+    z = ssd_scan(x, dt, A, Bm, Cm, chunk=Q, return_final_state=True, initial_state=zero,
+                 backend="cuda")
+    n = ssd_scan(x, dt, A, Bm, Cm, chunk=Q, return_final_state=True, backend="cuda")
+    assert torch.equal(z[0], n[0]) and torch.equal(z[1], n[1])
+
+
+def test_ssd_kernel_refuses_a_wrong_initial_state(cuda):
+    """An h0 of another shape, dtype, layout or device raises before the
+    launch; none falls back to the plain version."""
+    x, dt, A, Bm, Cm = _inputs(1, 4, 1, 256, 64, 64, torch.bfloat16, cuda, 5)
+    good = torch.zeros((1, 4, 64, 64), device=cuda)
+    n0 = ssd_scan.launches
+    for bad in (good[:, :2], good.bfloat16(), good.transpose(2, 3).contiguous().transpose(2, 3),
+                good.cpu()):
+        with pytest.raises(ValueError, match="initial_state must be"):
+            ssd_scan(x, dt, A, Bm, Cm, chunk=128, initial_state=bad, backend="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan(x, dt, A, Bm, Cm, chunk=128, initial_state=good.clone().requires_grad_(),
+                 backend="cuda")
+    assert ssd_scan.launches == n0
+
+
 @pytest.mark.parametrize("N", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_ssd_model_layout_views_are_read_in_place(cuda, dtype, N):

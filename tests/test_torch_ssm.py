@@ -198,6 +198,13 @@ def _good_args():
     (lambda a: a.update(A=a["A"].double()), "A must be"),
     (lambda a: a.update(Cm=a["Cm"].bfloat16()), "Cm has dtype"),
     (lambda a: a.update(state_out=torch.zeros(1, 4, 16, 8)), "state_out must be"),
+    (lambda a: a.update(initial_state=torch.zeros(1, 4, 16, 8)), "initial_state must be"),
+    (lambda a: a.update(initial_state=torch.zeros(1, 4, 8, 16, dtype=torch.bfloat16)),
+     "initial_state must be"),
+    (lambda a: a.update(initial_state=torch.zeros(1, 4, 16, 8).transpose(2, 3)),
+     "initial_state must be"),
+    (lambda a: a.update(initial_state=torch.zeros(1, 4, 8, 16, device="meta")),
+     "initial_state must be"),
 ])
 def test_check_ssd_inputs_refuses_what_the_kernel_does_not_take(change, err):
     args = _good_args()
@@ -205,6 +212,37 @@ def test_check_ssd_inputs_refuses_what_the_kernel_does_not_take(change, err):
     change(args)
     with pytest.raises((ValueError, TypeError), match=err):
         check_ssd_inputs(**args)
+
+
+@pytest.mark.parametrize("S,G", [(77, 2), (96, 4)])
+def test_initial_state_reaches_every_plain_entry(S, G):
+    """``ssd_scan_ref(initial_state=)`` (kernel layout), the wrapper on CPU
+    tensors and ``ops.ssd`` (model layout, a bf16 state taken in f32) all
+    equal ``ssd_reference(initial_state=)`` bit for bit, and the state
+    moves the result."""
+    B, H, P, N, Q = 2, 4, 16, 8, 32
+    x, dt, A, Bm, Cm = _t(*_ssd_inputs(B, H, G, S, P, N, seed=S))
+    h0 = torch.from_numpy(np.random.default_rng(S).standard_normal((B, H, N, P)).astype(np.float32))
+    wy, ws = ssd_reference(*(t.transpose(1, 2) for t in (x, dt)), A,
+                           *(t.transpose(1, 2) for t in (Bm, Cm)), Q, initial_state=h0,
+                           return_final_state=True)
+    ry, rs = ssd_scan_ref(x, dt, A, Bm, Cm, Q, return_final_state=True, initial_state=h0)
+    assert torch.equal(ry, wy.transpose(1, 2)) and torch.equal(rs, ws)
+    n0 = ssd_scan.launches
+    ky, ks = ssd_scan(x, dt, A, Bm, Cm, chunk=Q, return_final_state=True, initial_state=h0,
+                      backend="cuda")
+    assert torch.equal(ky, ry) and torch.equal(ks, rs) and ssd_scan.launches == n0
+    my, ms = ops.ssd(*(t.transpose(1, 2) for t in (x, dt)), A, *(t.transpose(1, 2) for t in (Bm, Cm)),
+                     chunk=Q, return_final_state=True, initial_state=h0)
+    assert torch.equal(my, wy) and torch.equal(ms, ws)
+    hb = h0.bfloat16()
+    by = ops.ssd(*(t.transpose(1, 2) for t in (x, dt)), A, *(t.transpose(1, 2) for t in (Bm, Cm)),
+                 chunk=Q, initial_state=hb)
+    assert torch.equal(by, ssd_reference(*(t.transpose(1, 2) for t in (x, dt)), A,
+                                         *(t.transpose(1, 2) for t in (Bm, Cm)), Q,
+                                         initial_state=hb.float()))
+    zero = ssd_scan_ref(x, dt, A, Bm, Cm, Q)
+    assert not torch.allclose(zero, ry, **SSD_TOL)
 
 
 def test_ssd_scan_refuses_other_devices():
@@ -279,6 +317,34 @@ def test_apply_mamba_with_state_matches_reference(arch, S):
     assert gst.dtype == torch.float32
     plain = tssm.apply_mamba(tp, torch.from_numpy(x), port)
     np.testing.assert_allclose(plain.numpy(), got.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("return_state", [False, True], ids=["y", "y+state"])
+@pytest.mark.parametrize("arch,S", [("mamba2-130m", 45), ("zamba2-1.2b", 50),
+                                    ("zamba2-1.2b", 64)])
+def test_apply_mamba_ssm_state_matches_reference_plain_path(arch, S, return_state):
+    """``apply_mamba(ssm_state=h0)``: a random initial state (B, H, N, P)
+    of the scan, against the reference's plain path (``use_pallas=False``,
+    which honours it; its Pallas path drops it when ``return_state`` is
+    off), on carried weights, with a conv state beside it."""
+    ref, port, jp, tp = _layer(arch, seed=S, use_pallas=False)
+    rng = np.random.default_rng(S + 1)
+    x = rng.standard_normal((2, S, port.d_model)).astype(np.float32)
+    di, H, P, G, N = tssm._dims(port)
+    h0 = rng.standard_normal((2, H, N, P)).astype(np.float32)
+    cv = rng.standard_normal((2, port.ssm_conv - 1, di + 2 * G * N)).astype(np.float32)
+    want = jssm.apply_mamba(jp, jnp.asarray(x), ref, jnp.asarray(cv), jnp.asarray(h0),
+                            return_state=return_state)
+    # positionally too: the fifth argument is the SSM state
+    got = tssm.apply_mamba(tp, torch.from_numpy(x), port, torch.from_numpy(cv),
+                           torch.from_numpy(h0), return_state=return_state)
+    if return_state:
+        (want, (wcv, wst)), (got, (gcv, gst)) = want, got
+        _close_cache(gcv, wcv, "conv state")
+        _close_cache(gst, wst, "ssm state")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    zero = tssm.apply_mamba(tp, torch.from_numpy(x), port, torch.from_numpy(cv))
+    assert not np.allclose(zero.numpy(), got.numpy(), **LOGIT_TOL)
 
 
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])

@@ -6,8 +6,9 @@ one process a rank, meeting through a ``FileStore`` under the test's
 temporary directory, never a TCP port), runs every case, and rank 0 writes
 the whole tensors to files.  The meshes are 1x2 and 2x1 (2 ranks) and 2x2
 (4 ranks); the configs the reduced dense (yi-9b), ssm (mamba2-130m), hybrid
-(zamba2-1.2b) and moe (qwen2-moe-a2.7b) ones in float32, every one on 1x2
-and 2x2, the dense and moe ones on 2x1 (``torch_dist_worker.MESHES``).
+(zamba2-1.2b), moe (qwen2-moe-a2.7b), encdec (seamless-m4t-medium) and vlm
+(pixtral-12b) ones in float32, every one on 1x2 and 2x2, the dense and moe
+ones on 2x1 (``torch_dist_worker.MESHES``).
 Held here:
 
 * the sharded prefill logits against the unsharded port's at
@@ -34,6 +35,7 @@ torch = pytest.importorskip("torch")
 
 import torch_dist_worker as W  # noqa: E402
 
+from repro_torch.launch.specs import ShapeSpec, input_specs  # noqa: E402
 from repro_torch.models.carry import params_to_reference, to_numpy  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.engine import make_prefill_step, make_serve_step  # noqa: E402
@@ -133,8 +135,9 @@ def _unsharded(arch):
         for _ in range(W.GEN - 1):
             tok, cache = make_serve_step(model)(params, tok, cache)
             toks.append(tok)
+    keys = input_specs(cfg, ShapeSpec("case", W.S, W.B, "train"))  # the worker's batch
     state, metrics = make_train_step(model, AdamWConfig())(
-        TrainState(params, adamw_init(params)), {k: batch[k] for k in ("tokens", "labels")})
+        TrainState(params, adamw_init(params)), {k: batch[k] for k in keys})
     return logits, torch.cat(toks, 1), state, metrics
 
 
@@ -219,3 +222,97 @@ def test_kv_head_span_refuses_heads_that_straddle_groups():
     # groups 0 and 1 with one head each, which no local rep can express
     with pytest.raises(ValueError, match="cannot keep the grouping"):
         _kv_head_span(12, 4, 2, 2, "t")
+
+
+# -- the two DTensor workarounds of torch 2.11, bitwise on one device ------------
+
+
+@pytest.fixture(scope="module")
+def mesh1(tmp_path_factory):
+    """A 1 x 1 ``("data", "model")`` mesh over a gloo group of one rank in
+    this process (a FileStore, no port), taken down after the module."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    store = dist.FileStore(str(tmp_path_factory.mktemp("mesh1") / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        yield make_test_mesh(1, 1, device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _leaf(rng, shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).requires_grad_()
+
+
+def _on(mesh, t, placements):
+    from torch.distributed.tensor import distribute_tensor
+
+    d = distribute_tensor(t.detach(), mesh, placements)
+    return d.requires_grad_() if t.requires_grad else d
+
+
+@pytest.mark.parametrize("table_pl", ["train", "replicated"])
+def test_take_rows_is_the_lookup_bitwise(mesh1, table_pl):
+    """``model._take_rows`` (the embedding lookup's workaround: the rows
+    taken from the local tensors, the table's gradient a declared partial
+    sum) against ``table[idx]`` on plain tensors and against DTensor's own
+    lookup, which torch 2.11 cannot take backward: the rows and the table's
+    gradient bit for bit, with repeated tokens."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models.model import _take_rows
+
+    rng = np.random.default_rng(3)
+    V, D, Bsz, S = 40, 16, 4, 24
+    table = _leaf(rng, (V, D))
+    idx = torch.from_numpy(rng.integers(0, V // 2, (Bsz, S)))  # repeats
+    g = torch.from_numpy(rng.standard_normal((Bsz, S, D)).astype(np.float32))
+    want = table[idx]
+    want.backward(g)
+    pl = [Shard(1), Shard(0)] if table_pl == "train" else [Replicate(), Replicate()]
+    for lookup in (_take_rows, lambda t, i: t[i]):  # the workaround, DTensor's own
+        td = _on(mesh1, table, pl)
+        rows = lookup(td, _on(mesh1, idx, [Shard(0), Replicate()]))
+        assert torch.equal(rows.full_tensor(), want)
+        rows.backward(_on(mesh1, g, list(rows.placements)))
+        assert torch.equal(td.grad.full_tensor(), table.grad)
+    assert torch.equal(_take_rows(table.detach(), idx), want)  # plain tensors: the lookup
+
+
+@pytest.mark.parametrize("fn", ["sdpa", "chunked"])
+@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2)])
+def test_plain_attention_on_local_heads_is_bitwise(mesh1, fn, H, KV):
+    """``layers._sdpa`` (and ``_sdpa_chunked``) on DTensors q/k/v sharded
+    on the batch and the heads runs its einsums on each rank's shards
+    (torch 2.11 cannot fold the sharded batch and heads): the output and
+    the gradients of q, k and v equal the plain tensors' bit for bit."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(H + KV)
+    Bsz, S, T, hd = 2, 10, 12 if fn == "sdpa" else 10, 8
+    q, k, v = _leaf(rng, (Bsz, S, H, hd)), _leaf(rng, (Bsz, T, KV, hd)), _leaf(rng, (Bsz, T, KV, hd))
+    g = torch.from_numpy(rng.standard_normal((Bsz, S, H, hd)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((S, T)) < 0.8) | torch.eye(S, T, dtype=torch.bool)
+    cfg = ModelConfig(family="dense", num_layers=1, d_model=H * hd, num_heads=H,
+                      num_kv_heads=KV, attn_block=4)
+
+    def run(a, b, c):
+        if fn == "sdpa":
+            return layers._sdpa(a, b, c, mask)
+        return layers._sdpa_chunked(a, b, c, cfg, causal=True, window=3)
+
+    want = run(q, k, v)
+    want.backward(g)
+    pl = [Shard(0), Shard(2)]
+    qd, kd, vd = (_on(mesh1, t, pl) for t in (q, k, v))
+    y = run(qd, kd, vd)
+    assert tuple(y.placements) == tuple(pl) and torch.equal(y.full_tensor(), want)
+    y.backward(_on(mesh1, g, pl))
+    for d, t in ((qd, q), (kd, k), (vd, v)):
+        assert torch.equal(d.grad.full_tensor(), t.grad)

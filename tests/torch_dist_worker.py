@@ -21,10 +21,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-ARCHS = ("yi-9b", "mamba2-130m", "zamba2-1.2b", "qwen2-moe-a2.7b")
+ARCHS = ("yi-9b", "mamba2-130m", "zamba2-1.2b", "qwen2-moe-a2.7b", "seamless-m4t-medium",
+         "pixtral-12b")
 #: each world size's meshes and the configs run on each: tensor parallel
-#: (1x2) and both axes (2x2) every config, data parallel alone (2x1) the
-#: dense and the MoE ones (the batch split of the MoE dispatch)
+#: (1x2) and both axes (2x2) every config (every family: dense, ssm,
+#: hybrid, moe, encdec, vlm), data parallel alone (2x1) the dense and the
+#: MoE ones (the batch split of the MoE dispatch)
 MESHES = {2: (((1, 2), ARCHS), ((2, 1), ("yi-9b", "qwen2-moe-a2.7b"))),
           4: (((2, 2), ARCHS),)}
 B, S, GEN = 4, 24, 4
@@ -48,11 +50,26 @@ def ref_config():
 
 
 def inputs(cfg):
-    """The parameters and a batch, the same on every rank (and in the test)."""
+    """The parameters and a batch, the same on every rank (and in the test).
+
+    The encoder-decoder's q/k/v are rescaled to a fan-in of d_model, as
+    ``chip_smoke.py`` phase 15b rescales them: at the reference's init its
+    three sharp attentions a decoder layer leave its float32 train step
+    7.5e-3 from the same step in float64 in the gradient norm (96% of the
+    embedding's first moment outside the moments' tolerance), so no limit
+    would tell a sharded fault from float32 rounding; rescaled, 8e-8."""
     from repro_torch.models.model import Model
     from repro_torch.training import make_batch
 
     params = Model(cfg).init(0, device="cpu")
+    if cfg.family == "encdec":
+        with torch.no_grad():
+            for stack in ("enc_layers", "dec_layers"):
+                for lp in params[stack]:
+                    for attn in (lp[b] for b in ("attn", "xattn") if b in lp):
+                        for name, fan_in in (("w_q", cfg.num_heads), ("w_k", cfg.num_kv_heads),
+                                             ("w_v", cfg.num_kv_heads)):
+                            attn[name].mul_((fan_in / cfg.d_model) ** 0.5)
     batch = make_batch(cfg, B, S, np.random.default_rng(0), device="cpu")
     return params, batch
 

@@ -19,9 +19,15 @@ one card; this script runs them, and what they are compared with, alone:
    ``dispatch_s``, the part of the wall the slabs can move;
 4. yi-9b tensor parallel over 2 cards and over every card (phase 17c's
    ``tensor_parallel``): the prefill logits against the unsharded
-   prefill's at ``chip_smoke.TP_LOGIT_TOL``, launches on every rank.
+   prefill's at ``chip_smoke.TP_LOGIT_TOL``, launches on every rank;
+5. the sharded train step on a 1 x 2 mesh and, with four cards or more, a
+   2 x 2 mesh (``chip_smoke.sharded_train_over_cards``): phase 17c's
+   mamba2-130m, yi-9b and seamless-m4t-medium (2 layers) in float32 with
+   q/k/v at a fan-in of d_model, two steps, held against the unsharded
+   steps on one card at phase 14's wide limits.
 
-``--parts`` picks some of them (``opt_in dense hier tp``; all by default).
+``--parts`` picks some of them (``opt_in dense hier tp train``; all by
+default).
 The card's name and power limit are printed first; the last line is one
 JSON object of every number, also written to ``--out``.  Exits 1 if a check
 failed, 2 with fewer than two cards.
@@ -42,7 +48,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 
-PARTS = ("opt_in", "dense", "hier", "tp")
+PARTS = ("opt_in", "dense", "hier", "tp", "train")
 
 
 def fields_equal(a, b) -> bool:
@@ -70,9 +76,10 @@ def main(argv=None) -> int:
 
     from repro_torch.kernels.build import build_libraries
 
+    # the train steps launch no kernel (they ask for the plain route)
     builds = build_libraries(["gus_assign", "hier_cells", "flash_attention",
                               "flash_attention_wgmma", "decode_attention", "ssd_scan",
-                              "ssd_scan_wgmma"])
+                              "ssd_scan_wgmma"]) if set(args.parts) - {"train"} else {}
     for info in builds.values():
         print(f"build {info.name}: nvcc {info.seconds:.3f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -105,6 +112,16 @@ def main(argv=None) -> int:
         counts, tp = cs.tensor_parallel(n)
         res["tensor_parallel"][n] = {"launches": counts, "worker": tp,
                                      "wall_s": time.perf_counter() - t0}
+
+    # -- 5. the sharded train steps over cards ---------------------------------
+    res["train"] = {}
+    for data, model in ((1, 2), (2, 2)) if "train" in args.parts else ():
+        if data * model > n_cards:
+            continue
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tr = cs.sharded_train_over_cards(data, model)
+        res["train"][f"{data}x{model}"] = {"result": tr, "wall_s": time.perf_counter() - t0}
 
     res["failed"] = failed
     out = Path(args.out)
