@@ -319,6 +319,34 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
+#: the model kernels' launch counters (``obs.counters``) at the last ``zero_counts()``
+COUNT_BASE: dict = {}
+
+
+def zero_model_counts():
+    """Count the model kernels' launches (:func:`model_launches`) from here on."""
+    from repro_torch.obs import counters
+
+    COUNT_BASE.clear()
+    COUNT_BASE.update(counters.snapshot())
+
+
+def model_launches(kernel, route=None):
+    """Launches of a model kernel (``flash_attention``, ``ssd`` or
+    ``decode_attention``) since the last ``zero_counts()``: on ``route``,
+    else on all its routes on the card."""
+    from repro_torch.obs import counters
+
+    return counters.launches(kernel, COUNT_BASE, route)
+
+
+def model_routes(kernel):
+    """route -> launches of a model kernel since the last ``zero_counts()``."""
+    from repro_torch.obs import counters
+
+    return counters.routes(kernel, COUNT_BASE)
+
+
 def randn(dev, shape, dtype, seed):
     """Standard normal draws on ``dev`` from ``seed``, made in f32 and cast
     to ``dtype`` (a torch dtype name)."""
@@ -590,7 +618,6 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
     )
     from repro_torch.kernels.gus import gus_assign
     from repro_torch.kernels.hier import hier_cells
-    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model, params_to
     from repro_torch.serving import ServingEngine
@@ -615,14 +642,14 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
             k = randn(dev, (B, S, KV, hd), dtype, 2).transpose(1, 2)
             v = randn(dev, (B, S, KV, hd), dtype, 3).transpose(1, 2)
             route = flash_route(q.dtype, hd)
-            before = flash_attention.route_launches[route]
+            before = model_launches("flash_attention", route)
             compare_attn(
                 attn_err, "flash_attention",
                 f"B={B} H={H} KV={KV} S={S} hd={hd} window={win} route={route}",
                 flash_attention(q, k, v, causal=True, window=win, backend="cuda"),
                 flash_attention_ref(q, k, v, causal=True, window=win), dtype,
             )
-            check(flash_attention.route_launches[route] == before + 1,
+            check(model_launches("flash_attention", route) == before + 1,
                   f"flash_attention did not launch its {route} route")
         for B, KV, rep, T, hd in ((2, 4, 1, 100, 64), (3, 2, 4, 257, 128), (2, 4, 8, 333, 128),
                                   (2, 4, 8, 1056, 128), (9, 32, 1, 300, 64)):
@@ -688,9 +715,9 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
     zero_counts()
     torch.cuda.synchronize()
     res = engine.generate(prompt_batch, max_new_tokens=gen)
-    n_flash, n_decode = flash_attention.launches, decode_attention.launches
-    routes = dict(flash_attention.route_launches)
-    check(gus_assign.launches == hier_cells.launches == ssd_scan.launches == 0,
+    n_flash, n_decode = model_launches("flash_attention"), model_launches("decode_attention")
+    routes = model_routes("flash_attention")
+    check(gus_assign.launches == hier_cells.launches == model_launches("ssd") == 0,
           "the serving main path launched a scheduler or SSD kernel")
     peak = torch.cuda.max_memory_allocated() - base
     W = serve_model.cache_window(prompt + gen)
@@ -812,8 +839,6 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
     import torch
 
     from repro_torch.configs import reduce_for_smoke
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gus import gus_assign
     from repro_torch.kernels.hier import hier_cells
     from repro_torch.kernels import ssd_scan as ssd_module
@@ -824,7 +849,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
     from repro_torch.training import make_batch
 
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    errs = dict.fromkeys(ssd_scan.route_launches, 0.0)  # by route
+    errs = dict.fromkeys(model_routes("ssd"), 0.0)  # by route
 
     def ssd_inputs(B, H, G, S, P, N, dtype, seed):
         """tests/test_kernels.py's distributions, made on the card."""
@@ -840,7 +865,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         """The kernel against the plain version (from ``h0`` where given);
         returns y's max abs error."""
         route = ssd_route(args[0].dtype, args[0].shape[3], args[3].shape[3], chunk)
-        before = ssd_scan.route_launches[route]
+        before = model_launches("ssd", route)
         got = ssd_scan(*args, chunk=chunk, return_final_state=final, initial_state=h0,
                        backend="cuda")
         want = ssd_scan_ref(*args, chunk, return_final_state=final, initial_state=h0)
@@ -859,7 +884,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         errs[route] = max(errs[route], err)
         print(f"compare ssd_scan {label} {dtype} route={route}: {msg}")
         check(ok, f"ssd_scan kernel != plain version on {label} {dtype}")
-        check(ssd_scan.route_launches[route] == before + 1,
+        check(model_launches("ssd", route) == before + 1,
               f"ssd_scan did not launch its {route} route")
         return err
 
@@ -926,10 +951,10 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
     # -- 9. the main paths: the hybrid and the ssm model at full width and
     #       depth, then the ssm model's teacher-forcing forward --------------
     def counts():
-        return {"ssd_scan": ssd_scan.launches, "ssd_routes": dict(ssd_scan.route_launches),
-                "flash_attention": flash_attention.launches,
-                "flash_routes": dict(flash_attention.route_launches),
-                "decode_attention": decode_attention.launches,
+        return {"ssd_scan": model_launches("ssd"), "ssd_routes": model_routes("ssd"),
+                "flash_attention": model_launches("flash_attention"),
+                "flash_routes": model_routes("flash_attention"),
+                "decode_attention": model_launches("decode_attention"),
                 "scheduler": gus_assign.launches + hier_cells.launches}
 
     served = {}
@@ -1034,7 +1059,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         return err, agree, float(want.abs().max())
 
     t0 = time.perf_counter()
-    ssd_scan.route_launches = dict.fromkeys(ssd_scan.route_launches, 0)
+    ssd0 = model_routes("ssd")
     err, agree, scale = decode_vs_forward(ssm_cfg, False)
     print(f"{ssm_cfg.arch_id} f32 full width and depth, prompt {acc_prompt} + {acc_steps} "
           f"decode steps: max |decode - forward| logits {err} (max |logit| {scale}), argmax "
@@ -1048,7 +1073,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
           f"agreement {agree:.4f}) with q/k/v at fan-in d_model; bound {SSM_DECODE_ATOL}; "
           f"{time.perf_counter() - t0:.3f} s")
     check(err < SSM_DECODE_ATOL, f"{hybrid_cfg.arch_id} f32 decode disagrees with the forward")
-    f32_routes = dict(ssd_scan.route_launches)
+    f32_routes = {r: n - ssd0[r] for r, n in model_routes("ssd").items()}
     print(f"f32 checks' ssd_scan launches by route: {json.dumps(f32_routes)}")
     check(f32_routes["simt"] > 0 and f32_routes["wgmma"] == 0,
           "the f32 checks must run the CUDA-core SSD route")
@@ -1363,15 +1388,12 @@ def policies_smoke(dev, zero_counts, paper, golden, fleet_spec, fleet_cfg, fleet
         simulate,
         simulate_fleet,
     )
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gus import gus_assign, gus_assign_ref
     from repro_torch.kernels.hier import hier_cells
-    from repro_torch.kernels.ssd_scan import ssd_scan
 
     def others_idle(what):
-        check(hier_cells.launches == flash_attention.launches == decode_attention.launches
-              == ssd_scan.launches == 0, f"{what} launched another kernel")
+        check(hier_cells.launches == model_launches("flash_attention") == model_launches("decode_attention")
+              == model_launches("ssd") == 0, f"{what} launched another kernel")
 
     # -- 5a. each GUS-cored policy's kernel path vs its plain version --------
     mism_total = 0
@@ -1647,11 +1669,8 @@ def resilience_smoke(dev, zero_counts, fleet_spec, fleet_cfg, n_rep_scale, windo
         IntermittentLink, SimConfig, demo_cluster_spec, get_policy, list_policies, simulate,
         simulate_fleet,
     )
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gus import gus_assign
     from repro_torch.kernels.hier import hier_cells
-    from repro_torch.kernels.ssd_scan import ssd_scan
 
     regimes, protected = resilience_regimes()
     gus_paths, hier_paths = {}, {}
@@ -1696,8 +1715,8 @@ def resilience_smoke(dev, zero_counts, fleet_spec, fleet_cfg, n_rep_scale, windo
                       f"simulate on the card != on the CPU ({pol}, {name}, {mech})")
     seq_wall = time.perf_counter() - t0 - cpu_s
     seq_launches = gus_assign.launches
-    check(hier_cells.launches == flash_attention.launches == decode_attention.launches
-          == ssd_scan.launches == 0, "the resilient sequential runs launched another kernel")
+    check(hier_cells.launches == model_launches("flash_attention") == model_launches("decode_attention")
+          == model_launches("ssd") == 0, "the resilient sequential runs launched another kernel")
     print(f"resilience sequential matrix: {n_runs} simulate runs ({len(regimes)} regimes x 2 "
           f"mechanisms x {len(list_policies())} policies) on the card in {seq_wall:.3f} s (the "
           f"CPU's {cpu_s:.3f} s aside), equal to the CPU; gus_assign launches={seq_launches} "
@@ -1803,8 +1822,8 @@ def resilience_smoke(dev, zero_counts, fleet_spec, fleet_cfg, n_rep_scale, windo
     fh = city_fleet(N_REP_CITY_RES, dev, mega)
     wall = time.perf_counter() - t0
     n = hier_cells.launches
-    check(gus_assign.launches == flash_attention.launches == decode_attention.launches
-          == ssd_scan.launches == 0, "the resilient hierarchical main path launched another kernel")
+    check(gus_assign.launches == model_launches("flash_attention") == model_launches("decode_attention")
+          == model_launches("ssd") == 0, "the resilient hierarchical main path launched another kernel")
     wall_line(f"resilient hier main path mega-city n_rep={fh.n_rep} frames={fh.n_frames} "
               f"window={fh.window} prefetch={fh.prefetch}", fh, wall, n, "hier_cells")
     print("resilient hier main path timings "
@@ -2133,7 +2152,6 @@ def training_smoke(dev, zero_counts, smi):
     import repro_torch.training as T
     from repro_torch.configs import ModelConfig, get_config, reduce_for_smoke
     from repro_torch.core import simulate
-    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gus import gus_assign
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -2163,9 +2181,9 @@ def training_smoke(dev, zero_counts, smi):
         f"included), peak memory {peak / 1e9:.3f} GB above {base / 1e9:.3f} GB held "
         f"({smi}); losses {losses}"
     )
-    train_launches = {"flash_attention": flash_attention.launches,
-                      "decode_attention": decode_attention.launches,
-                      "ssd_scan": ssd_scan.launches}
+    train_launches = {"flash_attention": model_launches("flash_attention"),
+                      "decode_attention": model_launches("decode_attention"),
+                      "ssd_scan": model_launches("ssd")}
     check(all(math.isfinite(x) for x in losses), "a training loss is not finite")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> {losses[-1]}")
     check(not any(train_launches.values()),
@@ -2232,11 +2250,11 @@ def training_smoke(dev, zero_counts, smi):
     A = -torch.rand(4, device=dev)
     Bm, Cm = randn(dev, (2, 1, 128, 64), "bfloat16", 5), randn(dev, (2, 1, 128, 64), "bfloat16", 6)
     calls = {
-        "flash_attention": (flash_attention, lambda: flash_attention(q, k, k, backend="cuda")),
-        "ssd_scan": (ssd_scan, lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=128, backend="cuda")),
+        "flash_attention": ("flash_attention", lambda: flash_attention(q, k, k, backend="cuda")),
+        "ssd_scan": ("ssd", lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=128, backend="cuda")),
     }
     for name, (kernel, call) in calls.items():
-        n0 = kernel.launches
+        n0 = model_launches(kernel)
         refused = False
         try:
             call()
@@ -2246,8 +2264,8 @@ def training_smoke(dev, zero_counts, smi):
             call()
         sync(dev)
         print(f"guard {name}: inputs that require grad refused: {refused}; under no_grad "
-              f"{kernel.launches - n0} launch")
-        check(refused and kernel.launches - n0 == 1, f"{name}'s no-backward guard failed")
+              f"{model_launches(kernel) - n0} launch")
+        check(refused and model_launches(kernel) - n0 == 1, f"{name}'s no-backward guard failed")
 
     # both attention kernels at the loop's launch shapes, before it runs
     zoo_err = {"flash_attention": 0.0, "decode_attention": 0.0}
@@ -2259,9 +2277,9 @@ def training_smoke(dev, zero_counts, smi):
     res = serve_edge.main(SERVE_EDGE_STEPS, device=dev)
     sync(dev)
     loop_wall = time.perf_counter() - t0
-    loop = {"flash_attention": flash_attention.launches,
-            "decode_attention": decode_attention.launches,
-            "gus_assign": gus_assign.launches, "ssd_scan": ssd_scan.launches}
+    loop = {"flash_attention": model_launches("flash_attention"),
+            "decode_attention": model_launches("decode_attention"),
+            "gus_assign": gus_assign.launches, "ssd_scan": model_launches("ssd")}
     for v in res["variants"]:
         print(f"serve_edge {v['arch']}: loss {v['loss0']:.4f} -> {v['loss1']:.4f} in "
               f"{v['train_s']:.3f} s, accuracy {v['acc']:.2f}%, generate total "
@@ -2345,11 +2363,9 @@ def families_smoke(dev, zero_counts):
     import torch
 
     from repro_torch.configs import ModelConfig, get_config, reduce_for_smoke
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention, flash_route
+    from repro_torch.kernels.flash_attention import flash_route
     from repro_torch.kernels.gus import gus_assign
     from repro_torch.kernels.hier import hier_cells
-    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models import Model, params_to
     from repro_torch.models.layers import init_tree
     from repro_torch.models.moe import apply_moe, dispatch, moe_decl, route
@@ -2523,9 +2539,9 @@ def families_smoke(dev, zero_counts):
         zero_counts()
         sync(dev)
         res = engine.generate(batch, max_new_tokens=gen)
-        n_flash, n_decode = flash_attention.launches, decode_attention.launches
-        route = dict(flash_attention.route_launches)
-        check(gus_assign.launches == hier_cells.launches == ssd_scan.launches == 0,
+        n_flash, n_decode = model_launches("flash_attention"), model_launches("decode_attention")
+        route = model_routes("flash_attention")
+        check(gus_assign.launches == hier_cells.launches == model_launches("ssd") == 0,
               f"{arch}: serving launched a scheduler or SSD kernel")
         peak = torch.cuda.max_memory_allocated() - base
         want_route = flash_route(getattr(torch, cfg.dtype), cfg.head_dim)
@@ -2669,7 +2685,6 @@ def continuous_smoke(dev, zero_counts, smi):
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.gus import gus_assign
     from repro_torch.kernels.hier import hier_cells
-    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models import DecodeCache, Model
     from repro_torch.models.quant import dequantize_kv, quantize_kv
     from repro_torch.serving import ContinuousBatcher, Request, ServingEngine
@@ -2763,11 +2778,11 @@ def continuous_smoke(dev, zero_counts, smi):
             q = randn(dev, (1, S, H, hd), dt, 164).transpose(1, 2)
             k = randn(dev, (1, S, KV, hd), dt, 165).transpose(1, 2)
             v = randn(dev, (1, S, KV, hd), dt, 166).transpose(1, 2)
-            before = flash_attention.route_launches["wgmma"]
+            before = model_launches("flash_attention", "wgmma")
             compare_attn(errs, "flash_attention", f"B=1 H={H} KV={KV} S={S} hd={hd} (admit)",
                          flash_attention(q, k, v, backend="cuda"), flash_attention_ref(q, k, v),
                          dt)
-            check(flash_attention.route_launches["wgmma"] == before + 1,
+            check(model_launches("flash_attention", "wgmma") == before + 1,
                   f"flash at B=1 S={S} did not take the tensor-core route")
         # timed at the batcher's shapes: decode over the 8-slot dequantized
         # ring (validity as above), flash at B=1 over the longest prompt
@@ -2841,9 +2856,9 @@ def continuous_smoke(dev, zero_counts, smi):
         t1 = time.perf_counter()
         out = cb.run(requests())
         wall = time.perf_counter() - t1
-        n_flash, n_decode = flash_attention.launches, decode_attention.launches
-        routes = dict(flash_attention.route_launches)
-        check(gus_assign.launches == hier_cells.launches == ssd_scan.launches == 0,
+        n_flash, n_decode = model_launches("flash_attention"), model_launches("decode_attention")
+        routes = model_routes("flash_attention")
+        check(gus_assign.launches == hier_cells.launches == model_launches("ssd") == 0,
               "the batcher's main path launched a scheduler or SSD kernel")
         peak = torch.cuda.max_memory_allocated() - base
         n_admit, n_step = len(admit_s), len(step_s)
@@ -2937,8 +2952,8 @@ def continuous_smoke(dev, zero_counts, smi):
         mcb = ContinuousBatcher(mmodel, mparams, n_slots=CB_SLOTS, max_len=1024, device=dev)
         zero_counts()
         mout = mcb.run([Request(i, p, int(g)) for i, (p, g) in enumerate(zip(mprompts, mgen))])
-        n_ssd, ssd_routes = ssd_scan.launches, dict(ssd_scan.route_launches)
-        check(flash_attention.launches == decode_attention.launches == 0,
+        n_ssd, ssd_routes = model_launches("ssd"), model_routes("ssd")
+        check(model_launches("flash_attention") == model_launches("decode_attention") == 0,
               "mamba2-130m's batcher launched an attention kernel")
         check(n_ssd == mcfg.num_layers * len(mprompts) and ssd_routes["wgmma"] == n_ssd,
               f"ssd_scan must launch on the tensor-core route once a layer an admit, got "
@@ -2996,7 +3011,7 @@ def continuous_smoke(dev, zero_counts, smi):
             logits, _ = m.prefill(sparams, sb, cache)
             sync(dev)
             res[label] = (logits, 1e3 * (time.perf_counter() - t1),
-                          torch.cuda.max_memory_allocated() - base, flash_attention.launches)
+                          torch.cuda.max_memory_allocated() - base, model_launches("flash_attention"))
         (lu, mu, pu, fu), (lc, mc, pc, fc) = res["unchunked"], res["chunked"]
         c_err = float((lc - lu).abs().max())
         print(f"phase 16d {CHUNK_ARCH} (full width, {scfg.num_enc_layers} encoder layers over "
@@ -3023,7 +3038,7 @@ def continuous_smoke(dev, zero_counts, smi):
         zero_counts()
         loss, _ = make_loss_fn(Model(c))(tree_unflatten(tparams, leaves), tb)
         grads[label] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
-        check(flash_attention.launches == 0, f"the {label} train step launched flash")
+        check(model_launches("flash_attention") == 0, f"the {label} train step launched flash")
     (lu, gu), (lc, gc) = grads["unchunked"], grads["chunked"]
     g_err = max(float((a - b).abs().max()) for a, b in zip(gu, gc))
     print(f"phase 16d train step (the dense config of tests/test_training.py, f32, plain "
@@ -3222,15 +3237,12 @@ def local_shard_kernels(dev):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan
 
     cfg, scfg = get_config(SERVE_ARCH), get_config(SSM_ARCH)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     B, S, T = SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT + SHARD_GEN
     errs = {"flash_attention": 0.0, "decode_attention": 0.0, "ssd_scan": 0.0}
-    n0 = (flash_attention.launches, decode_attention.launches, ssd_scan.launches)
+    n0 = (model_launches("flash_attention"), model_launches("decode_attention"), model_launches("ssd"))
 
     def hold(name, got, want, tol, what):
         err = float((got.float() - want.float()).abs().max())
@@ -3285,8 +3297,8 @@ def local_shard_kernels(dev):
                 hold("ssd_scan", gf, fin[:, h0:h1], SSD_TOL["bfloat16"],
                      f"final state, model axis {n} rank {r}")
     sync(dev)
-    n = [flash_attention.launches - n0[0], decode_attention.launches - n0[1],
-         ssd_scan.launches - n0[2]]
+    n = [model_launches("flash_attention") - n0[0], model_launches("decode_attention") - n0[1],
+         model_launches("ssd") - n0[2]]
     want = [sum(LOCAL_SHARD_AXES["attention"])] * 2 + [sum(LOCAL_SHARD_AXES["ssd"])]
     check(n == want, f"17c local shards: launches {n}, expected {want}")
     print(f"phase 17c kernels on local shards (yi-9b heads over model axes "
@@ -3317,8 +3329,6 @@ def sharded_serve(model, mesh, params, prompt_batch, gen, wrap):
     decode launches, and the wall."""
     import torch
 
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import steps as st
     from repro_torch.launch.specs import ShapeSpec
 
@@ -3329,7 +3339,7 @@ def sharded_serve(model, mesh, params, prompt_batch, gen, wrap):
     b = wrap(prompt_batch, st.batch_shardings(model.cfg, prompt_batch, mesh, st.SERVE_RULES))
     cache = model.init_cache(B, S + gen, device=prompt_batch["tokens"].device)
     cache = wrap(cache, st.cache_shardings(model, cache, mesh, st.SERVE_RULES))
-    n0 = (flash_attention.launches, decode_attention.launches)
+    n0 = (model_launches("flash_attention"), model_launches("decode_attention"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -3341,7 +3351,7 @@ def sharded_serve(model, mesh, params, prompt_batch, gen, wrap):
         out = torch.cat([t.full_tensor() for t in toks], 1).cpu().numpy()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return out, flash_attention.launches - n0[0], decode_attention.launches - n0[1], wall
+    return out, model_launches("flash_attention") - n0[0], model_launches("decode_attention") - n0[1], wall
 
 
 def _from_local(mesh):
@@ -3370,11 +3380,8 @@ def sharded_steps(dev, zero_counts, serve_tokens):
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gus import gus_assign
     from repro_torch.kernels.hier import hier_cells
-    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import steps as st
     from repro_torch.launch.specs import ShapeSpec
     from repro_torch.models import Model
@@ -3394,13 +3401,14 @@ def sharded_steps(dev, zero_counts, serve_tokens):
             zero_counts()
             toks, n_flash, n_decode, wall = sharded_serve(model, mesh, params, prompt,
                                                           SHARD_GEN, wrap)
-            check(gus_assign.launches == hier_cells.launches == ssd_scan.launches == 0,
+            check(gus_assign.launches == hier_cells.launches == model_launches("ssd") == 0,
                   "the sharded serve steps launched another kernel")
             label = f"phase 17c {SERVE_ARCH} sharded steps (1x1 mesh, {SERVE_BATCH} x " \
                     f"{SERVE_PROMPT} + {SHARD_GEN - 1} steps)"
             equal = np.array_equal(toks, serve_tokens)
+            by_route = json.dumps(model_routes("flash_attention"))
             print(f"{label}: wall {wall:.3f} s, flash launches={n_flash} (by route "
-                  f"{json.dumps(flash_attention.route_launches)}), decode launches={n_decode}, "
+                  f"{by_route}), decode launches={n_decode}, "
                   f"greedy tokens equal to phase 7's: {equal}")
             check(equal, "the sharded steps' greedy tokens != phase 7's unsharded generation")
             check(n_flash == cfg.num_layers and n_decode == (SHARD_GEN - 1) * cfg.num_layers,
@@ -3424,7 +3432,7 @@ def sharded_steps(dev, zero_counts, serve_tokens):
             zero_counts()
             with torch.no_grad():
                 tok = prefill(p, b, c)[0].full_tensor()
-                n_ssd, routes = ssd_scan.launches, dict(ssd_scan.route_launches)
+                n_ssd, routes = model_launches("ssd"), model_routes("ssd")
                 want = make_prefill_step(smodel)(
                     sparams, sprompt, smodel.init_cache(SERVE_BATCH, SSM_PROMPT + 1, device=dev))[0]
             label = f"phase 17c {SSM_ARCH} sharded prefill (1x1 mesh, {SERVE_BATCH} x {SSM_PROMPT})"
@@ -3575,9 +3583,6 @@ def sharded_train(dev, mesh, arch, layers, batch_size, zero_counts):
     the plain route).  Returns the label."""
     import torch
 
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.training.optimizer import tree_leaves
 
     cfg = train_config(arch, layers)
@@ -3585,7 +3590,7 @@ def sharded_train(dev, mesh, arch, layers, batch_size, zero_counts):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     got = train_steps(model, params, batch, mesh)
-    n = (flash_attention.launches, decode_attention.launches, ssd_scan.launches)
+    n = (model_launches("flash_attention"), model_launches("decode_attention"), model_launches("ssd"))
     want = train_steps(model, params, batch)
     peak = torch.cuda.max_memory_allocated() / 1e9
     diffs, equal = {}, got[1] == want[1]
@@ -3875,11 +3880,8 @@ def main() -> int:
     from repro_torch.core.simulator import _build_hier_window, _hier_device_inputs, _RepFrameSource
     from repro_torch.configs import get_config
     from repro_torch.kernels.build import build_libraries
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gus import gus_assign, gus_assign_ref
     from repro_torch.kernels.hier import hier_cells, hier_cells_ref
-    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.obs.trace import Stopwatch
 
     dev = torch.device("cuda")
@@ -3890,9 +3892,7 @@ def main() -> int:
 
     def zero_counts():
         gus_assign.launches = hier_cells.launches = 0
-        flash_attention.launches = decode_attention.launches = ssd_scan.launches = 0
-        flash_attention.route_launches = dict.fromkeys(flash_attention.route_launches, 0)
-        ssd_scan.route_launches = dict.fromkeys(ssd_scan.route_launches, 0)
+        zero_model_counts()
     t_start = time.perf_counter()
 
     # -- 1. build ------------------------------------------------------------
@@ -4079,8 +4079,8 @@ def main() -> int:
     fr = fleet(n_rep_scale, "cuda", window=window)
     wall = time.perf_counter() - t0
     launches = gus_assign.launches
-    check(hier_cells.launches == flash_attention.launches == decode_attention.launches
-          == ssd_scan.launches == 0, "the dense main path launched another kernel")
+    check(hier_cells.launches == model_launches("flash_attention") == model_launches("decode_attention")
+          == model_launches("ssd") == 0, "the dense main path launched another kernel")
     print(
         f"fleet scale n_rep={fr.n_rep} frames={fr.n_frames} window={fr.window} "
         f"prefetch={fr.prefetch}: wall {wall:.3f} s dispatch_s {fr.dispatch_s:.3f} "
@@ -4264,8 +4264,8 @@ def main() -> int:
     fh = city_fleet(N_REP_CITY, "cuda")
     hier_wall = time.perf_counter() - t0
     hier_launches = hier_cells.launches
-    check(gus_assign.launches == flash_attention.launches == decode_attention.launches
-          == ssd_scan.launches == 0, "the hierarchical main path launched another kernel")
+    check(gus_assign.launches == model_launches("flash_attention") == model_launches("decode_attention")
+          == model_launches("ssd") == 0, "the hierarchical main path launched another kernel")
     print(
         f"hier main path mega-city n_rep={fh.n_rep} frames={fh.n_frames} window={fh.window} "
         f"prefetch={fh.prefetch}: wall {hier_wall:.3f} s dispatch_s {fh.dispatch_s:.3f} "

@@ -15,7 +15,8 @@ module of the port, and this machine need not have ``nvcc``.
 
 A build and a library's first load each drop an instant event
 ``compile/<name>`` (category ``compile``) on an active trace recorder, so a
-rebuild in a sweep shows in the trace.
+rebuild in a sweep shows in the trace; each build also counts one
+``kernel.builds`` (``obs.counters``).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+from repro_torch.obs import counters
 from repro_torch.obs.trace import CAT_COMPILE, instant
 
 __all__ = ["NVCC_FLAGS", "ATTN_NVCC_FLAGS", "BuildInfo", "build_libraries", "load_library"]
@@ -156,6 +158,7 @@ def build_libraries(names: Iterable[str]) -> Dict[str, BuildInfo]:
         log_path.write_text(log)
         out[name] = BuildInfo(name, target, seconds, log)
         instant(f"compile/{name}", CAT_COMPILE, built=True, nvcc_s=seconds)
+        counters.add("kernel.builds")
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return out

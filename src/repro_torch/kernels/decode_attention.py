@@ -6,8 +6,9 @@ kernel (split-K flash-decoding) and its plain PyTorch version.
 it launches the hand-written kernel in ``csrc/decode_attention.cu`` (built
 with ``nvcc`` at first use, bound with ``ctypes``) or raises; on CPU
 tensors it runs :func:`decode_attention_ref`.  There is no fallback from
-the kernel to the plain version.  ``decode_attention.launches`` counts the
-kernel launches.
+the kernel to the plain version.  Each launch counts one
+``kernel.launches.decode_attention.cuda``, and each call that runs the
+plain version one ``...plain`` (``obs.counters``).
 
 The kernel cuts the cache axis T into the spans of :func:`decode_splits`,
 one block per (span, KV group, sequence), and combines the spans' f32
@@ -39,11 +40,14 @@ from typing import Optional
 
 import torch
 
+from ..obs import counters
 from .build import load_library
 from .common import DTYPES, check_no_grad, check_tensor, resolve_model_backend
 from .flash_attention import check_head_dim, masked_softmax_pv, vector_loads
 
 __all__ = ["MAX_REP", "decode_attention", "decode_attention_ref", "decode_splits"]
+
+_LAUNCHED = counters.launch_names("decode_attention")  # route -> launch counter
 
 #: query heads per KV group the kernel takes, and rep * hd at most this
 MAX_REP = 32
@@ -117,7 +121,7 @@ def decode_attention(
     written into ``out`` when given.
 
     ``backend`` as for ``flash_attention``: CPU tensors always take the
-    plain version and count no launch; CUDA tensors on ``"cuda"`` launch the
+    plain version (a ``plain`` call, no launch); CUDA tensors on ``"cuda"`` launch the
     kernel or raise, and refuse inputs that require a gradient while grad
     mode is on (``common.check_no_grad``).
     """
@@ -125,6 +129,7 @@ def decode_attention(
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_attention runs on CUDA or CPU tensors, not {dev.type}")
     if dev.type == "cpu" or resolve_model_backend(backend, dev) == "torch":
+        counters.add(_LAUNCHED["plain"])
         res = decode_attention_ref(q, k, v, valid)
         return res if out is None else out.copy_(res)
     check_no_grad("decode_attention", q, k, v)
@@ -153,25 +158,21 @@ def decode_attention(
     )
     with torch.cuda.device(dev):
         n_split, span = decode_splits(B, KV, T, _sm_count(dev))
-        part = counters = None
+        part = arrivals = None
         if n_split > 1:
             part = torch.empty(B * KV * n_split * rep * (hd + 2), dtype=torch.float32,
                                device=dev)
-            counters = _counters(dev, B * KV)
+            arrivals = _counters(dev, B * KV)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.view(torch.uint8).data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(),
-            None if counters is None else counters.data_ptr(), DTYPES[q.dtype], B, KV, rep,
+            None if arrivals is None else arrivals.data_ptr(), DTYPES[q.dtype], B, KV, rep,
             T, hd, span, n_split, strides, 1.0 / math.sqrt(hd),
             int(vector_loads((q, k, v), hd)), stream,
         )
     if err != 0:
         msg = lib.decode_attention_error_string(err).decode()
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err} ({msg})")
-    decode_attention.launches += 1
+    counters.add(_LAUNCHED["cuda"])
     return out
-
-
-#: kernel launches since the count was last set to 0
-decode_attention.launches = 0

@@ -16,8 +16,8 @@ launch by :func:`flash_route`, from the dtype and the head dim alone:
 * ``"simt"``: ``csrc/flash_attention.cu``, f32 and every other head dim
   (a multiple of 4 up to 256), f32 products on the CUDA cores.
 
-``flash_attention.launches`` counts every launch and
-``flash_attention.route_launches`` the launches of each route.
+Each launch counts one ``kernel.launches.flash_attention.<route>``, and
+each call that runs the plain version one ``...plain`` (``obs.counters``).
 
 Kernel layout: q ``(B, H, S, hd)``, k/v ``(B, KV, T, hd)``, out
 ``(B, H, S, hd)`` in q's dtype.  Both kernels read every tensor through its
@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from ..obs import counters
 from .build import load_library
 from .common import DTYPES, check_no_grad, check_tensor, resolve_model_backend, tma_strides
 
@@ -56,6 +57,8 @@ __all__ = [
     "flash_attention_ref",
     "flash_route",
 ]
+
+_LAUNCHED = counters.launch_names("flash_attention")  # route -> launch counter
 
 NEG_INF = -1e30
 #: largest head dimension the kernels take (and hd % 4 == 0)
@@ -163,8 +166,8 @@ def flash_attention(
 
     ``backend``: ``"torch"`` is the plain version on the tensors' device,
     ``"cuda"`` the kernel; ``None`` defers to ``REPRO_TORCH_MODEL_BACKEND``,
-    else follows the device.  CPU tensors always take the plain version and
-    count no launch; CUDA tensors on ``"cuda"`` launch the kernel or raise,
+    else follows the device.  CPU tensors always take the plain version (a
+    ``plain`` call, no launch); CUDA tensors on ``"cuda"`` launch the kernel or raise,
     and refuse inputs that require a gradient while grad mode is on (the
     kernel has no backward: ``common.check_no_grad``).
     """
@@ -172,6 +175,7 @@ def flash_attention(
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {dev.type}")
     if dev.type == "cpu" or resolve_model_backend(backend, dev) == "torch":
+        counters.add(_LAUNCHED["plain"])
         res = flash_attention_ref(q, k, v, causal=causal, window=window)
         return res if out is None else out.copy_(res)
     check_no_grad("flash_attention", q, k, v)
@@ -220,11 +224,5 @@ def flash_attention(
         msg = errstr(err).decode()
         raise RuntimeError(
             f"flash_attention ({route}) kernel launch failed: CUDA error {err} ({msg})")
-    flash_attention.launches += 1
-    flash_attention.route_launches[route] += 1
+    counters.add(_LAUNCHED[route])
     return out
-
-
-#: kernel launches since the count was last set to 0, in all and by route
-flash_attention.launches = 0
-flash_attention.route_launches = {"wgmma": 0, "simt": 0}

@@ -17,8 +17,8 @@ and the shape alone:
 * ``"simt"``: ``csrc/ssd_scan.cu``, f32 and every other shape, f32
   products on the CUDA cores.
 
-``ssd_scan.launches`` counts every launch and ``ssd_scan.route_launches``
-the launches of each route.
+Each launch counts one ``kernel.launches.ssd.<route>``, and each call
+that runs the plain version one ``...plain`` (``obs.counters``).
 
 Kernel layout: x ``(B, H, S, P)``, dt ``(B, H, S)``, A ``(H,)`` f32,
 Bm/Cm ``(B, G, S, N)`` with query head h reading SSM group
@@ -51,6 +51,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..obs import counters
 from .build import load_library
 from .common import DTYPES, check_no_grad, check_tensor, resolve_model_backend, tma_strides
 
@@ -64,6 +65,8 @@ __all__ = [
     "ssd_scan_ref",
     "check_ssd_inputs",
 ]
+
+_LAUNCHED = counters.launch_names("ssd")  # route -> launch counter
 
 #: the kernel's limits: chunk Q <= 128 and state N <= 128 (both multiples
 #: of 4), head dim P <= 64
@@ -269,8 +272,8 @@ def ssd_scan(
     ``backend`` as for the attention kernels: ``"torch"`` is the plain
     version on the tensors' device, ``"cuda"`` the kernel; ``None`` defers
     to ``REPRO_TORCH_MODEL_BACKEND`` (the model kernels' switch), else
-    follows the device.  CPU tensors always take the plain version and
-    count no launch; CUDA tensors on ``"cuda"`` launch the kernel of
+    follows the device.  CPU tensors always take the plain version (a
+    ``plain`` call, no launch); CUDA tensors on ``"cuda"`` launch the kernel of
     :func:`ssd_route` or raise, and refuse inputs that require a gradient
     while grad mode is on (``common.check_no_grad``).
     """
@@ -278,6 +281,7 @@ def ssd_scan(
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {dev.type}")
     if dev.type == "cpu" or resolve_model_backend(backend, dev) == "torch":
+        counters.add(_LAUNCHED["plain"])
         res = ssd_scan_ref(x, dt, A, Bm, Cm, chunk, return_final_state, initial_state)
         if out is None:
             return res
@@ -330,11 +334,5 @@ def ssd_scan(
     if err != 0:
         msg = errstr(err).decode()
         raise RuntimeError(f"ssd_scan ({route}) kernel launch failed: CUDA error {err} ({msg})")
-    ssd_scan.launches += 1
-    ssd_scan.route_launches[route] += 1
+    counters.add(_LAUNCHED[route])
     return (out, state) if return_final_state else out
-
-
-#: kernel launches since the count was last set to 0, in all and by route
-ssd_scan.launches = 0
-ssd_scan.route_launches = {"wgmma": 0, "simt": 0}

@@ -50,9 +50,8 @@ import torch
 from ..configs.paper_zoo import GOOGLE_LM, MID_LM, SQUEEZE_LM
 from ..core import ClusterSpec, SimConfig, gus_schedule_np, local_all, offload_all, simulate
 from ..core.instance import resolve_device
-from ..kernels.decode_attention import decode_attention
-from ..kernels.flash_attention import flash_attention
 from ..models import Model
+from ..obs import counters
 from ..serving import ServingEngine
 from ..training import AdamWConfig, SyntheticLM, init_state, make_batch, make_train_step
 
@@ -164,7 +163,7 @@ def main(steps=200, device=None):
         eval_batch = make_batch(model.cfg, EVAL_BATCH, EVAL_SEQ, rng, SOURCE, device=dev)
         gen_batch = make_batch(model.cfg, 1, GEN_PROMPT, rng, SOURCE, device=dev)
         eng.generate(gen_batch, max_new_tokens=GEN_TOKENS)  # untimed: builds and warms
-        flash0, dec0 = flash_attention.launches, decode_attention.launches
+        counts0 = counters.snapshot()
         a = eng.eval_next_token_accuracy(eval_batch) * 100
         r = eng.generate(gen_batch, max_new_tokens=GEN_TOKENS)
         acc.append(a)
@@ -173,8 +172,8 @@ def main(steps=200, device=None):
             arch=cfg.arch_id, loss0=l0, loss1=l1, acc=a, train_s=train_s,
             total_ms=r.total_ms, prefill_ms=r.prefill_ms,
             decode_ms_per_token=r.decode_ms_per_token,
-            flash_launches=flash_attention.launches - flash0,
-            decode_launches=decode_attention.launches - dec0,
+            flash_launches=counters.launches("flash_attention", counts0),
+            decode_launches=counters.launches("decode_attention", counts0),
         ))
         print(
             f"{cfg.arch_id:11s} trained {steps} steps ({train_s:.0f}s): "

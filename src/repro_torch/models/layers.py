@@ -27,6 +27,14 @@ Decode takes ``cache_index`` as an ``int`` (every row at the same
 position: ``ServingEngine``) or as a ``(B,)`` integer tensor on the
 device (each row its own position: ``ContinuousBatcher``), with no host
 sync on the second path.
+
+Under a recording ``torch.profiler`` profile the passes are spans
+(``obs.profiler.annotate``): ``norm`` (each norm; its parent span tells
+which), ``mlp``, and attention's ``attn/qkv`` (the projections and their
+biases), ``attn/rope``, ``attn/core`` (the attention kernel or its plain
+form; in decode with the ring's validity and, for an int8 cache, its
+dequantization), ``attn/out`` (the output projection), and in decode
+``cache/write`` (the new token's k and v into the ring).
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from ..kernels.common import resolve_model_backend
+from ..obs.profiler import annotate
 from ..sharding import current_ctx, placements_for, shard
 from .quant import dequantize_kv, quantize_kv
 
@@ -136,16 +145,17 @@ def norm_decl(cfg: ModelConfig, dim: Optional[int] = None) -> Dict[str, ParamDec
 def apply_norm(p, x, cfg: ModelConfig):
     """RMSNorm or LayerNorm (population variance), computed in f32 and cast
     back to x's dtype."""
-    x32 = x.float()
-    if cfg.norm == "rmsnorm":
-        var = x32.square().mean(-1, keepdim=True)
-        y = x32 * torch.rsqrt(var + cfg.norm_eps) * p["scale"].float()
-    else:
-        mu = x32.mean(-1, keepdim=True)
-        var = x32.var(-1, keepdim=True, unbiased=False)
-        y = (x32 - mu) * torch.rsqrt(var + cfg.norm_eps)
-        y = y * p["scale"].float() + p["bias"].float()
-    return y.to(x.dtype)
+    with annotate("norm"):
+        x32 = x.float()
+        if cfg.norm == "rmsnorm":
+            var = x32.square().mean(-1, keepdim=True)
+            y = x32 * torch.rsqrt(var + cfg.norm_eps) * p["scale"].float()
+        else:
+            mu = x32.mean(-1, keepdim=True)
+            var = x32.var(-1, keepdim=True, unbiased=False)
+            y = (x32 - mu) * torch.rsqrt(var + cfg.norm_eps)
+            y = y * p["scale"].float() + p["bias"].float()
+        return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -201,21 +211,22 @@ def _act(cfg: ModelConfig, x):
 
 
 def apply_mlp(p, x, cfg: ModelConfig):
-    u = x @ p["w_up"]
-    if cfg.mlp_bias:
-        u = u + p["b_up"]
-    if cfg.gated_mlp:
-        g = x @ p["w_gate"]
+    with annotate("mlp"):
+        u = x @ p["w_up"]
         if cfg.mlp_bias:
-            g = g + p["b_gate"]
-        h = _act(cfg, g) * u
-    else:
-        h = _act(cfg, u)
-    h = shard(h, "batch", None, "ff")
-    y = h @ p["w_down"]
-    if cfg.mlp_bias:
-        y = y + p["b_down"]
-    return y
+            u = u + p["b_up"]
+        if cfg.gated_mlp:
+            g = x @ p["w_gate"]
+            if cfg.mlp_bias:
+                g = g + p["b_gate"]
+            h = _act(cfg, g) * u
+        else:
+            h = _act(cfg, u)
+        h = shard(h, "batch", None, "ff")
+        y = h @ p["w_down"]
+        if cfg.mlp_bias:
+            y = y + p["b_down"]
+        return y
 
 
 # ---------------------------------------------------------------------------
@@ -409,12 +420,14 @@ def apply_attention(
       the same dict is returned.
     """
     window = window if window is not None else cfg.sliding_window
-    q, k, v = _project_qkv(p, x, cfg, kv_input)
+    with annotate("attn/qkv"):
+        q, k, v = _project_qkv(p, x, cfg, kv_input)
     if mode != "cross":
         # `positions` carries absolute positions for both q and the new k
         # (decode passes the current position for the single new token)
-        q = rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
-        k = rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+        with annotate("attn/rope"):
+            q = rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+            k = rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
 
     q = shard(q, "batch", None, "heads", None)
     k = shard(k, "batch", None, "kv_heads", None)
@@ -422,41 +435,49 @@ def apply_attention(
 
     if cache is not None and mode != "cross":
         B, W = x.shape[0], cache["k"].shape[1]
-        if isinstance(cache_index, torch.Tensor):  # one position a row
-            at = (torch.arange(B, device=x.device), cache_index % W)
-        else:
-            at = (slice(None), cache_index % W)
-        if "k_scale" in cache:  # int8 cache: quantize, write, dequantize the ring
-            for name, t in (("k", k), ("v", v)):
-                tq, ts = quantize_kv(t[:, 0])
-                cache[name][at] = tq
-                cache[name + "_scale"][at] = ts
-            ck = dequantize_kv(cache["k"], cache["k_scale"], k.dtype)
-            cv = dequantize_kv(cache["v"], cache["v_scale"], v.dtype)
-        else:
-            ck, cv = cache["k"], cache["v"]
-            ck[at] = k[:, 0].to(ck.dtype)
-            cv[at] = v[:, 0].to(cv.dtype)
-        valid = ring_valid(cache_index, W, window, ck.device).expand(B, W)
-        y = kops.decode_attention(q[:, 0], ck, cv, valid)[:, None]
+        with annotate("cache/write"):
+            if isinstance(cache_index, torch.Tensor):  # one position a row
+                at = (torch.arange(B, device=x.device), cache_index % W)
+            else:
+                at = (slice(None), cache_index % W)
+            if "k_scale" in cache:  # int8 cache: quantize and write; the ring is read below
+                for name, t in (("k", k), ("v", v)):
+                    tq, ts = quantize_kv(t[:, 0])
+                    cache[name][at] = tq
+                    cache[name + "_scale"][at] = ts
+            else:
+                cache["k"][at] = k[:, 0].to(cache["k"].dtype)
+                cache["v"][at] = v[:, 0].to(cache["v"].dtype)
+        with annotate("attn/core"):
+            if "k_scale" in cache:
+                ck = dequantize_kv(cache["k"], cache["k_scale"], k.dtype)
+                cv = dequantize_kv(cache["v"], cache["v_scale"], v.dtype)
+            else:
+                ck, cv = cache["k"], cache["v"]
+            valid = ring_valid(cache_index, W, window, ck.device).expand(B, W)
+            y = kops.decode_attention(q[:, 0], ck, cv, valid)[:, None]
         new_cache = cache
     elif mode == "cross":
         if cache is not None:  # pre-projected encoder memory
             k, v = cache["k"], cache["v"]
         new_cache = {"k": k, "v": v}
-        y = _sdpa(q, k, v, torch.ones((x.shape[1], k.shape[1]), dtype=torch.bool, device=x.device))
+        with annotate("attn/core"):
+            y = _sdpa(q, k, v, torch.ones((x.shape[1], k.shape[1]), dtype=torch.bool,
+                                          device=x.device))
     else:
-        if mode == "causal" and (cfg.attn_impl != "chunked" or _flash_launches(q)):
-            y = kops.flash_attention(q, k, v, causal=True, window=window)
-        elif cfg.attn_impl == "chunked":
-            y = _sdpa_chunked(q, k, v, cfg, causal=mode == "causal", window=window)
-        else:
-            S = x.shape[1]
-            y = _sdpa(q, k, v, torch.ones((S, S), dtype=torch.bool, device=x.device))
+        with annotate("attn/core"):
+            if mode == "causal" and (cfg.attn_impl != "chunked" or _flash_launches(q)):
+                y = kops.flash_attention(q, k, v, causal=True, window=window)
+            elif cfg.attn_impl == "chunked":
+                y = _sdpa_chunked(q, k, v, cfg, causal=mode == "causal", window=window)
+            else:
+                S = x.shape[1]
+                y = _sdpa(q, k, v, torch.ones((S, S), dtype=torch.bool, device=x.device))
         new_cache = {"k": k, "v": v}
 
-    y = shard(y, "batch", None, "heads", None)
-    out = _flatten(y, 2, 3) @ _flatten(p["w_o"], 0, 1)
-    if cfg.attn_out_bias:
-        out = out + p["b_o"]
+    with annotate("attn/out"):
+        y = shard(y, "batch", None, "heads", None)
+        out = _flatten(y, 2, 3) @ _flatten(p["w_o"], 0, 1)
+        if cfg.attn_out_bias:
+            out = out + p["b_o"]
     return out, new_cache

@@ -49,6 +49,14 @@ tensor on the device: then each row is its own batch-1 sequence at its own
 position, which is what the reference's ``ContinuousBatcher`` computes by
 ``vmap`` over slots (``serving/continuous.py``).  The MoE layer then
 routes each row's token alone (the grouped dispatch, one group a row).
+
+Under a recording ``torch.profiler`` profile the passes are spans
+(``obs.profiler.annotate``): ``model/embed``, ``model/layer`` (arg i, one
+a layer of a ``layers`` or decoder stack), ``model/unembed`` (the final
+norm, the product, the soft-cap) and ``cache/write`` (a layer's ring
+write, its conv and SSM state copies, the cross cache); the layers' own
+spans (``layers.py``, ``ssm.py``) nest under ``model/layer``, and what a
+layer computes between them (the residual adds) is its own.
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..core.instance import resolve_device
+from ..obs.profiler import annotate
 from ..sharding import shard
 from .layers import (
     ParamDecl,
@@ -262,27 +271,29 @@ class Model:
         ``batch["vision_embeds"]`` (B, P, D) written at each row's
         ``batch["vision_positions"]`` (B, P)."""
         dt = _dtype(self.cfg.dtype)
-        # laid out before the patches are written (a no-op on one device)
-        h = shard(_take_rows(params["embed"], tokens.long()).to(dt), "batch", None, "embed")
-        if self.cfg.family == "vlm" and batch is not None and "vision_embeds" in batch:
-            vp = batch["vision_positions"].long()
-            rows = torch.arange(h.shape[0], device=h.device)[:, None]
-            ve = batch["vision_embeds"].to(dt)
-            if isinstance(h, DTensor):
-                return _scatter_rows(h, vp, ve)
-            h[rows, vp] = ve
-        return h
+        with annotate("model/embed"):
+            # laid out before the patches are written (a no-op on one device)
+            h = shard(_take_rows(params["embed"], tokens.long()).to(dt), "batch", None, "embed")
+            if self.cfg.family == "vlm" and batch is not None and "vision_embeds" in batch:
+                vp = batch["vision_positions"].long()
+                rows = torch.arange(h.shape[0], device=h.device)[:, None]
+                ve = batch["vision_embeds"].to(dt)
+                if isinstance(h, DTensor):
+                    return _scatter_rows(h, vp, ve)
+                h[rows, vp] = ve
+            return h
 
     def _unembed(self, params, h) -> torch.Tensor:
         cfg = self.cfg
-        h = apply_norm(params["ln_f"], h, cfg)
-        if cfg.tie_embeddings:
-            logits = h @ params["embed"].T
-        else:
-            logits = h @ params["lm_head"]
-        if cfg.logits_softcap:
-            logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
-        return shard(logits.float(), "batch", None, "vocab")
+        with annotate("model/unembed"):
+            h = apply_norm(params["ln_f"], h, cfg)
+            if cfg.tie_embeddings:
+                logits = h @ params["embed"].T
+            else:
+                logits = h @ params["lm_head"]
+            if cfg.logits_softcap:
+                logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
+            return shard(logits.float(), "batch", None, "vocab")
 
     # ----------------------------------------------------------------- blocks
     def _dense_block(self, p, h, positions, *, window=None, cache=None, index=None):
@@ -349,16 +360,18 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if self.cfg.family == "encdec":
             mem = self._encode(params, batch)
-            for lp in params["dec_layers"]:
-                h = self._decoder_block(lp, h, positions, mem)[0]
+            for i, lp in enumerate(params["dec_layers"]):
+                with annotate("model/layer", i=i):
+                    h = self._decoder_block(lp, h, positions, mem)[0]
             return self._unembed(params, h), {"router_aux": aux}
         for i in range(len(params["layers"])):
-            if self.cfg.remat and torch.is_grad_enabled():
-                h, a = torch.utils.checkpoint.checkpoint(
-                    self._layer, params, i, h, positions, use_reentrant=False)
-            else:
-                h, a = self._layer(params, i, h, positions)
-            aux = aux + a
+            with annotate("model/layer", i=i):
+                if self.cfg.remat and torch.is_grad_enabled():
+                    h, a = torch.utils.checkpoint.checkpoint(
+                        self._layer, params, i, h, positions, use_reentrant=False)
+                else:
+                    h, a = self._layer(params, i, h, positions)
+                aux = aux + a
         return self._unembed(params, h), {"router_aux": aux}
 
     def _layer(self, params, i: int, h, positions):
@@ -465,28 +478,34 @@ class Model:
         if cfg.family == "encdec":
             mem = self._encode(params, batch)
             for i, lp in enumerate(params["dec_layers"]):
-                h, kv, xkv = self._decoder_block(lp, h, positions, mem)
-                fill_ring(i, kv)
-                for name in ("k", "v"):
-                    cache.cross[name][i].copy_(xkv[name])
+                with annotate("model/layer", i=i):
+                    h, kv, xkv = self._decoder_block(lp, h, positions, mem)
+                    with annotate("cache/write"):
+                        fill_ring(i, kv)
+                        for name in ("k", "v"):
+                            cache.cross[name][i].copy_(xkv[name])
             return self._unembed(params, h[:, -1:, :]), dataclasses.replace(cache, index=S)
 
         site = 0
         for i, lp in enumerate(params["layers"]):
-            if cfg.family in _DENSE_TRUNK:
-                h, kv, _ = self._dense_block(lp, h, positions)
-                fill_ring(i, kv)
-                continue
-            if self._attn_site(i):
-                h, kv, _ = self._dense_block(params["shared_attn"], h, positions)
-                fill_ring(site, kv)
-                site += 1
-            y, (cv, st) = apply_mamba(
-                lp["mamba"], apply_norm(lp["ln"], h, cfg), cfg, return_state=True
-            )
-            h = h + y
-            cache.conv[i].copy_(cv)
-            cache.ssm[i].copy_(st)
+            with annotate("model/layer", i=i):
+                if cfg.family in _DENSE_TRUNK:
+                    h, kv, _ = self._dense_block(lp, h, positions)
+                    with annotate("cache/write"):
+                        fill_ring(i, kv)
+                    continue
+                if self._attn_site(i):
+                    h, kv, _ = self._dense_block(params["shared_attn"], h, positions)
+                    with annotate("cache/write"):
+                        fill_ring(site, kv)
+                    site += 1
+                y, (cv, st) = apply_mamba(
+                    lp["mamba"], apply_norm(lp["ln"], h, cfg), cfg, return_state=True
+                )
+                h = h + y
+                with annotate("cache/write"):
+                    cache.conv[i].copy_(cv)
+                    cache.ssm[i].copy_(st)
         logits = self._unembed(params, h[:, -1:, :])
         return logits, dataclasses.replace(cache, index=S)
 
@@ -510,22 +529,25 @@ class Model:
         if cfg.family == "encdec":
             for i, lp in enumerate(params["dec_layers"]):
                 cross = {"k": cache.cross["k"][i], "v": cache.cross["v"][i]}
-                h = self._decoder_block(lp, h, positions, cache=ring(i), cross=cross,
-                                        index=idx)[0]
+                with annotate("model/layer", i=i):
+                    h = self._decoder_block(lp, h, positions, cache=ring(i), cross=cross,
+                                            index=idx)[0]
             return self._unembed(params, h), dataclasses.replace(cache, index=idx + 1)
 
         site = 0
         for i, lp in enumerate(params["layers"]):
-            if cfg.family in _DENSE_TRUNK or self._attn_site(i):
-                block = lp if cfg.family in _DENSE_TRUNK else params["shared_attn"]
-                h = self._dense_block(block, h, positions, cache=ring(site), index=idx)[0]
-                site += 1
-            if cfg.family in _DENSE_TRUNK:
-                continue
-            y, ncv, nst = mamba_decode_step(
-                lp["mamba"], apply_norm(lp["ln"], h, cfg), cfg, cache.conv[i], cache.ssm[i]
-            )
-            h = h + y
-            cache.conv[i].copy_(ncv)
-            cache.ssm[i].copy_(nst)
+            with annotate("model/layer", i=i):
+                if cfg.family in _DENSE_TRUNK or self._attn_site(i):
+                    block = lp if cfg.family in _DENSE_TRUNK else params["shared_attn"]
+                    h = self._dense_block(block, h, positions, cache=ring(site), index=idx)[0]
+                    site += 1
+                if cfg.family in _DENSE_TRUNK:
+                    continue
+                y, ncv, nst = mamba_decode_step(
+                    lp["mamba"], apply_norm(lp["ln"], h, cfg), cfg, cache.conv[i], cache.ssm[i]
+                )
+                h = h + y
+                with annotate("cache/write"):
+                    cache.conv[i].copy_(ncv)
+                    cache.ssm[i].copy_(nst)
         return self._unembed(params, h), dataclasses.replace(cache, index=idx + 1)

@@ -14,6 +14,13 @@ Block layout (mamba2-130m / zamba2 style):
   SSD     : y = SSD(x, dt, A, B, C) + D * x
   gate    : y = RMSNormGated(y * silu(z))
   out_proj: d_inner -> d
+
+Under a recording ``torch.profiler`` profile :func:`apply_mamba`'s passes
+are spans (``obs.profiler.annotate``): ``ssm/in_proj``, ``ssm/conv`` (the
+causal conv's pad, concatenation, taps and bias, and the SiLU),
+``ssm/dt`` (softplus(dt + bias) and A), ``ssm/scan`` (the SSD kernel or
+its plain form), ``ssm/gated_norm`` and ``ssm/out_proj``; the D skip
+between the scan and the gated norm is the enclosing span's own.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
 from ..kernels.ssd_scan import ssd_reference
+from ..obs.profiler import annotate
 from ..sharding import shard
 from .layers import ParamDecl
 
@@ -107,24 +115,30 @@ def apply_mamba(p, x, cfg: ModelConfig, conv_state=None, ssm_state=None, return_
     path; it reaches the SSD kernel on either route."""
     B, S, D = x.shape
     di, H, P, G, N = _dims(cfg)
-    zall = x @ p["in_proj"]
+    with annotate("ssm/in_proj"):
+        zall = x @ p["in_proj"]
     z, xBC, dt = _split_proj(zall, cfg)
-    xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
-    xBC = F.silu(xBC)
+    with annotate("ssm/conv"):
+        xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
+        xBC = F.silu(xBC)
     xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
     xs = shard(xs.unflatten(-1, (H, P)), "batch", None, "ssm_heads", "ssm_headdim")
     Bm = Bm.unflatten(-1, (G, N))
     Cm = Cm.unflatten(-1, (G, N))
-    dt = _softplus(dt + p["dt_bias"])                         # (B, S, H)
-    A = -torch.exp(p["A_log"].float())
+    with annotate("ssm/dt"):
+        dt = _softplus(dt + p["dt_bias"])                     # (B, S, H)
+        A = -torch.exp(p["A_log"].float())
 
-    res = kops.ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssd_chunk, return_final_state=return_state,
-                   initial_state=ssm_state)
+    with annotate("ssm/scan"):
+        res = kops.ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssd_chunk, return_final_state=return_state,
+                       initial_state=ssm_state)
     y, final_state = res if return_state else (res, None)
     y = y + p["D"][None, None, :, None] * xs
     y = y.reshape(B, S, di)
-    y = _gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    with annotate("ssm/gated_norm"):
+        y = _gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps)
+    with annotate("ssm/out_proj"):
+        out = y @ p["out_proj"]
     if return_state:
         return out, (new_conv, final_state)
     return out

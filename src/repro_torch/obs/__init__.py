@@ -20,9 +20,13 @@ op runs on the device.
   JSONL writer.
 * :mod:`repro_torch.obs.profiler` — ``torch.profiler`` hooks:
   :func:`profile_trace` captures a device profile of a run;
-  :func:`annotate` / :func:`step_annotation` mark scheduler calls and
-  fleet windows inside it, and are shared no-op context managers when no
-  profile is active.
+  :func:`annotate` / :func:`step_annotation` mark scheduler calls, fleet
+  windows and the serving path's engine, layers and Mamba-2 passes inside
+  any recording ``torch.profiler`` profile (this one or a caller's), and
+  are shared no-op context managers when none records.
+* :mod:`repro_torch.obs.counters` — process-wide integer counters of the
+  serving path and the model kernels (batches, prompt tokens, launches by
+  route, builds), always on; imported by path, not exported here.
 """
 from .trace import (
     CAT_BUILD,

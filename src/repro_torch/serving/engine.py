@@ -10,6 +10,15 @@ there is nothing to jit; a timing reads the clock only after
 ``jnp.argmax`` does.  Generation and evaluation run under
 ``torch.no_grad()``: the hand kernels have no backward and refuse inputs
 that require a gradient, which freshly trained parameters may.
+
+Under a recording ``torch.profiler`` profile, ``generate`` marks its parts
+as spans (``obs.profiler.annotate``): ``serve/generate`` around the call
+(args: the engine's batch serial, B, S, new tokens) and inside it
+``serve/cache_init``, ``serve/sync`` (each wait for the device),
+``serve/prefill``, ``serve/greedy``, ``serve/decode`` (each step; arg
+step) and ``serve/to_host``; the model's spans nest under prefill and
+decode.  Each call counts ``serve.batches`` and ``serve.prompt_tokens``
+(``obs.counters``).
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ import torch
 
 from ..core.instance import resolve_device
 from ..models.model import DecodeCache, Model
+from ..obs import counters
+from ..obs.profiler import annotate
 from ..sharding import shard
 
 __all__ = ["ServingEngine", "make_serve_step", "make_prefill_step", "GenerationResult"]
@@ -38,8 +49,9 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     """(B, V) logits -> (B, 1) int32 tokens, first maximal index.  Under
     ``use_sharding`` the logits are gathered on the vocab axis first (a
     no-op on one device)."""
-    logits = shard(logits, "batch", None)
-    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    with annotate("serve/greedy"):
+        logits = shard(logits, "batch", None)
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
 
 
 def make_serve_step(model: Model):
@@ -85,10 +97,12 @@ class ServingEngine:
         self.model = model
         self.params = params
         self._decode = make_serve_step(model)
+        self._batches = 0  # generate calls so far: each batch's serial in its span
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with annotate("serve/sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
     def generate(
@@ -98,25 +112,34 @@ class ServingEngine:
         max_len: Optional[int] = None,
     ) -> GenerationResult:
         B, S = batch["tokens"].shape
-        max_len = max_len or (S + max_new_tokens)
-        cache = self.model.init_cache(B, max_len, device=self.device)
+        self._batches += 1
+        counters.add("serve.batches")
+        counters.add("serve.prompt_tokens", B * S)
+        with annotate("serve/generate", batch=self._batches, B=B, S=S, new=max_new_tokens):
+            max_len = max_len or (S + max_new_tokens)
+            with annotate("serve/cache_init"):
+                cache = self.model.init_cache(B, max_len, device=self.device)
 
-        self._sync()
-        t0 = time.perf_counter()
-        logits, cache = self.model.prefill(self.params, batch, cache)
-        self._sync()
-        t1 = time.perf_counter()
+            self._sync()
+            t0 = time.perf_counter()
+            with annotate("serve/prefill"):
+                logits, cache = self.model.prefill(self.params, batch, cache)
+            self._sync()
+            t1 = time.perf_counter()
 
-        tok = _greedy(logits[:, -1, :])
-        out = [tok]
-        for _ in range(max_new_tokens - 1):
-            tok, cache = self._decode(self.params, tok, cache)
-            out.append(tok)
-        self._sync()
-        t2 = time.perf_counter()
+            tok = _greedy(logits[:, -1, :])
+            out = [tok]
+            for step in range(max_new_tokens - 1):
+                with annotate("serve/decode", step=step):
+                    tok, cache = self._decode(self.params, tok, cache)
+                out.append(tok)
+            self._sync()
+            t2 = time.perf_counter()
+            with annotate("serve/to_host"):
+                tokens = torch.cat(out, dim=1).cpu().numpy()
 
         return GenerationResult(
-            tokens=torch.cat(out, dim=1).cpu().numpy(),
+            tokens=tokens,
             prefill_ms=1000 * (t1 - t0),
             decode_ms_per_token=1000 * (t2 - t1) / max(max_new_tokens - 1, 1),
             total_ms=1000 * (t2 - t0),

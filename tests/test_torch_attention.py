@@ -31,6 +31,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_ref,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
+from repro_torch.obs import counters  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -164,11 +165,13 @@ def test_cpu_wrappers_take_the_plain_version_without_counting():
     q = torch.from_numpy(rng.standard_normal((1, 4, 9, 16)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((1, 2, 9, 16)).astype(np.float32))
     valid = torch.ones((1, 9), dtype=torch.bool)
-    n_flash, n_decode = flash_attention.launches, decode_attention.launches
+    counts = counters.snapshot()
     out = torch.empty_like(q)
     got = flash_attention(q, k, k, backend="cuda", out=out)
     assert got is out and torch.equal(out, flash_attention_ref(q, k, k))
     qd = q[:, :, 0].unflatten(1, (2, 2))
     assert torch.equal(decode_attention(qd, k, k, valid, backend="cuda"),
                        decode_attention_ref(qd, k, k, valid))
-    assert (flash_attention.launches, decode_attention.launches) == (n_flash, n_decode)
+    # a plain call each, and no kernel launch
+    assert counters.delta(counts) == {"kernel.launches.flash_attention.plain": 1,
+                                      "kernel.launches.decode_attention.plain": 1}

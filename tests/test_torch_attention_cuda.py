@@ -9,8 +9,8 @@ with that reason (a CUDA kernel has no CPU mode).  On a GPU machine run:
 Flash attention has two routes (``flash_route``): bf16 at head_dim 64, 128
 or 160 runs the tensor-core kernel (``flash_attention_wgmma.cu``), f32 and
 other head dims the CUDA-core kernel (``flash_attention.cu``); the cases
-below cover both, in bf16 too (hd 32 and 96), and
-``flash_attention.route_launches`` shows which ran.
+below cover both, in bf16 too (hd 32 and 96), and the launch counters
+(``obs.counters``) show which ran.
 Decode is split-K: the cases cover one span and several.
 
 Tolerances are those of ``tests/test_kernels.py``: f32 ``rtol=2e-4,
@@ -43,6 +43,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_route,
 )
 from repro_torch.models import Model, params_to  # noqa: E402
+from repro_torch.obs import counters  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.training import make_batch  # noqa: E402
 
@@ -88,12 +89,12 @@ def test_flash_kernel_equals_plain(cuda, B, H, KV, S, hd, window, dtype):
     k = _randn((B, KV, S, hd), dtype, cuda, 2)
     v = _randn((B, KV, S, hd), dtype, cuda, 3)
     route = flash_route(dtype, hd)
-    before = dict(flash_attention.route_launches)
+    before = counters.snapshot()
     got = flash_attention(q, k, v, causal=True, window=window, backend="cuda")
     want = flash_attention_ref(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype
-    assert flash_attention.route_launches[route] == before[route] + 1
+    assert counters.launches("flash_attention", before, route) == 1
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
@@ -117,12 +118,11 @@ def test_flash_hd160_tensor_core_route_equals_plain(cuda, B, H, KV, S, window, c
     k = _randn((B, S, KV, hd), dtype, cuda, 22).transpose(1, 2)
     v = _randn((B, S, KV, hd), dtype, cuda, 23).transpose(1, 2)
     assert flash_route(dtype, hd) == "wgmma"
-    before = dict(flash_attention.route_launches)
+    before = counters.snapshot()
     got = flash_attention(q, k, v, causal=causal, window=window, backend="cuda")
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert flash_attention.route_launches == {"wgmma": before["wgmma"] + 1,
-                                              "simt": before["simt"]}
+    assert counters.routes("flash_attention", before) == {"wgmma": 1, "simt": 0}
     assert bool(torch.isfinite(got.float()).all())
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
@@ -185,12 +185,17 @@ def test_launch_counters_and_input_checks(cuda):
     q = _randn((1, 4, 20, 64), torch.float32, cuda, 11)
     k = _randn((1, 2, 20, 64), torch.float32, cuda, 12)
     valid = torch.ones((1, 20), dtype=torch.bool, device=cuda)
-    nf, nd = flash_attention.launches, decode_attention.launches
+    n0 = counters.snapshot()
+
+    def launched():
+        return counters.launches("flash_attention", n0), counters.launches("decode_attention", n0)
+
     flash_attention(q, k, k, backend="cuda")
     decode_attention(q[:, :, 0].unflatten(1, (2, 2)), k, k, valid, backend="cuda")
-    assert (flash_attention.launches, decode_attention.launches) == (nf + 1, nd + 1)
+    assert launched() == (1, 1)
     flash_attention(q, k, k, backend="torch")
-    assert flash_attention.launches == nf + 1
+    assert launched() == (1, 1)
+    assert counters.launches("flash_attention", n0, "plain") == 1
     with pytest.raises(TypeError):
         flash_attention(q.double(), k.double(), k.double(), backend="cuda")
     with pytest.raises(ValueError, match="unit stride"):
@@ -199,8 +204,23 @@ def test_launch_counters_and_input_checks(cuda):
         flash_attention(q[..., :62], k[..., :62], k[..., :62], backend="cuda")
     with pytest.raises(ValueError, match="valid"):
         decode_attention(q[:, :, 0].unflatten(1, (2, 2)), k, k, valid[:, :5], backend="cuda")
-    assert (flash_attention.launches, decode_attention.launches) == (nf + 1, nd + 1)
+    assert launched() == (1, 1)
 
+
+
+def test_calls_that_launch_nothing_count_nothing(cuda):
+    """An empty batch, and on the tensor-core route a key-less call (zero
+    rows written in place), return without a launch and count none."""
+    n0 = counters.snapshot()
+    for B, T, dtype in ((0, 20, torch.float32), (0, 20, torch.bfloat16), (1, 0, torch.bfloat16)):
+        q = _randn((B, 4, 20, 64), dtype, cuda, 16)
+        k = _randn((B, 2, T, 64), dtype, cuda, 17)
+        out = flash_attention(q, k, k, backend="cuda")
+        assert out.shape == q.shape and not bool(out.float().abs().sum())
+    q = _randn((0, 2, 2, 64), torch.float32, cuda, 18)
+    k = _randn((0, 2, 20, 64), torch.float32, cuda, 19)
+    decode_attention(q, k, k, torch.ones((0, 20), dtype=torch.bool, device=cuda), backend="cuda")
+    assert counters.delta(n0) == {}
 
 def test_tensor_core_route_refuses_what_tma_cannot_read(cuda):
     """The tensor-core route describes its tensors to TMA: a stride that is
@@ -211,14 +231,14 @@ def test_tensor_core_route_refuses_what_tma_cannot_read(cuda):
     flat = _randn((B * H * S * hd + 8,), torch.bfloat16, cuda, 14)
     shifted = flat[1:1 + B * H * S * hd].view(B, H, S, hd)
     ok = _randn((B, H, S, hd), torch.bfloat16, cuda, 15)
-    counts = (flash_attention.launches, dict(flash_attention.route_launches))
+    counts = counters.snapshot()
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
         flash_attention(wide, ok, ok, backend="cuda")
     with pytest.raises(ValueError, match="16-byte boundary"):
         flash_attention(ok, shifted, ok, backend="cuda")
-    assert (flash_attention.launches, dict(flash_attention.route_launches)) == counts
+    assert counters.delta(counts) == {}
     flash_attention(ok, ok, ok, backend="cuda")
-    assert flash_attention.route_launches["wgmma"] == counts[1]["wgmma"] + 1
+    assert counters.routes("flash_attention", counts) == {"wgmma": 1, "simt": 0}
 
 
 def test_small_model_on_the_card_equals_the_cpu(cuda):
@@ -231,14 +251,14 @@ def test_small_model_on_the_card_equals_the_cpu(cuda):
     dev_params = params_to(cpu_params, cuda)
     b = make_batch(cfg, 2, 24, np.random.default_rng(0), device="cpu")
     lc, _ = model.prefill(cpu_params, b, model.init_cache(2, 32, device="cpu"))
-    nf = flash_attention.launches
+    n0 = counters.snapshot()
     lg, _ = model.prefill(dev_params, {k: t.to(cuda) for k, t in b.items()},
                           model.init_cache(2, 32, device=cuda))
-    assert flash_attention.launches == nf + cfg.num_layers
+    assert counters.launches("flash_attention", n0) == cfg.num_layers
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
-    nd = decode_attention.launches
+    n0 = counters.snapshot()
     got = ServingEngine(model, dev_params, device=cuda).generate(
         {k: t.to(cuda) for k, t in b.items()}, max_new_tokens=8)
-    assert decode_attention.launches == nd + 7 * cfg.num_layers
+    assert counters.launches("decode_attention", n0) == 7 * cfg.num_layers
     want = ServingEngine(model, cpu_params, device="cpu").generate(b, max_new_tokens=8)
     np.testing.assert_array_equal(got.tokens, want.tokens)

@@ -44,6 +44,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 from repro_torch.models import Model, params_to  # noqa: E402
 from repro_torch.models.quant import dequantize_kv, quantize_kv  # noqa: E402
+from repro_torch.obs import counters  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, Request  # noqa: E402
 from repro_torch.training import make_batch, make_loss_fn  # noqa: E402
 from repro_torch.training.optimizer import tree_leaves, tree_unflatten  # noqa: E402
@@ -78,9 +79,9 @@ def test_decode_over_a_dequantized_ring_with_per_row_validity(cuda, dtype):
     q = _randn((B, KV, rep, hd), dtype, 3, cuda)
     lengths = torch.tensor([1, 7, 64, 65, 130, 200, 299, 300], device=cuda)
     valid = torch.arange(W, device=cuda)[None] < lengths[:, None]
-    before = decode_attention.launches
+    before = counters.snapshot()
     got = decode_attention(q, k, v, valid, backend="cuda")
-    assert decode_attention.launches == before + 1
+    assert counters.launches("decode_attention", before) == 1
     torch.testing.assert_close(got.float(), decode_attention_ref(q, k, v, valid).float(),
                                **ATTN_TOL[dtype])
 
@@ -93,9 +94,9 @@ def test_flash_at_batch_one_ragged(cuda, S, dtype, hd):
     k = _randn((1, S, KV, hd), dtype, 5, cuda).transpose(1, 2)
     v = _randn((1, S, KV, hd), dtype, 6, cuda).transpose(1, 2)
     route = flash_route(q.dtype, hd)
-    before = flash_attention.route_launches[route]
+    before = counters.snapshot()
     got = flash_attention(q, k, v, backend="cuda")
-    assert flash_attention.route_launches[route] == before + 1
+    assert counters.launches("flash_attention", before, route) == 1
     torch.testing.assert_close(got.float(), flash_attention_ref(q, k, v).float(),
                                **ATTN_TOL[dtype])
 
@@ -134,13 +135,13 @@ def test_batcher_on_the_card_equals_the_cpu(cuda, name, n_slots):
     want = ContinuousBatcher(model, cpu, n_slots=n_slots, max_len=96, device="cpu").run(
         [Request(i, p, 6) for i, p in enumerate(prompts)])
     cb = ContinuousBatcher(model, card, n_slots=n_slots, max_len=96, device=cuda)
-    flash_attention.launches = decode_attention.launches = 0
+    n0 = counters.snapshot()
     for i, p in enumerate(prompts[:n_slots]):
         assert cb.admit(Request(i, p, 6))
     sites = model.n_attn_sites()
-    assert flash_attention.launches == n_slots * sites
+    assert counters.launches("flash_attention", n0) == n_slots * sites
     cb.step()
-    assert decode_attention.launches == sites  # one decode_step for every slot
+    assert counters.launches("decode_attention", n0) == sites  # one decode_step for every slot
     cb.reset()
     got = cb.run([Request(i, p, 6) for i, p in enumerate(prompts)])
     assert got == want
@@ -204,9 +205,9 @@ def test_chunked_on_the_card(cuda):
     card = params_to(_params(model, 4), cuda)
     batch = make_batch(dense, 2, 40, np.random.default_rng(4), device=cuda)
     with torch.no_grad():
-        flash_attention.launches = 0
+        n0 = counters.snapshot()
         model.prefill(card, batch, model.init_cache(2, 48, device=cuda))
-        assert flash_attention.launches == dense.num_layers
+        assert counters.launches("flash_attention", n0) == dense.num_layers
     encdec = TC.reduce_for_smoke(TC.get_config("seamless-m4t-medium"))
     chunked = Model(dataclasses.replace(encdec, attn_impl="chunked", attn_block=16))
     cpu = Model(encdec).init(5, device="cpu")
@@ -220,9 +221,9 @@ def test_chunked_on_the_card(cuda):
     eb = make_batch(encdec, 2, 24, np.random.default_rng(5), device=cuda)
     with torch.no_grad():
         want = Model(encdec)._encode(card, eb)
-        flash_attention.launches = 0
+        n0 = counters.snapshot()
         got = chunked._encode(card, eb)
-        assert flash_attention.launches == 0
+        assert counters.launches("flash_attention", n0) == 0
     torch.testing.assert_close(got, want, **MODEL_TOL)
 
 
@@ -234,11 +235,11 @@ def test_chunked_train_step_on_the_card_equals_the_cpu(cuda):
     out = []
     for dev, params in (("cpu", cpu), (cuda, params_to(cpu, cuda))):
         leaves = [p.detach().clone().requires_grad_(True) for p in tree_leaves(params)]
-        flash_attention.launches = 0
+        n0 = counters.snapshot()
         loss, _ = make_loss_fn(model)(tree_unflatten(params, leaves),
                                       {k: t.to(dev) for k, t in batch.items()})
         grads = torch.autograd.grad(loss, leaves)
-        assert flash_attention.launches == 0
+        assert counters.launches("flash_attention", n0) == 0
         out.append((loss.detach().cpu(), [g.cpu() for g in grads]))
     torch.testing.assert_close(out[1][0], out[0][0], rtol=1e-5, atol=0.0)
     for g, c in zip(out[1][1], out[0][1]):

@@ -31,11 +31,10 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.configs as TC  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.models import Model, params_to  # noqa: E402
 from repro_torch.models.layers import init_tree  # noqa: E402
 from repro_torch.models.moe import apply_moe, dispatch, moe_decl, route  # noqa: E402
+from repro_torch.obs import counters  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.training import make_batch  # noqa: E402
 
@@ -146,13 +145,13 @@ def test_small_family_model_on_the_card_equals_the_cpu(cuda, arch):
         torch.testing.assert_close(fg.cpu(), fc, rtol=1e-3, atol=1e-3)
         np.testing.assert_allclose(float(ag["router_aux"]), float(ac["router_aux"]), rtol=1e-5)
         lc, _ = model.prefill(cpu, batch, model.init_cache(2, 32, device="cpu"))
-        flash_attention.launches = decode_attention.launches = 0
+        n0 = counters.snapshot()
         lg, _ = model.prefill(card, batch_card, model.init_cache(2, 32, device=cuda))
-        assert flash_attention.launches == cfg.num_layers
+        assert counters.launches("flash_attention", n0) == cfg.num_layers
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
     tok_cpu = ServingEngine(model, cpu, device="cpu").generate(batch, 8).tokens
-    decode_attention.launches = 0
+    n0 = counters.snapshot()
     tok_card = ServingEngine(model, card, device=cuda).generate(batch_card, 8).tokens
-    assert decode_attention.launches == 7 * cfg.num_layers
+    assert counters.launches("decode_attention", n0) == 7 * cfg.num_layers
     np.testing.assert_array_equal(tok_card, tok_cpu)
 

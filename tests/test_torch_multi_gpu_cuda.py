@@ -30,6 +30,7 @@ import repro_torch.core as P  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
+from repro_torch.obs import counters  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -80,11 +81,11 @@ def _check(dev):
 
 
 def test_model_kernels_on_the_second_card_after_the_first(two_cards):
-    before = (flash_attention.launches, decode_attention.launches, ssd_scan.launches)
+    before = counters.snapshot()
     for dev in two_cards:
         _check(dev)
-    after = (flash_attention.launches, decode_attention.launches, ssd_scan.launches)
-    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    assert [counters.launches(k, before)
+            for k in ("flash_attention", "decode_attention", "ssd")] == [2, 2, 2]
 
 
 def test_model_kernels_from_two_threads_on_two_cards(two_cards):

@@ -30,6 +30,7 @@ from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.gus import gus_assign  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.obs import counters  # noqa: E402
 from repro_torch.models import Model, params_from_reference  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.training import make_batch  # noqa: E402
@@ -184,12 +185,12 @@ def test_attention_wrappers_refuse_other_devices():
     q = torch.zeros((1, 4, 8, 16), device="meta")
     k = torch.zeros((1, 2, 8, 16), device="meta")
     valid = torch.ones((1, 8), dtype=torch.bool, device="meta")
-    counts = (flash_attention.launches, decode_attention.launches)
+    counts = counters.snapshot()
     with pytest.raises(ValueError, match="CUDA or CPU"):
         flash_attention(q, k, k, backend="cuda")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         decode_attention(q[:, :, 0].unflatten(1, (2, 2)), k, k, valid, backend="cuda")
-    assert (flash_attention.launches, decode_attention.launches) == counts
+    assert counters.delta(counts) == {}
 
 
 def test_attention_backend_precedence(monkeypatch):

@@ -32,10 +32,9 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.configs as TC  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_route, ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch.models import Model, params_to  # noqa: E402
+from repro_torch.obs import counters  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.training import make_batch  # noqa: E402
 
@@ -91,12 +90,12 @@ def _close_state(got, want):
 def test_ssd_kernel_equals_plain(cuda, B, H, G, S, P, N, Q, dtype, final):
     x, dt, A, Bm, Cm = _inputs(B, H, G, S, P, N, dtype, cuda, S + N)
     route = ssd_route(dtype, P, N, Q)
-    n0, r0 = ssd_scan.launches, dict(ssd_scan.route_launches)
+    n0 = counters.snapshot()
     got = ssd_scan(x, dt, A, Bm, Cm, chunk=Q, return_final_state=final, backend="cuda")
     want = ssd_scan_ref(x, dt, A, Bm, Cm, Q, return_final_state=final)
     torch.cuda.synchronize()
-    assert ssd_scan.launches == n0 + 1
-    assert ssd_scan.route_launches == {k: r0[k] + (k == route) for k in r0}
+    assert counters.launches("ssd", n0) == 1
+    assert counters.routes("ssd", n0) == {k: int(k == route) for k in ("wgmma", "simt")}
     if final:
         (got, got_st), (want, want_st) = got, want
         assert got_st.dtype == torch.float32 and tuple(got_st.shape) == (B, H, N, P)
@@ -124,12 +123,12 @@ def test_ssd_kernel_initial_state_equals_plain(cuda, B, H, G, S, P, N, Q, dtype,
     g = torch.Generator(device=cuda).manual_seed(S)
     h0 = torch.randn((B, H, N, P), generator=g, device=cuda)
     route = ssd_route(dtype, P, N, Q)
-    r0 = dict(ssd_scan.route_launches)
+    r0 = counters.snapshot()
     got = ssd_scan(x, dt, A, Bm, Cm, chunk=Q, return_final_state=final, initial_state=h0,
                    backend="cuda")
     want = ssd_scan_ref(x, dt, A, Bm, Cm, Q, return_final_state=final, initial_state=h0)
     torch.cuda.synchronize()
-    assert ssd_scan.route_launches == {k: r0[k] + (k == route) for k in r0}
+    assert counters.routes("ssd", r0) == {k: int(k == route) for k in ("wgmma", "simt")}
     if final:
         (got, got_st), (want, want_st) = got, want
         _close_state(got_st, want_st)
@@ -146,7 +145,7 @@ def test_ssd_kernel_refuses_a_wrong_initial_state(cuda):
     launch; none falls back to the plain version."""
     x, dt, A, Bm, Cm = _inputs(1, 4, 1, 256, 64, 64, torch.bfloat16, cuda, 5)
     good = torch.zeros((1, 4, 64, 64), device=cuda)
-    n0 = ssd_scan.launches
+    n0 = counters.snapshot()
     for bad in (good[:, :2], good.bfloat16(), good.transpose(2, 3).contiguous().transpose(2, 3),
                 good.cpu()):
         with pytest.raises(ValueError, match="initial_state must be"):
@@ -154,7 +153,7 @@ def test_ssd_kernel_refuses_a_wrong_initial_state(cuda):
     with pytest.raises(RuntimeError, match="no backward"):
         ssd_scan(x, dt, A, Bm, Cm, chunk=128, initial_state=good.clone().requires_grad_(),
                  backend="cuda")
-    assert ssd_scan.launches == n0
+    assert counters.delta(n0) == {}
 
 
 @pytest.mark.parametrize("N", [64, 128])
@@ -172,9 +171,9 @@ def test_ssd_model_layout_views_are_read_in_place(cuda, dtype, N):
     dt = (0.001 + 0.099 * torch.rand((Bsz, S, H), generator=g, device=cuda)).to(dtype)
     A = -(0.5 + 3.5 * torch.rand((H,), generator=g, device=cuda))
     route = ssd_route(dtype, P, N, Q)
-    r0 = ssd_scan.route_launches[route]
+    r0 = counters.snapshot()
     y, st = ops.ssd(xs, dt, A, Bm, Cm, chunk=Q, return_final_state=True, backend="cuda")
-    assert ssd_scan.route_launches[route] == r0 + 1
+    assert counters.launches("ssd", r0, route) == 1
     wy, wst = ssd_scan_ref(*(t.transpose(1, 2).contiguous() for t in (xs, dt)), A,
                            *(t.transpose(1, 2).contiguous() for t in (Bm, Cm)), Q,
                            return_final_state=True)
@@ -190,7 +189,7 @@ def test_ssd_tensor_core_route_refuses_what_tma_cannot_read(cuda):
     assert ssd_route(x.dtype, 64, 64, 128) == "wgmma"
     shifted = torch.empty((1, 2, 256, 65), dtype=x.dtype, device=cuda)[..., 1:].copy_(x)
     wide = torch.empty((1, 2, 256, 68), dtype=x.dtype, device=cuda)[..., :64].copy_(x)
-    n0, r0 = ssd_scan.launches, dict(ssd_scan.route_launches)
+    n0 = counters.snapshot()
     with pytest.raises(ValueError, match="16-byte boundary"):
         ssd_scan(shifted, dt, A, Bm, Cm, chunk=128, backend="cuda")
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
@@ -198,21 +197,21 @@ def test_ssd_tensor_core_route_refuses_what_tma_cannot_read(cuda):
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
         ssd_scan(x, dt, A, torch.empty((1, 1, 256, 68), dtype=x.dtype, device=cuda)[..., :64],
                  Cm, chunk=128, backend="cuda")
-    assert ssd_scan.launches == n0 and ssd_scan.route_launches == r0
+    assert counters.delta(n0) == {}
     # the same values from aligned tensors launch the tensor-core route
     torch.testing.assert_close(ssd_scan(wide.contiguous(), dt, A, Bm, Cm, chunk=128,
                                         backend="cuda").float(),
                                ssd_scan_ref(x, dt, A, Bm, Cm, 128).float(), **_tol(x.dtype))
-    assert ssd_scan.route_launches["wgmma"] == r0["wgmma"] + 1
+    assert counters.routes("ssd", n0) == {"wgmma": 1, "simt": 0}
 
 
 def test_ssd_launch_counter_and_input_checks(cuda):
     x, dt, A, Bm, Cm = _inputs(1, 4, 2, 40, 16, 8, torch.float32, cuda, 11)
-    n0 = ssd_scan.launches
+    n0 = counters.snapshot()
     ssd_scan(x, dt, A, Bm, Cm, chunk=16, backend="cuda")
-    assert ssd_scan.launches == n0 + 1
+    assert counters.launches("ssd", n0) == 1
     ssd_scan(x, dt, A, Bm, Cm, chunk=16, backend="torch")  # the plain version on the card
-    assert ssd_scan.launches == n0 + 1
+    assert counters.launches("ssd", n0) == 1 and counters.launches("ssd", n0, "plain") == 1
     with pytest.raises(ValueError, match="chunk"):
         ssd_scan(x, dt, A, Bm, Cm, chunk=256, backend="cuda")
     with pytest.raises(TypeError):
@@ -222,8 +221,19 @@ def test_ssd_launch_counter_and_input_checks(cuda):
                  backend="cuda")
     with pytest.raises(ValueError, match="do not split"):
         ssd_scan(x[:, :3], dt[:, :3], A[:3], Bm, Cm, chunk=16, backend="cuda")
-    assert ssd_scan.launches == n0 + 1
+    assert counters.launches("ssd", n0) == 1
 
+
+
+def test_ssd_empty_calls_count_no_launch(cuda):
+    """An empty batch or sequence returns without a launch and counts none;
+    the final state is then the initial one."""
+    n0 = counters.snapshot()
+    for Bsz, S in ((0, 128), (1, 0)):
+        x, dt, A, Bm, Cm = _inputs(Bsz, 4, 1, S, 64, 64, torch.bfloat16, cuda, 7)
+        y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=128, return_final_state=True, backend="cuda")
+        assert y.shape == x.shape and not bool(st.abs().sum())
+    assert counters.delta(n0) == {}
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
 def test_small_ssm_models_on_the_card_equal_the_cpu(cuda, arch):
@@ -238,15 +248,16 @@ def test_small_ssm_models_on_the_card_equal_the_cpu(cuda, arch):
     b = make_batch(cfg, 2, 45, np.random.default_rng(0), device="cpu")
     bd = {k: t.to(cuda) for k, t in b.items()}
     fc, _ = model.forward(cpu_params, b)
-    n0 = (ssd_scan.launches, flash_attention.launches)
+    n0 = counters.snapshot()
     fg, _ = model.forward(dev_params, bd)
-    assert (ssd_scan.launches, flash_attention.launches) == (n0[0] + 4, n0[1] + sites)
+    assert (counters.launches("ssd", n0), counters.launches("flash_attention", n0)) == (4, sites)
     torch.testing.assert_close(fg.cpu(), fc, rtol=1e-3, atol=1e-3)
     lc, _ = model.prefill(cpu_params, b, model.init_cache(2, 64, device="cpu"))
     lg, _ = model.prefill(dev_params, bd, model.init_cache(2, 64, device=cuda))
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
-    n0 = (ssd_scan.launches, decode_attention.launches)
+    n0 = counters.snapshot()
     got = ServingEngine(model, dev_params, device=cuda).generate(bd, max_new_tokens=8)
-    assert (ssd_scan.launches, decode_attention.launches) == (n0[0] + 4, n0[1] + 7 * sites)
+    assert (counters.launches("ssd", n0), counters.launches("decode_attention", n0)) \
+        == (4, 7 * sites)
     want = ServingEngine(model, cpu_params, device="cpu").generate(b, max_new_tokens=8)
     np.testing.assert_array_equal(got.tokens, want.tokens)

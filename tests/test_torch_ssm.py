@@ -54,6 +54,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 from repro_torch.models import Model, params_from_reference  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models.carry import _tensor  # noqa: E402
+from repro_torch.obs import counters  # noqa: E402
 
 SSD_TOL = dict(rtol=1e-3, atol=1e-4)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -108,9 +109,9 @@ def test_ssd_scan_ref_matches_reference(B, H, G, S, P, N, Q):
         pallas = j_ssd_scan(*map(jnp.asarray, (x, dt, A, Bh, Ch)), chunk=Q, interpret=True)
         np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **SSD_TOL)
     # the wrapper runs the plain version on CPU tensors and counts no launch
-    n0 = ssd_scan.launches
+    n0 = counters.snapshot()
     wrapped = ssd_scan(*_t(x, dt, A, Bm, Cm), chunk=Q, backend="cuda")
-    assert torch.equal(wrapped, got) and ssd_scan.launches == n0
+    assert torch.equal(wrapped, got) and counters.launches("ssd", n0) == 0
 
 
 @pytest.mark.parametrize("S,with_init", [(128, False), (100, False), (77, True), (96, True)])
@@ -228,10 +229,11 @@ def test_initial_state_reaches_every_plain_entry(S, G):
                            return_final_state=True)
     ry, rs = ssd_scan_ref(x, dt, A, Bm, Cm, Q, return_final_state=True, initial_state=h0)
     assert torch.equal(ry, wy.transpose(1, 2)) and torch.equal(rs, ws)
-    n0 = ssd_scan.launches
+    n0 = counters.snapshot()
     ky, ks = ssd_scan(x, dt, A, Bm, Cm, chunk=Q, return_final_state=True, initial_state=h0,
                       backend="cuda")
-    assert torch.equal(ky, ry) and torch.equal(ks, rs) and ssd_scan.launches == n0
+    assert torch.equal(ky, ry) and torch.equal(ks, rs)
+    assert counters.launches("ssd", n0) == 0
     my, ms = ops.ssd(*(t.transpose(1, 2) for t in (x, dt)), A, *(t.transpose(1, 2) for t in (Bm, Cm)),
                      chunk=Q, return_final_state=True, initial_state=h0)
     assert torch.equal(my, wy) and torch.equal(ms, ws)

@@ -35,6 +35,7 @@ from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import Model, params_to  # noqa: E402
+from repro_torch.obs import counters  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.training.optimizer import tree_leaves, tree_unflatten  # noqa: E402
 
@@ -58,26 +59,26 @@ def _grad_inputs(dev, shapes, dtype=torch.float32):
 
 def test_flash_refuses_grad_and_launches_under_no_grad(cuda):
     q, k, v = _grad_inputs(cuda, [(1, 4, 16, 32), (1, 2, 16, 32), (1, 2, 16, 32)])
-    n = flash_attention.launches
+    n = counters.snapshot()
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention(q, k, v, backend="cuda")
-    assert flash_attention.launches == n
+    assert counters.launches("flash_attention", n) == 0
     with torch.no_grad():
         flash_attention(q, k, v, backend="cuda")
-    assert flash_attention.launches == n + 1
+    assert counters.launches("flash_attention", n) == 1
     flash_attention(q.detach(), k.detach(), v.detach(), backend="cuda")
-    assert flash_attention.launches == n + 2
+    assert counters.launches("flash_attention", n) == 2
 
 
 def test_decode_refuses_grad(cuda):
     q, k, v = _grad_inputs(cuda, [(2, 2, 2, 32), (2, 2, 24, 32), (2, 2, 24, 32)])
     valid = torch.ones((2, 24), dtype=torch.bool, device=cuda)
-    n = decode_attention.launches
+    n = counters.snapshot()
     with pytest.raises(RuntimeError, match="no backward"):
         decode_attention(q, k, v, valid, backend="cuda")
     with torch.no_grad():
         decode_attention(q, k, v, valid, backend="cuda")
-    assert decode_attention.launches == n + 1
+    assert counters.launches("decode_attention", n) == 1
 
 
 def test_ssd_refuses_grad_and_launches_under_no_grad(cuda):
@@ -85,12 +86,12 @@ def test_ssd_refuses_grad_and_launches_under_no_grad(cuda):
                                         (1, 1, 64, 16)])
     A = -torch.rand(4, device=cuda)
     dt = dt.detach().abs().requires_grad_(True)
-    n = ssd_scan.launches
+    n = counters.snapshot()
     with pytest.raises(RuntimeError, match="no backward"):
         ssd_scan(x, dt, A, Bm, Cm, chunk=32, backend="cuda")
     with torch.no_grad():
         ssd_scan(x, dt, A, Bm, Cm, chunk=32, backend="cuda")
-    assert ssd_scan.launches == n + 1
+    assert counters.launches("ssd", n) == 1
 
 
 #: tests/test_training.py's dense config
@@ -129,10 +130,10 @@ def test_train_step_on_the_card_takes_the_plain_route(cuda, arch):
     batch_cpu = next(T.batch_iterator(cfg, 2, 64, seed=3, device="cpu"))
     batch = {k: v.to(cuda) for k, v in batch_cpu.items()}
     step = T.make_train_step(model, opt)
-    counts = (flash_attention.launches, decode_attention.launches, ssd_scan.launches)
+    counts = counters.snapshot()
     new, m = step(state, batch)
     torch.cuda.synchronize()
-    assert (flash_attention.launches, decode_attention.launches, ssd_scan.launches) == counts
+    assert [counters.launches(k, counts) for k in counters.ROUTES] == [0, 0, 0]
     want, wm = step(state_cpu, batch_cpu)
     np.testing.assert_allclose(float(m["loss"]), float(wm["loss"]), rtol=1e-5)
     if arch == "yi-9b":  # against the wide step
@@ -168,11 +169,11 @@ def test_trained_parameters_serve_on_the_kernels(cuda):
     params["layers"] = [{k: {n: t.detach().requires_grad_(True) for n, t in sub.items()}
                          for k, sub in layer.items()} for layer in state.params["layers"]]
     eng = ServingEngine(model, params, device=cuda)
-    f0, d0 = flash_attention.launches, decode_attention.launches
+    n0 = counters.snapshot()
     r = eng.generate(batch, max_new_tokens=4)
-    assert flash_attention.launches - f0 == cfg.num_layers
-    assert decode_attention.launches - d0 == 3 * cfg.num_layers
+    assert counters.launches("flash_attention", n0) == cfg.num_layers
+    assert counters.launches("decode_attention", n0) == 3 * cfg.num_layers
     assert r.tokens.shape == (2, 4)
-    f1 = flash_attention.launches
+    n1 = counters.snapshot()
     eng.eval_next_token_accuracy(batch)
-    assert flash_attention.launches - f1 == cfg.num_layers
+    assert counters.launches("flash_attention", n1) == cfg.num_layers
