@@ -278,6 +278,9 @@ SSD_STATE_RTOL, SSD_STATE_ATOL_SHARE = 1e-3, 1e-4
 #: the SSM slice's main paths: zamba2-1.2b and mamba2-130m at full width and
 #: depth, batch 8 x a 2048-token prompt, 32 greedy tokens
 SSM_HYBRID_ARCH, SSM_ARCH, SSM_PROMPT = "zamba2-1.2b", "mamba2-130m", 2048
+#: the causal conv's timed launch: mamba2-130m's prefill at the benchmark's
+#: batch of 32 and its longest prompt
+CONV_BATCH, CONV_PROMPT = 32, 4000
 #: f32 prefill + decode vs forward at full width: a ragged prompt (200 =
 #: 128 + 72) and 8 decode steps, held to tests/test_arch_smoke.py's 5e-3
 SSM_ACC_PROMPT, SSM_ACC_STEPS, SSM_DECODE_ATOL = 200, 8, 5e-3
@@ -332,9 +335,9 @@ def zero_model_counts():
 
 
 def model_launches(kernel, route=None):
-    """Launches of a model kernel (``flash_attention``, ``ssd`` or
-    ``decode_attention``) since the last ``zero_counts()``: on ``route``,
-    else on all its routes on the card."""
+    """Launches of a model kernel (``flash_attention``, ``ssd``,
+    ``decode_attention`` or ``causal_conv``) since the last
+    ``zero_counts()``: on ``route``, else on all its routes on the card."""
     from repro_torch.obs import counters
 
     return counters.launches(kernel, COUNT_BASE, route)
@@ -955,6 +958,7 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
                 "flash_attention": model_launches("flash_attention"),
                 "flash_routes": model_routes("flash_attention"),
                 "decode_attention": model_launches("decode_attention"),
+                "causal_conv": model_launches("causal_conv"),
                 "scheduler": gus_assign.launches + hier_cells.launches}
 
     served = {}
@@ -1005,6 +1009,9 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         check(n["decode_attention"] == (gen - 1) * sites,
               f"decode must launch decode_attention once per site and step, got "
               f"{n['decode_attention']}")
+        check(n["causal_conv"] == cfg.num_layers * gen,
+              f"the causal conv must launch once per mamba layer in prefill and in each "
+              f"decode step, got {n['causal_conv']}")
         check(n["scheduler"] == 0, "the serving main path launched a scheduler kernel")
         toks = res.tokens
         check(toks.shape == (batch, gen) and (toks >= 0).all() and (toks < cfg.vocab_size).all(),
@@ -1023,9 +1030,11 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
             print(f"forward main path {cfg.arch_id} B={batch} S={prompt} (teacher forcing, no "
                   f"state output): {fwd_ms:.3f} ms, launches {json.dumps(nf)}, logits "
                   f"{tuple(logits.shape)} finite={bool(torch.isfinite(logits).all())}")
-            check(nf["ssd_scan"] == cfg.num_layers and nf["flash_attention"] == 0
-                  and nf["decode_attention"] == 0 and nf["scheduler"] == 0,
-                  "the forward must launch ssd_scan once per layer and nothing else")
+            check(nf["ssd_scan"] == nf["causal_conv"] == cfg.num_layers
+                  and nf["flash_attention"] == 0 and nf["decode_attention"] == 0
+                  and nf["scheduler"] == 0,
+                  "the forward must launch ssd_scan and causal_conv once per layer and "
+                  "nothing else")
             check(nf["ssd_routes"] == {"wgmma": cfg.num_layers, "simt": 0},
                   f"the bf16 forward must run the tensor-core SSD route, got {nf['ssd_routes']}")
             check(tuple(logits.shape) == (batch, prompt, cfg.vocab_size)
@@ -1174,7 +1183,77 @@ def ssm_smoke(dev, zero_counts, hybrid_cfg, ssm_cfg, batch=SERVE_BATCH, prompt=S
         "ms": t["ms"], "graph_ms": t["graph_ms"], "simt_ms": t["simt_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, ssm_cfg.arch_id: mamba, "initial_state": initial,
+        "causal_conv_launches": {f"{arch} generate": c["causal_conv"]
+                                 for arch, c in served.items()},
     }, attn_timed
+
+
+def conv_smoke(dev, cfg, batch=CONV_BATCH, prompt=CONV_PROMPT, smi=""):
+    """Phase 11's causal conv: the kernel against its plain version at
+    ``cfg``'s prefill launch (xBC the slice of a ``batch`` x ``prompt``
+    in_proj output, as the model reads it), bit for bit before the SiLU,
+    within one step of the dtype after it, the new state exactly; then
+    timed: eager and device (graph replay), the plain version, the bound
+    (bytes: xBC read once, the result and the state written once, at the
+    HBM rate) and one library call as a yardstick the port never calls
+    (``F.conv1d(groups=Ch)`` and ``F.silu``).  Returns the kernel's entry
+    of the ``kernels`` line without its name, route and source."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.causal_conv import causal_conv, causal_conv_ref
+
+    dtype = getattr(torch, cfg.dtype)
+    di, G, N, W = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_conv
+    Ch, width = di + 2 * G * N, 2 * di + 2 * G * N + cfg.ssm_nheads
+    g = torch.Generator(device=dev).manual_seed(41)
+    proj = torch.randn((batch, prompt, width), generator=g, device=dev).to(dtype)
+    x = proj[..., di:di + Ch]
+    w = (0.2 * torch.randn((W, Ch), generator=g, device=dev)).to(dtype)
+    b = (0.1 * torch.randn((Ch,), generator=g, device=dev)).to(dtype)
+    n0 = model_launches("causal_conv")
+    raw, state = causal_conv(x, w, b, silu=False, backend="cuda")
+    got = causal_conv(x, w, b, backend="cuda")[0]
+    want, want_state = causal_conv_ref(x, w, b)
+    sync(dev)
+    exact = torch.equal(raw, want) and torch.equal(state, want_state)
+    act = F.silu(want).float()
+    _, e = torch.frexp(act)
+    diff = (got.float() - act).abs()
+    steps = float((diff / torch.ldexp(torch.full_like(act, torch.finfo(dtype).eps), e - 1)).max())
+    err = float(diff.max())
+    label = f"{cfg.arch_id} B={batch} S={prompt} Ch={Ch} W={W} {cfg.dtype}"
+    print(f"compare causal_conv main-path launch {label}: conv + bias and state bit for bit "
+          f"{exact}; after the SiLU max_abs_err={err}, at most {steps:.2f} steps of the dtype")
+    check(exact, "causal_conv kernel != plain version before the SiLU")
+    check(steps <= 1.0, "causal_conv kernel more than one step from the plain SiLU")
+    check(model_launches("causal_conv") == n0 + 2, "causal_conv did not launch")
+    del raw, got, want, want_state, act, e, diff
+
+    def run():
+        causal_conv(x, w, b, backend="cuda")
+
+    wk = w.t().unsqueeze(1).contiguous()  # (Ch, 1, W): the taps in conv1d's order
+
+    def library():
+        F.silu(F.conv1d(x.transpose(1, 2), wk, b, padding=W - 1, groups=Ch)[..., :prompt])
+
+    elt = dtype.itemsize
+    nbytes = (2 * batch * prompt + (W + 1) + batch * (W - 1)) * Ch * elt
+    t = {"ms": time_events(run, 20), "graph_ms": time_graph(run, 20),
+         "plain_ms": time_events(lambda: F.silu(causal_conv_ref(x, w, b)[0]), 5, warmup=1),
+         "library_ms": library_ms(library, 10), "max_abs_err": err, "max_steps": steps}
+    t["bound_ms"], t["bound_by"] = bound(nbytes, (2 * W + 1) * batch * prompt * Ch, cfg.dtype)
+    lib = "unavailable" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+    print(f"time causal_conv main-path launch {label} (xBC a view of the {width}-wide in_proj "
+          f"output): kernel {t['ms']:.4f} ms eager, {t['graph_ms']:.4f} ms device (graph "
+          f"replay); plain {t['plain_ms']:.4f} ms; library (F.conv1d groups=Ch + F.silu) {lib}; "
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), device/bound "
+          f"{t['graph_ms'] / t['bound_ms']:.2f}x; x {cfg.num_layers} launches per prefill = "
+          f"{t['graph_ms'] * cfg.num_layers:.3f} ms, "
+          f"{t['graph_ms'] * cfg.num_layers * 1e6 / (batch * prompt):.1f} ns a token [{smi}]")
+    del proj, x
+    return t
 
 
 def qkv_to_fan_in_d(attns, cfg):
@@ -2152,6 +2231,7 @@ def training_smoke(dev, zero_counts, smi):
     import repro_torch.training as T
     from repro_torch.configs import ModelConfig, get_config, reduce_for_smoke
     from repro_torch.core import simulate
+    from repro_torch.kernels.causal_conv import causal_conv
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gus import gus_assign
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -2183,7 +2263,8 @@ def training_smoke(dev, zero_counts, smi):
     )
     train_launches = {"flash_attention": model_launches("flash_attention"),
                       "decode_attention": model_launches("decode_attention"),
-                      "ssd_scan": model_launches("ssd")}
+                      "ssd_scan": model_launches("ssd"),
+                      "causal_conv": model_launches("causal_conv")}
     check(all(math.isfinite(x) for x in losses), "a training loss is not finite")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> {losses[-1]}")
     check(not any(train_launches.values()),
@@ -2249,9 +2330,12 @@ def training_smoke(dev, zero_counts, smi):
     dt = torch.nn.functional.softplus(randn(dev, (2, 4, 128), "float32", 4)).to(torch.bfloat16)
     A = -torch.rand(4, device=dev)
     Bm, Cm = randn(dev, (2, 1, 128, 64), "bfloat16", 5), randn(dev, (2, 1, 128, 64), "bfloat16", 6)
+    xc = randn(dev, (2, 128, 96), "bfloat16", 7).requires_grad_(True)
+    wc, bc = randn(dev, (4, 96), "bfloat16", 8), randn(dev, (96,), "bfloat16", 9)
     calls = {
         "flash_attention": ("flash_attention", lambda: flash_attention(q, k, k, backend="cuda")),
         "ssd_scan": ("ssd", lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=128, backend="cuda")),
+        "causal_conv": ("causal_conv", lambda: causal_conv(xc, wc, bc, backend="cuda")),
     }
     for name, (kernel, call) in calls.items():
         n0 = model_launches(kernel)
@@ -3100,7 +3184,7 @@ def devices_smoke(dev, zero_counts, fleet, fr, launches, city_fleet, fh, win_arg
     n_cards = torch.cuda.device_count()
     cards = [torch.device("cuda", i) for i in range(n_cards)]
     out = {name: {} for name in ("gus_assign", "hier_cells", "flash_attention",
-                                 "decode_attention", "ssd_scan")}
+                                 "decode_attention", "ssd_scan", "causal_conv")}
 
     # -- 17a. the per-device opt-in ------------------------------------------
     if n_cards >= 2:
@@ -3388,7 +3472,7 @@ def sharded_steps(dev, zero_counts, serve_tokens):
     from repro_torch.serving.engine import make_prefill_step
     from repro_torch.training import make_batch
 
-    out = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}}
+    out = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}, "causal_conv": {}}
     with tempfile.TemporaryDirectory() as store_dir:
         mesh = _mesh_group(1, 0, store_dir)
         try:
@@ -3433,15 +3517,18 @@ def sharded_steps(dev, zero_counts, serve_tokens):
             with torch.no_grad():
                 tok = prefill(p, b, c)[0].full_tensor()
                 n_ssd, routes = model_launches("ssd"), model_routes("ssd")
+                n_conv = model_launches("causal_conv")
                 want = make_prefill_step(smodel)(
                     sparams, sprompt, smodel.init_cache(SERVE_BATCH, SSM_PROMPT + 1, device=dev))[0]
             label = f"phase 17c {SSM_ARCH} sharded prefill (1x1 mesh, {SERVE_BATCH} x {SSM_PROMPT})"
             print(f"{label}: ssd_scan launches={n_ssd} (by route "
-                  f"{json.dumps(routes)}), first tokens equal to the "
-                  f"unsharded prefill's: {torch.equal(tok, want)}")
+                  f"{json.dumps(routes)}), causal_conv launches={n_conv}, first tokens equal "
+                  f"to the unsharded prefill's: {torch.equal(tok, want)}")
             check(n_ssd == scfg.num_layers, f"{label}: {n_ssd} ssd_scan launches")
+            check(n_conv == scfg.num_layers, f"{label}: {n_conv} causal_conv launches")
             check(torch.equal(tok, want), f"{label}: tokens != the unsharded prefill's")
             out["ssd_scan"][label] = n_ssd
+            out["causal_conv"][label] = n_conv
             del sparams, p, b, c, cache
 
             for arch, layers, batch in SHARD_TRAIN:
@@ -3898,7 +3985,7 @@ def main() -> int:
     # -- 1. build ------------------------------------------------------------
     builds = build_libraries(["gus_assign", "hier_cells", "flash_attention",
                               "flash_attention_wgmma", "decode_attention", "ssd_scan",
-                              "ssd_scan_wgmma"])
+                              "ssd_scan_wgmma", "causal_conv"])
     for info in builds.values():
         print(f"build {info.name}: nvcc {info.seconds:.3f} s -> {info.path.name}")
         for line in info.log.splitlines():
@@ -4301,6 +4388,10 @@ def main() -> int:
                                  get_config(SSM_ARCH), smi=smi)
     for name in ("flash_attention", "decode_attention"):
         attn[name][SSM_HYBRID_ARCH] = hybrid_attn[name]  # the same kernel on the hybrid's path
+    conv_launches = ssd.pop("causal_conv_launches")
+
+    # -- 11 (causal conv). the kernel vs plain at mamba2-130m's launch, timed
+    conv = conv_smoke(dev, get_config(SSM_ARCH), smi=smi)
 
     # -- 11. kernel timing (the scheduler kernels) ---------------------------
     def time_kernel(args, reps):
@@ -4513,6 +4604,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:84",
         **ssd,
+    }, {
+        "name": "causal_conv",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/causal_conv.cu",
+        # no TPU kernel: the JAX package's conv is jnp (repro/models/ssm.py::_causal_conv)
+        "replaces": None,
+        "launches_by_path": {**conv_launches, **dev_launches["causal_conv"]},
+        **conv,
     }]}
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

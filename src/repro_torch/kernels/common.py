@@ -1,6 +1,7 @@
-"""What the model kernels (attention and SSD) share: the dtype codes of
-their C interfaces, the per-tensor input check, the strides a TMA tensor
-map takes, and the backend switch.
+"""What the model kernels (attention, SSD and the causal conv) share: the
+dtype codes of their C interfaces, the per-tensor input check, the
+16-byte load test, the strides a TMA tensor map takes, and the backend
+switch.
 
 The model kernels' backend is chosen as GUS's is: an explicit ``backend=``
 (``"torch"`` for the plain version, ``"cuda"`` for the kernel), else the
@@ -23,7 +24,7 @@ import torch
 
 __all__ = [
     "DTYPES", "check_no_grad", "check_tensor", "model_backend", "resolve_model_backend",
-    "tma_strides",
+    "tma_strides", "vector_loads",
 ]
 
 #: dtype codes of the C interfaces
@@ -90,6 +91,17 @@ def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype, shape, device) 
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.shape[-1] > 1 and t.stride(-1) != 1:
         raise ValueError(f"{kernel}: {name} needs a unit stride on its last axis")
+
+
+def vector_loads(tensors, n: int) -> bool:
+    """True when every row the kernel stages starts on a 16-byte boundary
+    and its ``n`` elements fill whole 16-byte vectors, so it may load 16
+    bytes at a time."""
+    per16 = 16 // tensors[0].element_size()
+    return n % per16 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(s % per16 == 0 for s in t.stride()[:-1])
+        for t in tensors
+    )
 
 
 def tma_strides(kernel: str, name: str, t: torch.Tensor):

@@ -42,8 +42,8 @@ import torch
 
 from ..obs import counters
 from .build import load_library
-from .common import DTYPES, check_no_grad, check_tensor, resolve_model_backend
-from .flash_attention import check_head_dim, masked_softmax_pv, vector_loads
+from .common import DTYPES, check_no_grad, check_tensor, resolve_model_backend, vector_loads
+from .flash_attention import check_head_dim, masked_softmax_pv
 
 __all__ = ["MAX_REP", "decode_attention", "decode_attention_ref", "decode_splits"]
 

@@ -45,7 +45,8 @@ import torch
 
 from ..obs import counters
 from .build import load_library
-from .common import DTYPES, check_no_grad, check_tensor, resolve_model_backend, tma_strides
+from .common import (DTYPES, check_no_grad, check_tensor, resolve_model_backend, tma_strides,
+                     vector_loads)
 
 __all__ = [
     "NEG_INF",
@@ -116,16 +117,6 @@ def check_head_dim(kernel: str, hd: int, dtype) -> None:
         raise TypeError(f"{kernel}: dtype {dtype} is not float32 or bfloat16")
     if hd % 4 or hd > MAX_HEAD_DIM:
         raise ValueError(f"{kernel}: head_dim {hd} must be a multiple of 4 and <= {MAX_HEAD_DIM}")
-
-
-def vector_loads(tensors, hd: int) -> bool:
-    """True when every row the kernel stages starts on a 16-byte boundary,
-    so it may load 16 bytes at a time."""
-    per16 = 16 // tensors[0].element_size()
-    return hd % per16 == 0 and all(
-        t.data_ptr() % 16 == 0 and all(s % per16 == 0 for s in t.stride()[:-1])
-        for t in tensors
-    )
 
 
 def _library() -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-"""Model-layout adapters for the model kernels (attention, SSD).
+"""Model-layout adapters for the model kernels (attention, SSD, causal conv).
 
 The port's counterpart of ``repro/kernels/ops.py``: the model keeps q
 ``(B, S, H, hd)`` and k/v ``(B, T, KV, hd)``; the attention kernels take
@@ -12,6 +12,8 @@ Unlike the reference's ``ops.ssd``, the SSD adapter neither repeats B and
 C over heads (the kernel reads group ``h // (H // G)`` by index) nor falls
 back to the plain version when ``S % chunk != 0`` (the kernel takes a
 ragged last chunk itself, by the reference's dt = 0 padding rule).
+The causal conv's adapter only splits DTensors: the kernel takes the
+model's layout as it is.
 
 **DTensor inputs** (the sharded steps of ``launch/steps.py``): each rank
 runs the kernel (or, on the CPU and the plain route, the plain version) on
@@ -21,11 +23,14 @@ q's batch must shard k/v's batch, one that shards the heads gives each rank
 ``H / n`` query heads, and where the KV heads are replicated (yi-9b's 4 KV
 heads on a model axis of 8) each rank takes the KV heads its query heads
 read (head ``h`` reads ``h // rep``), so the local ``rep`` stays the
-global one.  Any other layout of q (a partial sum, a sharded sequence) is
-first redistributed to a local one.  A KV cache sharded on its sequence
-(the ``kv_seq`` rules) raises on the kernel route, never falls back; the
-plain route gathers the sequence first.  The no-backward guard and the TMA
-stride checks of the wrappers apply to the local shards unchanged.
+global one.  The causal conv works per channel, so its batch and channel
+shards are local work, each rank taking the matching channels of the
+taps, the bias and the conv state.  Any other layout of q (a partial sum,
+a sharded sequence) is first redistributed to a local one.  A KV cache
+sharded on its sequence (the ``kv_seq`` rules) raises on the kernel route,
+never falls back; the plain route gathers the sequence first.  The
+no-backward guard and the TMA stride checks of the wrappers apply to the
+local shards unchanged.
 """
 from __future__ import annotations
 
@@ -34,12 +39,13 @@ from typing import Optional
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from .causal_conv import causal_conv as _conv_kernel
 from .common import resolve_model_backend
 from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import flash_attention as _flash_kernel
 from .ssd_scan import ssd_scan as _ssd_kernel
 
-__all__ = ["flash_attention", "decode_attention", "ssd", "on_local_heads"]
+__all__ = ["flash_attention", "decode_attention", "ssd", "causal_conv", "on_local_heads"]
 
 
 def _keep_only(t: DTensor, local_dims) -> DTensor:
@@ -119,6 +125,18 @@ def _local_kv(q: DTensor, kv: DTensor, q_heads: int, kv_heads: int, name: str) -
     if hl == H or kl < KV:  # heads not split, or the KV heads split beside them
         return local
     return local.narrow(kv_heads, *_kv_head_span(H, KV, h0, hl, name))
+
+
+def _laid(t, x: DTensor, dims) -> DTensor:
+    """``t`` (a plain tensor is the same on every rank) sharded where ``x``
+    shards the dimensions ``dims`` maps (x's dimension -> t's), replicated
+    elsewhere."""
+    mesh = x.device_mesh
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    pl = tuple(Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims else Replicate()
+               for p in x.placements)
+    return t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
 
 
 def _wrap(local: torch.Tensor, like: DTensor, placements=None) -> DTensor:
@@ -205,23 +223,12 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, return_final_state: bool = False,
     if isinstance(x, DTensor):
         x = _keep_only(x, (0, 2, 3))
         kw = dict(chunk=chunk, return_final_state=return_final_state, backend=backend)
-        mesh = x.device_mesh
-
-        def laid(t, dims):
-            """t (a plain tensor is the same on every rank) sharded where x
-            shards the dimensions ``dims`` maps, replicated elsewhere."""
-            if not isinstance(t, DTensor):
-                t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-            pl = tuple(Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
-                       else Replicate() for p in x.placements)
-            return t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
-
-        dt = laid(dt, {0: 0, 2: 2})
-        A = laid(A, {2: 0})
-        Bm = _match(laid(Bm, {0: 0}), x, 0, 2, 0, 1, 2, False, "ssd")
-        Cm = _match(laid(Cm, {0: 0}), x, 0, 2, 0, 1, 2, False, "ssd")
+        dt = _laid(dt, x, {0: 0, 2: 2})
+        A = _laid(A, x, {2: 0})
+        Bm = _match(_laid(Bm, x, {0: 0}), x, 0, 2, 0, 1, 2, False, "ssd")
+        Cm = _match(_laid(Cm, x, {0: 0}), x, 0, 2, 0, 1, 2, False, "ssd")
         if initial_state is not None:
-            kw["initial_state"] = _local(laid(initial_state, {0: 0, 2: 1, 3: 3}), x)
+            kw["initial_state"] = _local(_laid(initial_state, x, {0: 0, 2: 1, 3: 3}), x)
         res = ssd(x.to_local(), _local(dt, x), _local(A, x), _local_kv(x, Bm, 2, 2, "ssd"),
                   _local_kv(x, Cm, 2, 2, "ssd"), **kw)
         y, fin = res if return_final_state else (res, None)
@@ -239,3 +246,21 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128, return_final_state: bool = False,
         backend=backend, out=y.transpose(1, 2),
     )
     return (y, res[1]) if return_final_state else y
+
+
+def causal_conv(xBC, w, b, conv_state=None, *, return_state: bool = True,
+                backend: Optional[str] = None):
+    """Model layout: xBC (B, S, Ch), w (W, Ch), b (Ch,), conv_state
+    (B, W-1, Ch) or ``None`` -> (silu(conv(xBC) + b) (B, S, Ch), the new
+    conv state (B, W-1, Ch) or ``None``), by ``kernels.causal_conv``.
+    DTensors: on each rank's shards of the batch and the channels (module
+    docstring); the outputs keep xBC's placements."""
+    if isinstance(xBC, DTensor):
+        x = _keep_only(xBC, (0, 2))
+        if conv_state is not None:
+            conv_state = _local(_laid(conv_state, x, {0: 0, 2: 2}), x)
+        out, state = causal_conv(x.to_local(), _local(_laid(w, x, {2: 1}), x),
+                                 _local(_laid(b, x, {2: 0}), x), conv_state,
+                                 return_state=return_state, backend=backend)
+        return _wrap(out, x), None if state is None else _wrap(state, x)
+    return _conv_kernel(xBC, w, b, conv_state, return_state=return_state, backend=backend)

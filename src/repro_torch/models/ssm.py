@@ -15,9 +15,15 @@ Block layout (mamba2-130m / zamba2 style):
   gate    : y = RMSNormGated(y * silu(z))
   out_proj: d_inner -> d
 
+The causal conv with its bias and SiLU goes through ``kops.causal_conv``:
+one Hopper kernel for CUDA tensors on the ``"cuda"`` model backend (on
+each rank's shards for DTensors), else the plain expression
+(``_causal_conv``, then ``F.silu``).
+
 Under a recording ``torch.profiler`` profile :func:`apply_mamba`'s passes
 are spans (``obs.profiler.annotate``): ``ssm/in_proj``, ``ssm/conv`` (the
-causal conv's pad, concatenation, taps and bias, and the SiLU),
+causal conv, its bias and the SiLU: the kernel's launch, or the plain
+version's pad, concatenation, taps, bias and SiLU),
 ``ssm/dt`` (softplus(dt + bias) and A), ``ssm/scan`` (the SSD kernel or
 its plain form), ``ssm/gated_norm`` and ``ssm/out_proj``; the D skip
 between the scan and the gated norm is the enclosing span's own.
@@ -31,6 +37,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
+from ..kernels.causal_conv import causal_conv_ref as _causal_conv  # noqa: F401
 from ..kernels.ssd_scan import ssd_reference
 from ..obs.profiler import annotate
 from ..sharding import shard
@@ -79,22 +86,6 @@ def _split_proj(z_all, cfg: ModelConfig):
     return torch.split(z_all, [di, di + 2 * G * N, H], dim=-1)
 
 
-def _causal_conv(xBC, w, b, conv_state=None):
-    """Depthwise causal conv1d.  xBC: (B, S, Ch); w: (W, Ch).
-    If conv_state (B, W-1, Ch) is given, it is prepended (decode/streaming).
-    The taps are summed in the reference's order, starting from Python's 0,
-    since that order decides the bf16 rounding."""
-    W = w.shape[0]
-    if conv_state is None:
-        pad = torch.zeros((xBC.shape[0], W - 1, xBC.shape[2]), dtype=xBC.dtype, device=xBC.device)
-    else:
-        pad = conv_state
-    xp = torch.cat([pad, xBC], dim=1)                        # (B, S+W-1, Ch)
-    out = sum(xp[:, i : i + xBC.shape[1], :] * w[i] for i in range(W))
-    new_state = xp[:, -(W - 1) :, :] if W > 1 else None
-    return out + b, new_state
-
-
 def _gated_rmsnorm(y, z, scale, eps):
     y = y * F.silu(z)
     y32 = y.float()
@@ -119,8 +110,8 @@ def apply_mamba(p, x, cfg: ModelConfig, conv_state=None, ssm_state=None, return_
         zall = x @ p["in_proj"]
     z, xBC, dt = _split_proj(zall, cfg)
     with annotate("ssm/conv"):
-        xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
-        xBC = F.silu(xBC)
+        xBC, new_conv = kops.causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state,
+                                         return_state=return_state)
     xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
     xs = shard(xs.unflatten(-1, (H, P)), "batch", None, "ssm_heads", "ssm_headdim")
     Bm = Bm.unflatten(-1, (G, N))
@@ -161,8 +152,7 @@ def mamba_decode_step(p, x, cfg: ModelConfig, conv_state, ssm_state):
     di, H, P, G, N = _dims(cfg)
     zall = x @ p["in_proj"]
     z, xBC, dt = _split_proj(zall, cfg)
-    xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
-    xBC = F.silu(xBC)
+    xBC, new_conv = kops.causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
     xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
     xs = xs.reshape(B, H, P)
     Bm = Bm.reshape(B, G, N)

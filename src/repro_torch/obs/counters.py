@@ -8,10 +8,13 @@ Always on: an :func:`add` is one dict update under a lock.  A reader takes
   ``ServingEngine.generate`` call (``serving/engine.py``);
 * ``kernel.launches.<kernel>.<route>``: one for each call of a model
   kernel's wrapper, counted where it launches (``kernels/flash_attention.py``,
-  ``kernels/ssd_scan.py``, ``kernels/decode_attention.py``): the route it
-  launched on the card (:data:`ROUTES`), or ``plain`` where the wrapper ran
-  its plain version (CPU tensors, or the ``torch`` backend).  A call that
-  launches nothing (an empty batch) counts nothing;
+  ``kernels/ssd_scan.py``, ``kernels/decode_attention.py``,
+  ``kernels/causal_conv.py``): the route it launched on the card
+  (:data:`ROUTES`), or ``plain`` where the wrapper ran its plain version
+  (CPU tensors, or the ``torch`` backend).  The Mamba-2 causal conv's plain
+  version is the model's own expression (the reference's conv had no
+  kernel), so ``causal_conv`` counts only its launches, never ``plain``.
+  A call that launches nothing (an empty batch) counts nothing;
 * ``kernel.builds``: one for each kernel library ``nvcc`` builds
   (``kernels/build.py``).
 
@@ -27,7 +30,7 @@ __all__ = ["ROUTES", "add", "snapshot", "delta", "launch_names", "launches", "ro
 
 #: each model kernel's routes on the card, as its launch counters name them
 ROUTES = {"flash_attention": ("wgmma", "simt"), "ssd": ("wgmma", "simt"),
-          "decode_attention": ("cuda",)}
+          "decode_attention": ("cuda",), "causal_conv": ("cuda",)}
 
 _LOCK = threading.Lock()
 _COUNTS: Dict[str, int] = {}

@@ -9,7 +9,8 @@ families against the reference's, on the CPU.
   C repeated over heads; the port's takes them per group.
 * The final state against ``ssd_reference(return_final_state=True)``, with
   and without an initial state and a ragged S.
-* The layer's pieces: ``_causal_conv`` with and without a state,
+* The layer's pieces: ``_causal_conv`` with and without a state (and,
+  off the card, ``apply_mamba``'s conv through the unchanged expression),
   ``_gated_rmsnorm``, ``apply_mamba`` with ``return_state`` and several
   ``mamba_decode_step``s, on the reference's own weights.
 * Both families at ``reduce_for_smoke`` sizes (4 layers, so the hybrid has
@@ -27,12 +28,18 @@ matrix products and reductions in another order); bf16 ``rtol=atol=2e-2``
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch.nn.functional as F  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -291,6 +298,61 @@ def test_causal_conv_matches_reference(dtype, with_state):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
     # the new state is the last W-1 inputs, exactly
     np.testing.assert_array_equal(gst.float().numpy(), np.asarray(wst, np.float32))
+
+
+@pytest.mark.parametrize("scope", ["cpu", "torch_backend"])
+def test_apply_mamba_off_the_card_runs_the_plain_conv(monkeypatch, scope):
+    """On CPU tensors, and under ``model_backend("torch")``, the conv is the
+    unchanged expression (``_causal_conv``, then ``F.silu``), once a call:
+    the wrapper never reaches the kernel's library and counts no launch."""
+    from repro_torch.kernels import causal_conv as conv_module
+    from repro_torch.kernels.common import model_backend
+
+    _, port, _, tp = _layer("mamba2-130m")
+    calls = []
+
+    def plain(*args):
+        calls.append(len(args))
+        return tssm._causal_conv(*args)
+
+    def no_library():
+        raise AssertionError("the plain route loaded the kernel's library")
+
+    monkeypatch.setattr(conv_module, "causal_conv_ref", plain)
+    monkeypatch.setattr(conv_module, "_library", no_library)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 13, port.d_model))
+                         .astype(np.float32))
+    di, H, P, G, N = tssm._dims(port)
+    cv = torch.randn((2, port.ssm_conv - 1, di + 2 * G * N), generator=torch.Generator()
+                     .manual_seed(1))
+    before = counters.snapshot()
+    with model_backend("torch") if scope == "torch_backend" else contextlib.nullcontext():
+        y, (conv, _) = tssm.apply_mamba(tp, x, port, return_state=True)
+        y2, cv2, _ = tssm.mamba_decode_step(tp, x[:, :1], port, cv, tssm.init_ssm_state(
+            port, 2)[1])
+        xBC = tssm._split_proj(x @ tp["in_proj"], port)[1]
+        got, got_st = conv_module.causal_conv(xBC, tp["conv_w"], tp["conv_b"], cv)
+    assert calls == [4, 4, 4]
+    assert not any(k.startswith("kernel.launches.causal_conv") for k in counters.delta(before))
+    want, want_st = tssm._causal_conv(xBC, tp["conv_w"], tp["conv_b"], cv)
+    assert torch.equal(got, F.silu(want)) and torch.equal(got_st, want_st)
+    assert torch.equal(conv, tssm._causal_conv(xBC, tp["conv_w"], tp["conv_b"])[1])
+    x1 = tssm._split_proj(x[:, :1] @ tp["in_proj"], port)[1]
+    assert torch.equal(cv2, torch.cat([cv, x1], 1)[:, 1:])
+
+
+def test_causal_conv_module_imports_without_nvcc():
+    """Importing the wrapper builds and loads nothing: no ``nvcc`` on the
+    path, and no library loaded afterwards."""
+    code = ("import shutil; import repro_torch.kernels.causal_conv as m; "
+            "from repro_torch.kernels import build; "
+            "assert shutil.which('nvcc') is None; assert not build._LOADED; print('ok')")
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable),
+               PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    env.pop("CUDA_HOME", None)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

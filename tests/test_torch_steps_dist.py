@@ -316,3 +316,39 @@ def test_plain_attention_on_local_heads_is_bitwise(mesh1, fn, H, KV):
     y.backward(_on(mesh1, g, pl))
     for d, t in ((qd, q), (kd, k), (vd, v)):
         assert torch.equal(d.grad.full_tensor(), t.grad)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("x_pl", ["batch_channels", "replicated"])
+def test_causal_conv_on_local_shards_is_bitwise(mesh1, x_pl, with_state):
+    """``ops.causal_conv`` on a DTensor xBC runs the conv on each rank's
+    shards of the batch and the channels, the taps, the bias and the conv
+    state cut to match (the plain version on the CPU): the output, the new
+    state and the gradients of xBC, the taps and the bias equal the plain
+    tensors' bit for bit, and the outputs keep xBC's placements."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.ssm import _causal_conv
+
+    rng = np.random.default_rng(7 + with_state)
+    Bsz, S, Ch, Wd = 2, 9, 12, 4
+    x, w, b = _leaf(rng, (Bsz, S, Ch)), _leaf(rng, (Wd, Ch)), _leaf(rng, (Ch,))
+    cv = _leaf(rng, (Bsz, Wd - 1, Ch)) if with_state else None
+    g = torch.from_numpy(rng.standard_normal((Bsz, S, Ch)).astype(np.float32))
+    pre, want_st = _causal_conv(x, w, b, cv)
+    want = F.silu(pre)
+    want.backward(g)
+    b_grad, b.grad = b.grad, None
+    pl = [Shard(0), Shard(2)] if x_pl == "batch_channels" else [Replicate(), Replicate()]
+    xd, wd, bd = _on(mesh1, x, pl), _on(mesh1, w, [Replicate(), Shard(1)]), b  # b: plain
+    cd = None if cv is None else _on(mesh1, cv, [Shard(0), Shard(2)])
+    y, st = ops.causal_conv(xd, wd, bd, cd)
+    assert tuple(y.placements) == tuple(st.placements) == tuple(pl)
+    assert torch.equal(y.full_tensor(), want) and torch.equal(st.full_tensor(), want_st)
+    y.backward(_on(mesh1, g, pl))
+    assert torch.equal(xd.grad.full_tensor(), x.grad)
+    assert torch.equal(wd.grad.full_tensor(), w.grad) and torch.equal(b.grad, b_grad)
+    if cd is not None:
+        assert torch.equal(cd.grad.full_tensor(), cv.grad)
