@@ -21,13 +21,14 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from . import check as checks
-from .manifest import BENCH, load_module
+from .manifest import BENCH, family, load_module
+from .spans import SpanSummary, by_span_table
 from .trace import TraceSummary, Tracer
 from .traffic import Traffic
 from .weights import layout, leaves, make_weights
 
-__all__ = ["Batch", "Run", "program_config", "Program", "serve_window", "check_outputs",
-           "run_cell", "process_seconds"]
+__all__ = ["Batch", "Run", "program_config", "Program", "serve_window", "serve_run",
+           "metric_values", "check_outputs", "run_cell", "process_seconds"]
 
 #: the configuration file's keys that are not settings of the program
 _META = {"name", "arch", "source", "paper", "reduced", "assumed", "published",
@@ -53,6 +54,9 @@ class Run:
     window_s: float
     setup_s: float
     trace: Optional[TraceSummary]   # with --trace 1
+    spans: Optional[SpanSummary] = None   # with --trace 1
+    #: the program's counters that grew over the window (``obs.counters``)
+    counters: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def process_seconds() -> float:
@@ -139,7 +143,9 @@ def _power_limit() -> str:
         return "unknown"
 
 
-def _metric_values(kind: str, metrics: List[dict], run: Run) -> Dict[str, Dict[str, Any]]:
+def metric_values(kind: str, metrics: List[dict], run: Run) -> Dict[str, Dict[str, Any]]:
+    """{name: {"value", "unit"}} of ``metrics``, each read by its file
+    under ``bench/<kind>/``; a metric that reads nothing is left out."""
     out = {}
     for m in metrics:
         mod = load_module(BENCH / kind / f"{m['name']}.py")
@@ -165,13 +171,14 @@ def check_outputs(c: dict, cell: dict, weights, traffic: Traffic, batches: List[
     with ``control`` also the control's (``control_gap``)."""
     from bench.reference import logits_at
 
+    trunk = family(c).reference.trunk
     t0 = time.perf_counter()
     picks = checks.sample_requests(batches, int(cell["check"]["requests"]), seed,
                                    cell["check"].get("rest", "any"))
     seqs, at, served = checks.compared_sequences(batches, picks, traffic, dev)
-    ref = logits_at(c, weights, seqs, at)
+    ref = logits_at(c, weights, seqs, at, trunk=trunk)
     ref_s = time.perf_counter() - t0
-    ctl = logits_at(c, weights, seqs, at, "fp8") if control else None
+    ctl = logits_at(c, weights, seqs, at, "fp8", trunk=trunk) if control else None
     gap, ctl_gap, n_tokens = checks.widest_gaps(ref, served, ctl)
     log(f"check: {len(picks)} requests, {n_tokens} served tokens against the reference in "
         f"{ref_s:.1f} s", file=sys.stderr)
@@ -181,25 +188,25 @@ def check_outputs(c: dict, cell: dict, weights, traffic: Traffic, batches: List[
     return out
 
 
-def run_cell(spec: dict, metrics: Dict[str, List[dict]], seed: int, seconds: float,
-             trace: bool, device, program_cfg=None, log=print, control: bool = False,
-             batches: Optional[int] = None) -> Dict[str, Any]:
-    """One run of cell ``spec`` (``manifest.find_cell``'s); the result's
-    line as a dict.  ``program_cfg`` stands in for the registry's
-    configuration (the tests' small models).  For the readings that a
-    limit is set from (``bench/limits.py``), ``control`` adds the control's
-    gap to the result's ``check`` and ``batches`` ends the window after
-    that many batches instead of ``seconds``."""
+def serve_run(spec: dict, seed: int, seconds: float, trace: bool, device, program_cfg=None,
+              batches: Optional[int] = None, log=print):
+    """Set-up, warm-up and the measured window of one run of cell ``spec``
+    (``manifest.find_cell``'s), traced with ``trace`` over at most the
+    mix's traced window: (the :class:`Run`, the weights, the traffic, the
+    card's memory peak in bytes).  ``program_cfg`` stands in for the
+    registry's configuration (the tests' small models); ``batches`` ends
+    the window after that many batches instead of ``seconds``."""
     import torch
 
     marks = [("imports", process_seconds())]
-    c, cell = spec["config"], spec["cell"]
+    c = spec["config"]
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(dev)) if on_card else None
     cfg = program_cfg if program_cfg is not None else program_config(c)
     import repro_torch.models  # noqa: F401  (the program's modules, timed apart)
     import repro_torch.serving  # noqa: F401
+    from repro_torch.obs import counters
 
     _mark(marks, "program imports", None)
     torch.empty(1, device=dev)
@@ -215,14 +222,33 @@ def run_cell(spec: dict, metrics: Dict[str, List[dict]], seed: int, seconds: flo
     log("set-up: " + ", ".join(f"{k} done at {v:.2f} s" for k, v in marks), file=sys.stderr)
     window = min(seconds, traffic.trace_seconds) if trace else seconds
     tracer = Tracer(trace)
+    before = counters.snapshot()
     done, window_s = serve_window(program, traffic, window, dev, tracer, batches)
+    counts = counters.delta(before)
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
-    run = Run(c, done, window_s, setup_s, tracer.summary())
-    values = _metric_values("metrics" if trace else "e2e",
-                            metrics["per_layer" if trace else "end_to_end"], run)
+    run = Run(c, done, window_s, setup_s, tracer.summary(), tracer.spans, counts)
+    return run, weights, traffic, peak
+
+
+def run_cell(spec: dict, metrics: Dict[str, List[dict]], seed: int, seconds: float,
+             trace: bool, device, program_cfg=None, log=print, control: bool = False,
+             batches: Optional[int] = None) -> Dict[str, Any]:
+    """One run of cell ``spec`` (``manifest.find_cell``'s): :func:`serve_run`,
+    the metrics and the output check; the result's line as a dict.  For the
+    readings that a limit is set from (``bench/limits.py``), ``control``
+    adds the control's gap to the result's ``check``."""
+    import torch
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    c, cell = spec["config"], spec["cell"]
+    run, weights, traffic, peak = serve_run(spec, seed, seconds, trace, dev, program_cfg,
+                                            batches, log)
+    done = run.batches
+    values = metric_values("metrics" if trace else "e2e",
+                           metrics["per_layer" if trace else "end_to_end"], run)
 
     # the output check, with the program's state freed
-    del program
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -247,8 +273,11 @@ def run_cell(spec: dict, metrics: Dict[str, List[dict]], seed: int, seconds: flo
         log("device seconds by kind: " + ", ".join(
             f"{k} {v:.4f} ({100 * v / run.trace.busy_s:.1f}%)"
             for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])), file=sys.stderr)
+        log("device seconds by span: " + by_span_table(run.spans), file=sys.stderr)
+        log("counters: " + ", ".join(f"{k} {v}" for k, v in sorted(run.counters.items())),
+            file=sys.stderr)
     log(f"card: {_power_limit() if on_card else 'none'}; {len(done)} batches, {requests} "
-        f"requests in {window_s:.3f} s", file=sys.stderr)
+        f"requests in {run.window_s:.3f} s", file=sys.stderr)
     result["check"] = checked
     result["compared"] = {"widest_logit_gap": {"value": gap, "limit": limit},
                           "failed_requests": {"value": 0, "limit": 0}}

@@ -11,8 +11,17 @@ under ``bench/``, found by its name:
   bench/e2e/<metric>.py          an end-to-end metric: ``value(run)``
   bench/metrics/<metric>.py      a per-layer metric: ``read(run)``
 
-A later change adds a configuration, a mix, a cell or a metric by adding
-files and entries; no file here names one of them.
+and each model family, by the ``family`` of a configuration file, in two:
+
+  bench/families/<family>.py     its parameter layout and the sizes the
+                                 metrics count: ``WIDTHS``, ``layout(c)``,
+                                 ``matmul_weights(c)``, ``attention(c)``,
+                                 ``ssd_blocks(c)``
+  bench/reference/<family>.py    its trunk in the plain reference:
+                                 ``trunk(c, weights, hs, precision)``
+
+A later change adds a configuration, a family, a mix, a cell or a metric by
+adding files and entries; no file here names one of them.
 """
 from __future__ import annotations
 
@@ -20,13 +29,15 @@ import importlib.util
 import json
 from pathlib import Path
 from types import ModuleType
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Optional
 
 BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
+#: where a family's two files are found by its name
+FAMILIES, REFERENCE = BENCH / "families", BENCH / "reference"
 
-__all__ = ["BENCH", "ROOT", "load_manifest", "find_cell", "load_json", "load_module",
-           "cell_metrics"]
+__all__ = ["BENCH", "ROOT", "FAMILIES", "REFERENCE", "Family", "family", "load_manifest",
+           "find_cell", "load_json", "load_module", "cell_metrics"]
 
 
 def load_json(path: Path) -> dict:
@@ -60,14 +71,34 @@ def find_cell(manifest: dict, name: str) -> dict:
     }
 
 
-def load_module(path: Path) -> ModuleType:
+def load_module(path: Path, package: Optional[str] = None) -> ModuleType:
     """A Python file loaded by its path (metric files carry dots in their
-    names, so they are not importable by name)."""
-    spec = importlib.util.spec_from_file_location(f"bench_file_{path.stem.replace('.', '_')}",
-                                                  path)
+    names, so they are not importable by name); as a module of
+    ``package``, where given, so that its relative imports resolve there."""
+    name = (f"{package}.{path.stem}" if package
+            else f"bench_file_{path.stem.replace('.', '_')}")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+class Family(NamedTuple):
+    #: ``bench/families/<family>.py``: layout, widths and the counted sizes
+    model: ModuleType
+    #: ``bench/reference/<family>.py``: the plain reference's trunk
+    reference: ModuleType
+
+
+def family(c: dict) -> Family:
+    """The files of configuration ``c``'s ``family``; raises where either
+    is missing."""
+    name = c["family"]
+    paths = (FAMILIES / f"{name}.py", REFERENCE / f"{name}.py")
+    if not (name.isidentifier() and all(p.is_file() for p in paths)):
+        raise ValueError(f"no model family {name!r}: looked for {paths[0]} and {paths[1]}")
+    return Family(load_module(paths[0], "bench.families"),
+                  load_module(paths[1], "bench.reference"))
 
 
 def _applies(metric: dict, cell: str) -> bool:

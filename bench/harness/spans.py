@@ -17,21 +17,23 @@ every device-side range of a span left out (``bench/window`` and
 ``bench/batch`` as before, and any other span that has one), and each
 idle gap labelled ``<innermost program span> / <innermost host op>``
 (``... / host (between ops)`` where no op is open); with no program span
-open the label is the host op's alone, as :func:`.trace.summarize` gives
-it.  Beside it a :class:`SpanSummary`: device seconds by span, with and
-without the children's, and the idle seconds by the part of the serving
-path the host was in at the gap's middle.  :data:`METRICS` are the
-per-layer metrics that read them; :class:`SpanTracer` is the benchmark's
-:class:`.trace.Tracer` that gives both.
+open the label is the innermost host op's alone.  Beside it a
+:class:`SpanSummary`: device seconds by span, with and without the
+children's, and the idle seconds by the part of the serving path the host
+was in at the gap's middle.  It is the benchmark's only reduction of a
+trace (:meth:`.trace.Tracer.summary`).  :data:`METRICS` are the per-layer
+metrics that read a run's spans and counters, one file each under
+``bench/metrics/`` (:func:`read_metric`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-from .trace import HOST_ONLY, WINDOW_SPAN, TraceSummary, Tracer, union_busy
+from .trace import HOST_ONLY, TraceSummary, union_busy
 
-__all__ = ["SpanSummary", "SpanTracer", "summarize", "is_span", "METRICS", "by_span_table"]
+__all__ = ["SpanSummary", "summarize", "is_span", "idle_ms_per_batch", "ns_per_token", "METRICS",
+           "read_metric", "by_span_table"]
 
 #: the program's spans named without a ``/``
 BARE_SPANS = ("norm", "mlp")
@@ -155,7 +157,9 @@ def summarize(device_events, host_events, window: Tuple[float, float]
                               sum(1 for _, a, _ in spans if a >= 0))
 
 
-def _per_batch_ms(scope: str):
+def idle_ms_per_batch(scope: str):
+    """The reader of idle ms a batch whose gaps' middles lie in ``scope``
+    (``engine``, ``model`` or ``outside``)."""
     def read(spans: SpanSummary, counts: Dict[str, int]) -> Optional[float]:
         batches = counts.get("serve.batches", 0)
         if not batches or GENERATE not in spans.device_s:
@@ -164,7 +168,9 @@ def _per_batch_ms(scope: str):
     return read
 
 
-def _ns_per_token(*names: str):
+def ns_per_token(*names: str):
+    """The reader of the device ns a prompt token of the kernels launched
+    inside the spans ``names``; ``None`` where none ran."""
     def read(spans: SpanSummary, counts: Dict[str, int]) -> Optional[float]:
         tokens = counts.get("serve.prompt_tokens", 0)
         seconds = sum(spans.device_s.get(n, 0.0) for n in names)
@@ -177,15 +183,23 @@ def _ns_per_token(*names: str):
 METRICS: Dict[str, Callable[[SpanSummary, Dict[str, int]], Optional[float]]] = {
     # device idle a batch whose middle the host spent in the engine's own
     # code (cache allocation, the waits, the greedy pick, the copy out)
-    "engine_idle_ms_per_batch.prefill": _per_batch_ms("engine"),
+    "engine_idle_ms_per_batch.prefill": idle_ms_per_batch("engine"),
     # ... and inside the model's prefill (host dispatch of the layers)
-    "model_idle_ms_per_batch.prefill": _per_batch_ms("model"),
-    # device time of the norms (the layers' and the final one, and the
-    # Mamba-2 block's gated norm) a prompt token
-    "norm_ns_per_tok.prefill": _ns_per_token("norm", "ssm/gated_norm"),
-    # device time of the Mamba-2 block's causal conv and SiLU a prompt token
-    "ssm_conv_ns_per_tok.prefill": _ns_per_token("ssm/conv"),
+    "model_idle_ms_per_batch.prefill": idle_ms_per_batch("model"),
+    # device time of the norms (the layers' pre-norms and the final one) a
+    # prompt token
+    "norm_ns_per_tok.prefill": ns_per_token("norm"),
+    # ... of the Mamba-2 block's gated norm
+    "gated_norm_ns_per_tok.prefill": ns_per_token("ssm/gated_norm"),
+    # ... of the Mamba-2 block's causal conv and SiLU
+    "ssm_conv_ns_per_tok.prefill": ns_per_token("ssm/conv"),
 }
+
+
+def read_metric(name: str, run) -> Optional[float]:
+    """:data:`METRICS` ``name`` of a run (``cell.Run``): ``None`` unless
+    it was traced."""
+    return None if run.spans is None else METRICS[name](run.spans, run.counters)
 
 
 def by_span_table(spans: SpanSummary, top: int = 15) -> str:
@@ -195,40 +209,3 @@ def by_span_table(spans: SpanSummary, top: int = 15) -> str:
     rows = sorted(spans.device_s.items(), key=lambda kv: -kv[1])[:top]
     return ", ".join(f"{n} {s:.4f} (self {spans.self_s.get(n, 0.0):.4f}, {100 * s / total:.1f}%)"
                      for n, s in rows)
-
-
-class SpanTracer(Tracer):
-    """:class:`.trace.Tracer` whose :meth:`summary` leaves out every span's
-    device-side range and labels idle gaps by span, and which keeps the
-    :class:`SpanSummary` of the window in :attr:`spans`."""
-
-    spans: Optional[SpanSummary] = None
-
-    def summary(self) -> Optional[TraceSummary]:
-        if self._prof is None:
-            return None
-        import torch
-
-        cuda = torch.autograd.DeviceType.CUDA
-        device, host, window, thread = [], [], None, None
-        for e in self._prof.profiler.kineto_results.events():
-            a, n, name = e.start_ns(), e.duration_ns(), e.name()
-            if e.device_type() == cuda:
-                device.append((name, a, a + n, e.correlation_id(), e.is_user_annotation()))
-                continue
-            host.append((name, a, a + n, e.correlation_id(), e.start_thread_id()))
-            if name == WINDOW_SPAN:
-                window, thread = (a, a + n), e.start_thread_id()
-        if window is None:
-            raise RuntimeError(f"the trace holds no {WINDOW_SPAN} span")
-        base = window[0]
-
-        def s(ns):
-            return (ns - base) * 1e-9
-
-        trace, self.spans = summarize(
-            [(n, s(a), s(b), c, u) for n, a, b, c, u in device],
-            [(n, s(a), s(b), c) for n, a, b, c, t in host if t == thread],
-            (0.0, s(window[1])))
-        return trace
-

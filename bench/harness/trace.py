@@ -1,13 +1,13 @@
 """The device trace of a ``--trace 1`` run, from ``torch.profiler``.
 
 The traced window is the benchmark's own span ``bench/window`` around the
-closed loop; each batch is a span ``bench/batch``.  From the profiler's
-events this module keeps every device operation inside the window (its
-name, start and length), the seconds in which one ran (the union of their
-intervals), and the idle gaps between them, each named by what the host
-was doing at the gap's middle: the innermost host operation of the loop's
-thread open then, or ``host (between ops)`` where only the benchmark's own
-spans were.
+closed loop; each batch is a span ``bench/batch``.  A :class:`TraceSummary`
+keeps every device operation inside the window (its name, start and
+length), the seconds in which one ran (the union of their intervals), and
+the idle gaps between them, each named by what the host was doing at the
+gap's middle.  :class:`Tracer` records the window and reduces its events
+with :func:`.spans.summarize`, the one reduction, which also splits the
+window by the program's spans.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["TraceSummary", "Tracer", "summarize", "union_busy", "HOST_ONLY"]
+__all__ = ["TraceSummary", "Tracer", "union_busy", "HOST_ONLY"]
 
 WINDOW_SPAN, BATCH_SPAN = "bench/window", "bench/batch"
 HOST_ONLY = "host (between ops)"
@@ -60,54 +60,16 @@ def union_busy(intervals: List[Tuple[float, float]]) -> Tuple[float, List[Tuple[
     return sum(b - a for a, b in merged), [(a, b) for a, b in merged]
 
 
-def summarize(device_events, host_events, window: Tuple[float, float]) -> TraceSummary:
-    """``device_events`` (name, start, end) and ``host_events`` (name,
-    start, end) of the loop's thread, in seconds of one clock; ``window``
-    (start, end) on it."""
-    w0, w1 = window
-    ops = sorted(((n, max(a, w0) - w0, min(b, w1) - max(a, w0))
-                  for n, a, b in device_events if b > w0 and a < w1), key=lambda o: o[1])
-    busy, merged = union_busy([(s, s + d) for _, s, d in ops])
-    by_name: Dict[str, float] = {}
-    for n, _, d in ops:
-        by_name[n] = by_name.get(n, 0.0) + d
-    # the gaps of the union inside the window, named by the host's state
-    gaps, at = [], 0.0
-    for a, b in merged:
-        if a > at:
-            gaps.append((at, a))
-        at = max(at, b)
-    if at < w1 - w0:
-        gaps.append((at, w1 - w0))
-    host = sorted(((n, a - w0, b - w0) for n, a, b in host_events
-                   if not n.startswith("bench/") and b > w0 and a < w1), key=lambda e: e[1])
-    idle: Dict[str, float] = {}
-    j, stack = 0, []
-    for a, b in gaps:  # gaps come in order of time
-        mid = 0.5 * (a + b)
-        while j < len(host) and host[j][1] <= mid:
-            while stack and stack[-1][2] <= host[j][1]:
-                stack.pop()
-            stack.append(host[j])
-            j += 1
-        while stack and stack[-1][2] < mid:
-            stack.pop()
-        label = stack[-1][0] if stack else HOST_ONLY
-        idle[label] = idle.get(label, 0.0) + (b - a)
-    return TraceSummary(
-        ops=ops, window_s=w1 - w0, busy_s=busy,
-        op_seconds=sorted(by_name.items(), key=lambda kv: -kv[1]),
-        idle_seconds=sorted(idle.items(), key=lambda kv: -kv[1]),
-    )
-
-
 class Tracer:
     """``torch.profiler`` over the window when ``on``; spans either way
-    (``record_function`` costs next to nothing with no profile open)."""
+    (``record_function`` costs next to nothing with no profile open).
+    After :meth:`summary`, :attr:`spans` holds the window's
+    :class:`.spans.SpanSummary`."""
 
     def __init__(self, on: bool):
         self.on = on
         self._prof = None
+        self.spans = None
 
     @contextlib.contextmanager
     def window(self):
@@ -131,19 +93,21 @@ class Tracer:
         return record_function(BATCH_SPAN)
 
     def summary(self) -> Optional[TraceSummary]:
+        """The window's trace (``None`` unless traced); sets :attr:`spans`."""
         if self._prof is None:
             return None
         import torch
+
+        from .spans import summarize
 
         cuda = torch.autograd.DeviceType.CUDA
         device, host, window, thread = [], [], None, None
         for e in self._prof.profiler.kineto_results.events():
             a, n, name = e.start_ns(), e.duration_ns(), e.name()
             if e.device_type() == cuda:
-                if not name.startswith("bench/"):  # the spans' own device-side ranges
-                    device.append((name, a, a + n))
+                device.append((name, a, a + n, e.correlation_id(), e.is_user_annotation()))
                 continue
-            host.append((name, a, a + n, e.start_thread_id()))
+            host.append((name, a, a + n, e.correlation_id(), e.start_thread_id()))
             if name == WINDOW_SPAN:
                 window, thread = (a, a + n), e.start_thread_id()
         if window is None:
@@ -153,6 +117,8 @@ class Tracer:
         def s(ns):
             return (ns - base) * 1e-9
 
-        return summarize([(n, s(a), s(b)) for n, a, b in device],
-                         [(n, s(a), s(b)) for n, a, b, t in host if t == thread],
-                         (0.0, s(window[1])))
+        trace, self.spans = summarize(
+            [(n, s(a), s(b), c, u) for n, a, b, c, u in device],
+            [(n, s(a), s(b), c) for n, a, b, c, t in host if t == thread],
+            (0.0, s(window[1])))
+        return trace

@@ -23,9 +23,10 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from .manifest import family
 from .seeds import derive
 
-__all__ = ["Leaf", "layout", "make_weights", "leaves"]
+__all__ = ["Leaf", "proj", "layout", "make_weights", "leaves"]
 
 #: elements drawn by one call
 _CHUNK = 1 << 28
@@ -38,57 +39,24 @@ class Leaf:
     scale: float = 1.0
 
 
-def _proj(fan_in: int, *shape: int) -> Leaf:
+def proj(fan_in: int, *shape: int) -> Leaf:
+    """A projection's weight, N(0, 1/fan_in)."""
     return Leaf(tuple(shape), "normal", 1.0 / math.sqrt(fan_in))
-
-
-def _attn_block(c: dict) -> Dict[str, Any]:
-    d, H, KV, hd, f = c["d_model"], c["num_heads"], c["num_kv_heads"], c["head_dim"], c["d_ff"]
-    return {
-        "ln1": {"scale": Leaf((d,), "ones")},
-        "attn": {"w_q": _proj(d, d, H, hd), "w_k": _proj(d, d, KV, hd),
-                 "w_v": _proj(d, d, KV, hd), "w_o": _proj(H * hd, H, hd, d)},
-        "ln2": {"scale": Leaf((d,), "ones")},
-        "mlp": {"w_up": _proj(d, d, f), "w_down": _proj(f, f, d), "w_gate": _proj(d, d, f)},
-    }
-
-
-def _mamba_block(c: dict) -> Dict[str, Any]:
-    d = c["d_model"]
-    di = c["ssm_expand"] * d
-    H = di // c["ssm_headdim"]
-    GN = c["ssm_ngroups"] * c["ssm_state"]
-    return {
-        "ln": {"scale": Leaf((d,), "ones")},
-        "mamba": {
-            "in_proj": _proj(d, d, 2 * di + 2 * GN + H),
-            "conv_w": Leaf((c["ssm_conv"], di + 2 * GN), "normal", 0.2),
-            "conv_b": Leaf((di + 2 * GN,), "zeros"),
-            "A_log": Leaf((H,), "a_log"),
-            "dt_bias": Leaf((H,), "dt_bias"),
-            "D": Leaf((H,), "ones"),
-            "norm_scale": Leaf((di,), "ones"),
-            "out_proj": _proj(di, di, d),
-        },
-    }
 
 
 def layout(c: dict) -> Dict[str, Any]:
     """The parameter tree of configuration ``c`` (a configuration file's
-    dict) in the program's layout, as :class:`Leaf` declarations."""
+    dict) in the program's layout, as :class:`Leaf` declarations: the
+    embedding, the final norm and the unembedding, then the family's part
+    (``bench/families/<family>.py``'s ``layout``)."""
     d, V = c["d_model"], c["vocab_size"]
     tree: Dict[str, Any] = {
         "embed": Leaf((V, d), "normal", 0.02),
         "ln_f": {"scale": Leaf((d,), "ones")},
     }
     if not c["tie_embeddings"]:
-        tree["lm_head"] = _proj(d, d, V)
-    if c["family"] == "dense":
-        tree["layers"] = [_attn_block(c) for _ in range(c["num_layers"])]
-    elif c["family"] == "ssm":
-        tree["layers"] = [_mamba_block(c) for _ in range(c["num_layers"])]
-    else:
-        raise ValueError(f"no weight layout for family {c['family']!r}")
+        tree["lm_head"] = proj(d, d, V)
+    tree.update(family(c).model.layout(c))
     return tree
 
 

@@ -4,7 +4,8 @@ routes).  A prefill launch over B prompts of S tokens reads x (B S H P),
 dt (B S H) and B, C (B S G N) in bf16 and A (H) in f32 once, writes y (B S
 H P) in bf16 and the final state (B H N P) in f32 once; its FLOPs are the
 chunked products of ``_model.ssd_flops`` (C B^T on its causal half).  Each
-prefill launches it once per Mamba-2 block."""
+prefill launches it once per block of the family's ``ssd_blocks``."""
+from bench.harness.manifest import family
 from bench.harness.peaks import least_seconds
 from bench.metrics._model import ssd_flops
 
@@ -22,11 +23,12 @@ def launch(c: dict, B: int, S: int):
 
 
 def read(run):
-    if run.trace is None or run.cfg["family"] != "ssm":
+    if run.trace is None:
         return None
+    blocks = family(run.cfg).model.ssd_blocks(run.cfg)
     spent = sum(d for _, _, d in run.trace.kernels(KERNEL))
-    if spent <= 0:
+    if not blocks or spent <= 0:
         return None
-    least = sum(run.cfg["num_layers"] * least_seconds(*launch(run.cfg, b.batch, b.length))
+    least = sum(blocks * least_seconds(*launch(run.cfg, b.batch, b.length))
                 for b in run.batches)
     return 100.0 * least / spent

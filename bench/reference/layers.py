@@ -14,10 +14,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["PRECISIONS", "matmul", "rms_norm", "rope", "causal_attention", "act", "ssd",
-           "mamba_mixer", "softplus"]
+__all__ = ["PRECISIONS", "ROWS", "to_f32", "in_rows", "matmul", "rms_norm", "rope",
+           "causal_attention", "act", "ssd", "mamba_mixer", "softplus"]
 
 PRECISIONS = ("f32", "fp8")
+#: rows of one per-token product
+ROWS = 16384
 
 #: the largest finite float8 e4m3 value
 _E4M3_MAX = 448.0
@@ -29,6 +31,20 @@ def _fp8(t: torch.Tensor, dim: int) -> torch.Tensor:
     amax = t.abs().amax(dim=dim, keepdim=True).clamp_min(1e-12)
     scale = amax / _E4M3_MAX
     return (t / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
+
+
+def to_f32(tree):
+    """A layer's nested dict of weights, each taken to float32."""
+    if isinstance(tree, dict):
+        return {k: to_f32(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def in_rows(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of x (n, d) in blocks of :data:`ROWS` rows."""
+    if x.shape[0] <= ROWS:
+        return fn(x)
+    return torch.cat([fn(x[i:i + ROWS]) for i in range(0, x.shape[0], ROWS)])
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, precision: str = "f32") -> torch.Tensor:

@@ -2,10 +2,11 @@
 
     python3 bench/spans.py --workload <cell> --seed <n> [--seconds S]
 
-from the root of a checkout.  Sets the cell up as ``bench/run.py`` does
-(weights and prompts from the seed, every shape warmed up), serves its
-traffic for ``--seconds`` (default: the mix's traced window) under
-``torch.profiler`` and reduces the trace with ``bench/harness/spans.py``:
+from the root of a checkout.  Sets the cell up and serves it as every
+``bench/run.py`` run does (``cell.serve_run``: weights and prompts from the
+seed, every shape warmed up), for ``--seconds`` (at most and by default the
+mix's traced window) under ``torch.profiler``, with the trace reduced by
+``bench/harness/spans.py``:
 device seconds by span (with and without the children's), idle seconds by
 ``<span> / <host op>`` and by part of the serving path, the window's
 counters (``repro_torch.obs.counters``), the span metrics
@@ -51,36 +52,20 @@ def span_cost_us(calls: int = SPAN_COST_CALLS):
 def trace_spans(spec: dict, metrics, seed: int, seconds: float, device, program_cfg=None,
                 batches=None, log=print) -> dict:
     """One traced window of cell ``spec`` (``manifest.find_cell``'s), as
-    the JSON object this script prints; ``program_cfg`` and ``batches`` as
-    for ``cell.run_cell``."""
+    the JSON object this script prints; set up and served by
+    ``cell.serve_run``, the path of every ``bench/run.py`` run;
+    ``program_cfg`` and ``batches`` as there."""
     import torch
-    from repro_torch.obs import counters
 
-    from bench.harness.cell import Program, Run, program_config, serve_window, warm_up
-    from bench.harness.manifest import BENCH, load_module
-    from bench.harness.spans import METRICS, SpanTracer, by_span_table
-    from bench.harness.traffic import Traffic
-    from bench.harness.weights import make_weights
+    from bench.harness.cell import metric_values, serve_run
+    from bench.harness.spans import METRICS, by_span_table
 
-    c = spec["config"]
     dev = torch.device(device)
-    traffic = Traffic(spec["traffic"], seed, c["vocab_size"], c["context_length"])
-    weights = make_weights(c, seed, dev, getattr(torch, c["param_dtype"]))
-    program = Program(c, program_cfg or program_config(c), weights, dev)
-    warm_up(program, traffic, dev)
-    tracer = SpanTracer(True)
-    before = counters.snapshot()
-    done, window_s = serve_window(program, traffic, seconds, dev, tracer, batches)
-    counts = counters.delta(before)
-    trace = tracer.summary()
-    spans = tracer.spans
-    run = Run(c, done, window_s, 0.0, trace)
-
-    per_layer = {}
-    for m in metrics["per_layer"]:
-        value = load_module(BENCH / "metrics" / f"{m['name']}.py").read(run)
-        if value is not None:
-            per_layer[m["name"]] = value
+    run, _, _, _ = serve_run(spec, seed, seconds, True, dev, program_cfg, batches, log)
+    trace, spans, counts, done, window_s = (run.trace, run.spans, run.counters, run.batches,
+                                            run.window_s)
+    per_layer = {n: v["value"] for n, v in metric_values("metrics", metrics["per_layer"],
+                                                          run).items()}
     span_metrics = {n: v for n, read in METRICS.items()
                     if (v := read(spans, counts)) is not None}
     tokens = sum(b.batch * b.length for b in done)

@@ -37,6 +37,14 @@ SMALL = {
 CELL = {"dense": "yi-9b.prefill-mix", "ssm": "mamba2-130m.prefill-mix-b32"}
 
 
+def stated_widths(c: dict) -> dict:
+    """The widths configuration ``c`` states, by its family's ``WIDTHS``
+    (``bench/families/<family>.py``); raises where it leaves one out."""
+    from bench.harness.manifest import family
+
+    return {k: c[k] for k in family(c).model.WIDTHS}
+
+
 def small_config(family: str, dtype: str = "float32") -> dict:
     """A configuration file's dict of a small model of ``family``."""
     return dict(SMALL[family], name=f"small-{family}", arch=None, context_length=512,

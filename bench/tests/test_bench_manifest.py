@@ -9,16 +9,13 @@ import re
 
 import pytest
 
+from conftest import stated_widths
+
 from bench.harness.cell import _META, program_config
 from bench.harness.manifest import BENCH, ROOT, find_cell, load_json, load_manifest
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-#: the sizes each family's configuration file has to state
-WIDTHS = {"dense": ("num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
-                    "vocab_size"),
-          "ssm": ("num_layers", "d_model", "vocab_size", "ssm_state", "ssm_headdim",
-                  "ssm_expand", "ssm_ngroups", "ssm_conv", "ssd_chunk")}
 #: the JAX package and its stack, by top-level module name
 BARRED = {"jax", "jaxlib", "flax", "repro"}
 
@@ -85,6 +82,6 @@ def test_configuration_widths_equal_the_programs(conf):
     assert c["name"] == conf["name"] and c["source"] == conf["source"]
     assert c["reduced"] == conf["reduced"]
     cfg = program_config(c)  # raises on any setting that differs
-    for key in WIDTHS[c["family"]]:
-        assert c[key] == getattr(cfg, key), key
+    for key, value in stated_widths(c).items():
+        assert value == getattr(cfg, key), key
     assert {k for k in c if k not in _META} <= {f for f in cfg.__dataclass_fields__}

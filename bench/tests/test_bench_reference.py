@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from conftest import program_config, small_config  # noqa: E402
 
+from bench.harness import manifest  # noqa: E402
 from bench.harness.weights import make_weights  # noqa: E402
 from bench.reference import logits_at  # noqa: E402
 from bench.reference.layers import causal_attention, rope, softplus, ssd  # noqa: E402
@@ -39,7 +40,8 @@ def test_reference_equals_the_program_forward(family, S):
     tokens = torch.randint(0, c["vocab_size"], (2, S), generator=torch.Generator().manual_seed(S))
     with torch.no_grad():
         want, _ = model.forward(w, {"tokens": tokens})
-    got = logits_at(c, w, list(tokens), [torch.arange(S)] * 2)
+    got = logits_at(c, w, list(tokens), [torch.arange(S)] * 2,
+                    trunk=manifest.family(c).reference.trunk)
     for b in range(2):
         torch.testing.assert_close(got[b], want[b].float(), **TOL)
 
@@ -62,7 +64,8 @@ def test_reference_equals_prefill_then_decode(family):
             got.append(lg[:, -1])
     got = torch.stack(got, dim=1)
     ref = logits_at(c, w, list(tokens[:, :S + steps - 1]),
-                    [torch.arange(S - 1, S + steps - 1)] * B)
+                    [torch.arange(S - 1, S + steps - 1)] * B,
+                    trunk=manifest.family(c).reference.trunk)
     for b in range(B):
         torch.testing.assert_close(ref[b], got[b].float(), **TOL)
 
