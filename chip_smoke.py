@@ -61,7 +61,12 @@ any phase fails:
    and 160, f32 and bf16: both flash routes in both dtypes, bf16 at hd 96
    on the CUDA cores; decode in one span and in several,
    masks partly and wholly invalid, a span with no valid position, and
-   both kernels' serving-path launch shapes), then a small dense model
+   both kernels' serving-path launch shapes); bf16 at hd 224 and
+   zamba2-7b's softmax scale (hd/2)^-1/2 (ragged, GQA rep 4, a window, and
+   both kernels at its cell's launches: batch 8 x 2048 and 4000 tokens, H
+   = KV = 32, decode over the ring of 4001; one wgmma flash launch and one
+   decode launch a call), the plain flash in groups of heads where its
+   scores exceed 4 GB, then a small dense model
    (f32, GQA rep 4, a 16-token window whose ring wraps: the CUDA-core flash
    route) on the card against the same weights on the CPU: prefill logits
    and 8 greedy tokens;
@@ -102,7 +107,8 @@ any phase fails:
    rate, or operations over its rate) and, for attention, one
    ``scaled_dot_product_attention`` call as a library yardstick (never
    called by the port); the attention kernels also at zamba2-1.2b's
-   launch shapes, and each attention kernel, its yardstick and the SSD
+   launch shapes and at zamba2-7b's S 4000 (hd 224, its scale; flash also
+   with the CUDA-core route forced), and each attention kernel, its yardstick and the SSD
    kernel a second time as device time: one replay of a captured CUDA
    graph of many launches, which leaves out the Python wrapper's host
    time; the SSD's CUDA-core route at the same bf16 shapes beside its
@@ -278,6 +284,10 @@ SSD_STATE_RTOL, SSD_STATE_ATOL_SHARE = 1e-3, 1e-4
 #: the SSM slice's main paths: zamba2-1.2b and mamba2-130m at full width and
 #: depth, batch 8 x a 2048-token prompt, 32 greedy tokens
 SSM_HYBRID_ARCH, SSM_ARCH, SSM_PROMPT = "zamba2-1.2b", "mamba2-130m", 2048
+#: hd 224 at the softmax scale (hd/2)^-1/2: zamba2-7b's shared attention,
+#: held at its benchmark cell's launches (batch 8, prompts of 2048 and 4000,
+#: one decode step over the ring that follows) and timed at the longest
+WIDE_HEAD_ARCH, WIDE_HEAD_BATCH, WIDE_HEAD_PROMPTS = "zamba2-7b", 8, (2048, 4000)
 #: the causal conv's timed launch: mamba2-130m's prefill at the benchmark's
 #: batch of 32 and its longest prompt
 CONV_BATCH, CONV_PROMPT = 32, 4000
@@ -445,6 +455,25 @@ def flash_simt_ms(fn, reps):
         flash_module.flash_route = rule
 
 
+def flash_ref_in_parts(q, k, v, scale=None, part_bytes=4 << 30):
+    """``flash_attention_ref`` (causal) over groups of KV heads, each
+    group's f32 scores at most ``part_bytes`` (one group at every launch
+    shape but zamba2-7b's S 4000, whose scores take 16 GB whole)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    B, H, S, _ = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    rep = H // KV
+    g = max(1, min(KV, part_bytes // (B * rep * S * T * 4)))
+    if g == KV:
+        return flash_attention_ref(q, k, v, scale=scale)
+    return torch.cat([flash_attention_ref(q[:, i * rep:(i + g) * rep], k[:, i:i + g],
+                                          v[:, i:i + g], scale=scale)
+                      for i in range(0, KV, g)], dim=1)
+
+
 def attention_bounds(B, H, KV, S, T, n_valid, hd, dtype):
     """((ms, by) of flash, (ms, by) of decode) at a serving launch shape.
     Flash over an S-token causal prompt: q, k, v and out once, two dot
@@ -467,11 +496,14 @@ class AttentionLaunch:
     query, six k/v caches of prompt + gen positions (timed launches take
     them in turn, so each finds its cache out of L2 as the serving path
     does, where the layers' weights stream between two launches) and the
-    last decode step's mask (every position but one holds a token)."""
+    last decode step's mask (every position but one holds a token).  Both
+    kernels, their plain versions and the yardstick take the configuration's
+    softmax scale (``cfg.attn_scale``; ``None``: 1/sqrt(hd))."""
 
     def __init__(self, dev, cfg, batch, prompt, gen, seed):
         import torch
 
+        self.scale = cfg.attn_scale
         self.dtype = dt = cfg.dtype
         self.B, self.H, self.KV, self.hd = batch, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         self.S, self.T = prompt, prompt + gen
@@ -493,23 +525,24 @@ class AttentionLaunch:
         return self.cache(self.turn)
 
     def label(self, name):
+        at = "" if self.scale is None else f" scale={self.scale:.6g}"
         if name == "flash_attention":
-            return f"B={self.B} H={self.H} KV={self.KV} S={self.S} hd={self.hd}"
-        return f"B={self.B} KV={self.KV} rep={self.H // self.KV} T={self.T} hd={self.hd}"
+            return f"B={self.B} H={self.H} KV={self.KV} S={self.S} hd={self.hd}{at}"
+        return f"B={self.B} KV={self.KV} rep={self.H // self.KV} T={self.T} hd={self.hd}{at}"
 
     def compare(self, errs, where):
         """Hold both kernels against their plain versions at this shape."""
         from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
-        from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+        from repro_torch.kernels.flash_attention import flash_attention
 
-        q, k, v = self.fq, self.fk, self.fv
+        q, k, v, sc = self.fq, self.fk, self.fv, self.scale
         compare_attn(errs, "flash_attention", f"{where} {self.label('flash_attention')}",
-                     flash_attention(q, k, v, backend="cuda"), flash_attention_ref(q, k, v),
-                     self.dtype)
+                     flash_attention(q, k, v, backend="cuda", scale=sc),
+                     flash_ref_in_parts(q, k, v, sc), self.dtype)
         k, v = self.cache()
         compare_attn(errs, "decode_attention", f"{where} {self.label('decode_attention')}",
-                     decode_attention(self.dq, k, v, self.valid, backend="cuda"),
-                     decode_attention_ref(self.dq, k, v, self.valid), self.dtype)
+                     decode_attention(self.dq, k, v, self.valid, backend="cuda", scale=sc),
+                     decode_attention_ref(self.dq, k, v, self.valid, scale=sc), self.dtype)
 
     def time(self, where, simt=False):
         """Each kernel, its plain version and ``scaled_dot_product_attention``
@@ -522,38 +555,34 @@ class AttentionLaunch:
         import torch
 
         from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
-        from repro_torch.kernels.flash_attention import (
-            flash_attention,
-            flash_attention_ref,
-            flash_route,
-        )
+        from repro_torch.kernels.flash_attention import flash_attention, flash_route
 
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        q, k, v, dq, valid = self.fq, self.fk, self.fv, self.dq, self.valid
+        q, k, v, dq, valid, sc = self.fq, self.fk, self.fv, self.dq, self.valid, self.scale
         n_valid = int(valid[0].sum())
         (fb_ms, fb_by), (db_ms, db_by) = attention_bounds(
             self.B, self.H, self.KV, self.S, self.T, n_valid, self.hd, self.dtype)
         mask = valid[:, None, None, :]
 
         def flash():
-            flash_attention(q, k, v, backend="cuda")
+            flash_attention(q, k, v, backend="cuda", scale=sc)
 
         def flash_lib():
-            sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            sdpa(q, k, v, is_causal=True, enable_gqa=True, scale=sc)
 
         def decode():
-            decode_attention(dq, *self.next_cache(), valid, backend="cuda")
+            decode_attention(dq, *self.next_cache(), valid, backend="cuda", scale=sc)
 
         def decode_lib():
             sdpa(dq.flatten(1, 2)[:, :, None], *self.next_cache(), attn_mask=mask,
-                 enable_gqa=True)
+                 enable_gqa=True, scale=sc)
 
         out = {
             "flash_attention": {
                 "route": flash_route(q.dtype, self.hd),
                 "ms": time_events(flash, 10),
                 "graph_ms": time_graph(flash, 10),
-                "plain_ms": time_events(lambda: flash_attention_ref(q, k, v), 3, warmup=1),
+                "plain_ms": time_events(lambda: flash_ref_in_parts(q, k, v, sc), 3, warmup=1),
                 "bound_ms": fb_ms, "bound_by": fb_by,
                 "library_ms": library_ms(flash_lib, 10),
                 "library_graph_ms": library_ms(flash_lib, 10, time_graph),
@@ -562,7 +591,7 @@ class AttentionLaunch:
                 "ms": time_events(decode, 60),
                 "graph_ms": time_graph(decode, 60),
                 "plain_ms": time_events(
-                    lambda: decode_attention_ref(dq, *self.next_cache(), valid), 12),
+                    lambda: decode_attention_ref(dq, *self.next_cache(), valid, scale=sc), 12),
                 "bound_ms": db_ms, "bound_by": db_by,
                 "library_ms": library_ms(decode_lib, 60),
                 "library_graph_ms": library_ms(decode_lib, 60, time_graph),
@@ -587,6 +616,70 @@ class AttentionLaunch:
         return out
 
 
+def wide_head_smoke(dev, cfg, batch=WIDE_HEAD_BATCH, prompts=WIDE_HEAD_PROMPTS):
+    """Phase 6 at ``cfg``'s head dim and softmax scale (zamba2-7b: hd 224,
+    (hd/2)^-1/2; the tensor-core route's three atoms and tail with one K/V
+    stage): bf16 flash at ragged small shapes, GQA and a window, then both
+    kernels at the cell's launches (``batch`` x each of ``prompts``, decode
+    over the ring of prompt + 1), each flash call one launch of the wgmma
+    route, each decode call one launch; both kernels timed at the longest
+    prompt, flash also with the CUDA-core route forced.  Returns each
+    kernel's timings at that launch with its ``max_abs_err`` over this
+    phase and its ``launches_checked``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+        flash_route,
+    )
+
+    hd, sc, dtype = cfg.head_dim, cfg.attn_scale, cfg.dtype
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    launches = {"flash_attention": 0, "decode_attention": 0}
+    t0 = time.perf_counter()
+    for B, H, KV, S, win in (
+        (1, 4, 4, 77, None),    # rep 1, ragged S
+        (2, 8, 2, 333, None),   # rep 4, ragged
+        (1, 4, 4, 200, 16),     # a 16-token window
+    ):
+        q = randn(dev, (B, S, H, hd), dtype, 41).transpose(1, 2)  # model-layout views
+        k = randn(dev, (B, S, KV, hd), dtype, 42).transpose(1, 2)
+        v = randn(dev, (B, S, KV, hd), dtype, 43).transpose(1, 2)
+        route = flash_route(q.dtype, hd)
+        check(route == "wgmma", f"{dtype} flash at hd {hd} must take the tensor-core route")
+        before = model_launches("flash_attention", route)
+        compare_attn(errs, "flash_attention",
+                     f"B={B} H={H} KV={KV} S={S} hd={hd} scale={sc:.6g} window={win} "
+                     f"route={route}",
+                     flash_attention(q, k, v, causal=True, window=win, backend="cuda", scale=sc),
+                     flash_attention_ref(q, k, v, causal=True, window=win, scale=sc), dtype)
+        check(model_launches("flash_attention", route) == before + 1,
+              f"flash_attention at hd {hd} did not launch its {route} route once")
+        launches["flash_attention"] += 1
+    timed = None
+    for i, S in enumerate(prompts):
+        launch = AttentionLaunch(dev, cfg, batch, S, 1, 51 + i)
+        flash_before = model_launches("flash_attention", "wgmma")
+        decode_before = model_launches("decode_attention")
+        launch.compare(errs, f"{cfg.arch_id} launch")
+        check(model_launches("flash_attention", "wgmma") == flash_before + 1
+              and model_launches("decode_attention") == decode_before + 1,
+              f"{cfg.arch_id}'s launch at S {S}: one wgmma flash launch and one decode launch")
+        launches["flash_attention"] += 1
+        launches["decode_attention"] += 1
+        if S == max(prompts):
+            timed = launch.time(f"{cfg.arch_id}", simt=True)
+        del launch
+        torch.cuda.empty_cache()
+    print(f"hd {hd} attention at {cfg.arch_id}'s scale: flash max_abs_err="
+          f"{errs['flash_attention']}, decode max_abs_err={errs['decode_attention']}, "
+          f"{time.perf_counter() - t0:.3f} s")
+    for name in errs:
+        timed[name].update(max_abs_err=errs[name], launches_checked=launches[name])
+    return timed
+
+
 def tree_size(tree):
     """(elements, bytes) of a parameter tree of dicts and lists of tensors."""
     if isinstance(tree, dict):
@@ -608,7 +701,7 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
     import numpy as np
     import torch
 
-    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.kernels.decode_attention import (
         decode_attention,
         decode_attention_ref,
@@ -672,6 +765,11 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
                          decode_attention_ref(q, k, v, valid), dtype)
             check(bool((got[0] == 0).all()), "an all-invalid decode row must be zeros")
             check(torch.equal(got, again), "split decode must not change from run to run")
+
+    # hd 224 at zamba2-7b's scale, ragged and at its cell's launches, timed
+    wide = wide_head_smoke(dev, get_config(WIDE_HEAD_ARCH))
+    for name in attn_err:
+        attn_err[name] = max(attn_err[name], wide[name]["max_abs_err"])
 
     # both kernels at the serving main path's launch shapes and dtype
     launch = AttentionLaunch(dev, cfg_serve, batch, prompt, gen, 8)
@@ -820,6 +918,8 @@ def serving_smoke(dev, zero_counts, cfg_serve, batch=SERVE_BATCH, prompt=SERVE_P
                                     max_abs_err=attn_err["flash_attention"])
     timed["decode_attention"].update(launches=n_decode,
                                      max_abs_err=attn_err["decode_attention"])
+    for name in attn_err:
+        timed[name][WIDE_HEAD_ARCH] = wide[name]  # hd 224: phase 6's launches, timed
     timed["serve_tokens"] = toks  # phase 17c holds the sharded steps to them
     return timed
 
@@ -4585,7 +4685,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:118",
         "route_rule": {
-            "wgmma": "bfloat16 at head_dim 64, 128, 160: "
+            "wgmma": "bfloat16 at head_dim 64, 128, 160, 224: "
                      "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
             "simt": "float32, and bfloat16 at other head dims: "
                     "src/repro_torch/kernels/csrc/flash_attention.cu",

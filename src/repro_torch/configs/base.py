@@ -8,7 +8,7 @@ wrappers, which launch the Hopper kernels on CUDA tensors."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 __all__ = ["ModelConfig", "reduce_for_smoke"]
 
@@ -103,6 +103,28 @@ class ModelConfig:
     @property
     def effective_moe_d_ff(self) -> int:
         return self.moe_d_ff if self.moe_d_ff is not None else self.d_ff
+
+    # -- what the shared layers read; the ``zamba2`` family's configuration
+    #    (configs/zamba2.py) overrides them ------------------------------------
+    @property
+    def attn_in(self) -> int:
+        """The width that attention's q, k and v read."""
+        return self.d_model
+
+    @property
+    def attn_scale(self) -> Optional[float]:
+        """The softmax scale; ``None`` is 1/sqrt(head_dim)."""
+        return None
+
+    @property
+    def norm_groups(self) -> int:
+        """The groups of the Mamba-2 block's gated RMSNorm."""
+        return 1
+
+    @property
+    def shared_sites(self) -> Tuple[int, ...]:
+        """The layers before which a shared block runs."""
+        return ()
 
     def n_params(self) -> int:
         """Approximate parameter count (for scaling-law accuracy proxies and

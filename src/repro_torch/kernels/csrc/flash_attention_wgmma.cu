@@ -4,10 +4,11 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (pallas_call at flash_attention.py:118, body _kernel at :35) for bf16
-// inputs at head_dim 64, 128 and 160; f32 inputs and other head dims take
+// inputs at head_dim 64, 128, 160 and 224; f32 inputs and other head dims take
 // flash_attention.cu (the route rule is flash_attention.py::flash_route).
 // It computes what that kernel computes: for each (batch b, query head h)
-// the f32 scores q.k * (1/sqrt(hd)), -1e30 where masked (ragged tail,
+// the f32 scores q.k * scale (1/sqrt(hd) unless the caller gives another:
+// zamba2's (hd/2)^-1/2), -1e30 where masked (ragged tail,
 // causal bound col <= row, window bound col > row - window), an online
 // softmax with m, l and the output accumulator in f32 and p forced to 0
 // where masked, and out = acc / l, or zeros for a row whose l stays 0.
@@ -71,6 +72,16 @@
 // 240 registers (the producer 24).  The epilogue writes the tail columns
 // with the 64-byte pattern and stores them as a third box.
 //
+// hd 224 (zamba2-7b's shared attention).  Three 128-byte-swizzle atoms and
+// the same 32-column tail atom.  A Q tile of 128 rows and a K or V tile of
+// 128 keys are 56 KB each: 56 + 2 * 112 = 280 KB for two stages, so the
+// ring has one stage (168 KB), and the producer loads a tile once both
+// consumers have released the last; the loads then no longer overlap the
+// products.  S = Q.K^T takes 14 k-steps (12 over the atoms, 2 over the
+// tail); O += P.V is m64n128k16 over the first two atoms, m64n64k16 over
+// the third and m64n32k16 over the tail, so the 64 x 224 f32 accumulator is
+// 64 + 32 + 16 registers beside S's 64 and P's 32.
+//
 // What bounds it on this card.  At yi-9b's prefill launch (B 8, H 32,
 // KV 4, S 1024, hd 128, causal) the causal dot products are 68.7 GFLOP:
 // 0.069 ms at the bf16 tensor-core rate, against 0.045 ms for q, k, v and
@@ -114,21 +125,22 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // hd 64: three consumer warpgroups (192 query rows) and a 3-stage ring;
-// hd 128 and 160: two consumers (128 rows), 2 stages.  setmaxnreg splits
-// the 64K registers of the SM between the producer and the consumers.
-// Each tile is ATOMS 128-byte-swizzle atoms of 64 columns, then (hd 160)
-// a tail atom of TAIL = 32 columns with the 64-byte swizzle.
+// hd 128 and 160: two consumers (128 rows), 2 stages; hd 224: two
+// consumers, 1 stage.  setmaxnreg splits the 64K registers of the SM
+// between the producer and the consumers.  Each tile is ATOMS
+// 128-byte-swizzle atoms of 64 columns, then (hd 160, 224) a tail atom of
+// TAIL = 32 columns with the 64-byte swizzle.
 template <int HD>
 struct Tiles {
   static constexpr int ATOMS = HD / 64;                  // 128-byte swizzle atoms along hd
   static constexpr int TAIL = HD % 64;                   // columns of the tail atom
-  static_assert(TAIL == 0 || TAIL == 32, "hd is 64, 128 or 160");
+  static_assert(TAIL == 0 || TAIL == 32, "hd is 64, 128, 160 or 224");
   static constexpr int NWG = HD == 64 ? 3 : 2;           // consumer warpgroups
   static constexpr int BQ = 64 * NWG;                    // query rows per block
   static constexpr int THREADS = 128 * (NWG + 1);
   static constexpr int PRODUCER_REGS = HD == 128 ? 40 : 24;
   static constexpr int CONSUMER_REGS = HD == 64 ? 160 : HD == 128 ? 232 : 240;
-  static constexpr int STAGES = HD == 64 ? 3 : 2;        // K/V ring depth
+  static constexpr int STAGES = HD == 64 ? 3 : HD == 224 ? 1 : 2;  // K/V ring depth
   static constexpr int Q_ATOM = BQ * 128;                // one swizzle atom of the Q tile
   static constexpr int Q_TAIL = ATOMS * Q_ATOM;          // the Q tile's tail atom
   static constexpr int Q_BYTES = BQ * HD * 2;
@@ -344,7 +356,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t dv = smem_desc(v_s(s) + kk * 16 * 128, KV_ATOM, 1024);
-        if constexpr (C::ATOMS == 2) {
+        if constexpr (C::ATOMS == 3) {
+          wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(o), p[kk], dv);
+          wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(o + 64), p[kk],
+                       smem_desc(v_s(s) + 2 * KV_ATOM + kk * 16 * 128, KV_ATOM, 1024));
+        } else if constexpr (C::ATOMS == 2) {
           wgmma_rs_n128(o, p[kk], dv);
         } else {
           wgmma_rs_n64(o, p[kk], dv);
@@ -438,7 +454,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
 
 }  // namespace
 
-// bf16 only; hd 64, 128 or 160.  strides: 12 element strides, in order q (b, h,
+// bf16 only; hd 64, 128, 160 or 224.  strides: 12 element strides, in order q (b, h,
 // s), k (b, kv, t), v (b, kv, t), out (b, h, s), each a multiple of 8 (16
 // bytes); the last axis of every tensor has unit stride and every base is
 // 16-byte aligned.  The wrapper guarantees these, H % KV == 0 and T > 0.
@@ -456,6 +472,9 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
                        s);
   if (hd == 160)
     return launch<160>(q, k, v, out, B, H, KV, S, T, strides, causal, has_window, window, scale,
+                       s);
+  if (hd == 224)
+    return launch<224>(q, k, v, out, B, H, KV, S, T, strides, causal, has_window, window, scale,
                        s);
   return (int)cudaErrorInvalidValue;
 }

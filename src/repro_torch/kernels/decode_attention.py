@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Optional
 
 import torch
@@ -43,7 +42,7 @@ import torch
 from ..obs import counters
 from .build import load_library
 from .common import DTYPES, check_no_grad, check_tensor, resolve_model_backend, vector_loads
-from .flash_attention import check_head_dim, masked_softmax_pv
+from .flash_attention import check_head_dim, default_scale, masked_softmax_pv
 
 __all__ = ["MAX_REP", "decode_attention", "decode_attention_ref", "decode_splits"]
 
@@ -85,12 +84,13 @@ def _counters(dev, n: int) -> torch.Tensor:
     return c
 
 
-def decode_attention_ref(q, k, v, valid):
+def decode_attention_ref(q, k, v, valid, *, scale: Optional[float] = None):
     """Plain PyTorch decode attention on the tensors' device, kernel layout:
     q (B, KV, rep, hd), k/v (B, KV, T, hd), valid (B, T) bool ->
-    (B, KV, rep, hd) in q's dtype."""
+    (B, KV, rep, hd) in q's dtype, the scores times ``scale`` (default
+    1/sqrt(hd))."""
     hd = q.shape[-1]
-    s = torch.einsum("bgrd,bgtd->bgrt", q.float(), k.float()) * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bgrd,bgtd->bgrt", q.float(), k.float()) * default_scale(hd, scale)
     return masked_softmax_pv(s, valid[:, None, None, :], v.float()).to(q.dtype)
 
 
@@ -115,10 +115,12 @@ def _library() -> ctypes.CDLL:
 
 def decode_attention(
     q, k, v, valid, *, backend: Optional[str] = None, out: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ):
     """Decode attention in kernel layout: q (B, KV, rep, hd), k/v
     (B, KV, T, hd), valid (B, T) bool -> (B, KV, rep, hd) in q's dtype,
-    written into ``out`` when given.
+    written into ``out`` when given; the scores times ``scale`` (default
+    1/sqrt(hd)).
 
     ``backend`` as for ``flash_attention``: CPU tensors always take the
     plain version (a ``plain`` call, no launch); CUDA tensors on ``"cuda"`` launch the
@@ -130,7 +132,7 @@ def decode_attention(
         raise ValueError(f"decode_attention runs on CUDA or CPU tensors, not {dev.type}")
     if dev.type == "cpu" or resolve_model_backend(backend, dev) == "torch":
         counters.add(_LAUNCHED["plain"])
-        res = decode_attention_ref(q, k, v, valid)
+        res = decode_attention_ref(q, k, v, valid, scale=scale)
         return res if out is None else out.copy_(res)
     check_no_grad("decode_attention", q, k, v)
     B, KV, rep, hd = q.shape
@@ -168,7 +170,7 @@ def decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.view(torch.uint8).data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(),
             None if arrivals is None else arrivals.data_ptr(), DTYPES[q.dtype], B, KV, rep,
-            T, hd, span, n_split, strides, 1.0 / math.sqrt(hd),
+            T, hd, span, n_split, strides, default_scale(hd, scale),
             int(vector_loads((q, k, v), hd)), stream,
         )
     if err != 0:

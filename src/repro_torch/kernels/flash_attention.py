@@ -9,10 +9,10 @@ bound with ``ctypes``) or raises; on CPU tensors it runs
 plain version or to the other kernel.  The route is chosen before the
 launch by :func:`flash_route`, from the dtype and the head dim alone:
 
-* ``"wgmma"``: ``csrc/flash_attention_wgmma.cu``, bf16 at head_dim 64, 128
-  or 160, both products on the tensor cores (wgmma), tiles fed by TMA (at
-  160, two 128-byte-swizzle atoms of 64 columns and a 32-column tail atom
-  with the 64-byte swizzle);
+* ``"wgmma"``: ``csrc/flash_attention_wgmma.cu``, bf16 at head_dim 64, 128,
+  160 or 224, both products on the tensor cores (wgmma), tiles fed by TMA
+  (at 160 and 224, two or three 128-byte-swizzle atoms of 64 columns and a
+  32-column tail atom with the 64-byte swizzle);
 * ``"simt"``: ``csrc/flash_attention.cu``, f32 and every other head dim
   (a multiple of 4 up to 256), f32 products on the CUDA cores.
 
@@ -28,7 +28,9 @@ tensor to TMA, which needs a 16-byte aligned base and strides that are
 multiples of 16 bytes: the wrapper checks that and raises otherwise.
 
 The plain version is the whole-matrix form of the Pallas arithmetic, which
-is what the kernels compute: f32 scores times ``1/sqrt(hd)``, ``-1e30``
+is what the kernels compute: f32 scores times ``scale`` (by default
+``1/sqrt(hd)``; ``zamba2``'s shared attention takes ``(hd/2)^-1/2``; both
+kernels take it as a launch argument), ``-1e30
 where masked, softmax with ``p`` zeroed where masked, ``P.V`` in f32, and a
 zero row where the denominator is 0.  It differs from the reference's
 ``repro/kernels/ref.py`` oracle in two places: that oracle casts the
@@ -65,12 +67,12 @@ NEG_INF = -1e30
 #: largest head dimension the kernels take (and hd % 4 == 0)
 MAX_HEAD_DIM = 256
 #: head dimensions of the tensor-core kernel (bf16 only)
-WGMMA_HEAD_DIMS = (64, 128, 160)
+WGMMA_HEAD_DIMS = (64, 128, 160, 224)
 
 
 def flash_route(dtype, hd: int) -> str:
     """The kernel a CUDA launch takes: ``"wgmma"`` for bf16 at a head dim
-    of :data:`WGMMA_HEAD_DIMS` (64, 128, 160), else ``"simt"`` (f32 at
+    of :data:`WGMMA_HEAD_DIMS` (64, 128, 160, 224), else ``"simt"`` (f32 at
     every head dim, bf16 at the others)."""
     return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "simt"
 
@@ -99,14 +101,21 @@ def masked_softmax_pv(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor) -> t
     return (p @ v) / torch.where(denom > 0, denom, 1.0)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None):
+def default_scale(hd: int, scale: Optional[float]) -> float:
+    """``scale``, or 1/sqrt(hd) where it is ``None``."""
+    return 1.0 / math.sqrt(hd) if scale is None else float(scale)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None):
     """Plain PyTorch prefill attention on the tensors' device, kernel layout:
-    q (B, H, S, hd), k/v (B, KV, T, hd) -> (B, H, S, hd) in q's dtype.
+    q (B, H, S, hd), k/v (B, KV, T, hd) -> (B, H, S, hd) in q's dtype, the
+    scores times ``scale`` (default 1/sqrt(hd)).
     Query head h reads KV head ``h // (H // KV)``."""
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     qg = q.float().unflatten(1, (KV, H // KV))                   # (B, KV, rep, S, hd)
-    s = torch.einsum("bgrsd,bgtd->bgrst", qg, k.float()) * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bgrsd,bgtd->bgrst", qg, k.float()) * default_scale(hd, scale)
     mask = attention_mask(S, T, causal, window, q.device)
     out = masked_softmax_pv(s, mask, v.float()[:, :, None])       # (B, KV, rep, S, hd)
     return out.flatten(1, 2).to(q.dtype)
@@ -150,10 +159,12 @@ def _wgmma_library() -> ctypes.CDLL:
 def flash_attention(
     q, k, v, *, causal: bool = True, window: Optional[int] = None,
     backend: Optional[str] = None, out: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ):
     """Prefill attention in kernel layout: q (B, H, S, hd), k/v
     (B, KV, T, hd) -> (B, H, S, hd) in q's dtype, written into ``out`` when
-    given (any strides, unit last stride).
+    given (any strides, unit last stride); the scores times ``scale``
+    (default 1/sqrt(hd)).
 
     ``backend``: ``"torch"`` is the plain version on the tensors' device,
     ``"cuda"`` the kernel; ``None`` defers to ``REPRO_TORCH_MODEL_BACKEND``,
@@ -167,7 +178,7 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {dev.type}")
     if dev.type == "cpu" or resolve_model_backend(backend, dev) == "torch":
         counters.add(_LAUNCHED["plain"])
-        res = flash_attention_ref(q, k, v, causal=causal, window=window)
+        res = flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
         return res if out is None else out.copy_(res)
     check_no_grad("flash_attention", q, k, v)
     B, H, S, hd = q.shape
@@ -197,7 +208,7 @@ def flash_attention(
             err = lib.flash_attention_wgmma_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, S, T, hd,
                 strides, int(causal), int(window is not None), int(window or 0),
-                1.0 / math.sqrt(hd), stream,
+                default_scale(hd, scale), stream,
             )
             errstr = lib.flash_attention_wgmma_error_string
         else:
@@ -208,7 +219,8 @@ def flash_attention(
             err = lib.flash_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPES[q.dtype],
                 B, H, KV, S, T, hd, strides, int(causal), int(window is not None),
-                int(window or 0), 1.0 / math.sqrt(hd), int(vector_loads((q, k, v), hd)), stream,
+                int(window or 0), default_scale(hd, scale), int(vector_loads((q, k, v), hd)),
+                stream,
             )
             errstr = lib.flash_attention_error_string
     if err != 0:

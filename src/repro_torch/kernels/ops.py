@@ -164,27 +164,31 @@ def on_local_heads(fn, q: DTensor, k, v, *, kernel: bool = False, name: str = "a
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-                    block_q: int = 128, block_k: int = 128, backend: Optional[str] = None):
-    """Model layout: q (B, S, H, hd); k/v (B, T, KV, hd) -> (B, S, H, hd).
+                    block_q: int = 128, block_k: int = 128, backend: Optional[str] = None,
+                    scale: Optional[float] = None):
+    """Model layout: q (B, S, H, hd); k/v (B, T, KV, hd) -> (B, S, H, hd),
+    the scores times ``scale`` (default 1/sqrt(hd)).
     DTensors: on each rank's shards (module docstring).  ``block_q`` and
     ``block_k`` are the Pallas kernel's tile sizes, taken and not read: the
     Hopper kernels fix their own tiles (128 keys a tile on both routes)."""
     if isinstance(q, DTensor):
         return on_local_heads(
             lambda ql, kl, vl: flash_attention(ql, kl, vl, causal=causal, window=window,
-                                               backend=backend),
+                                               backend=backend, scale=scale),
             q, k, v, kernel=_kernel_route(backend, q.to_local()), name="flash_attention")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _flash_kernel(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window, backend=backend, out=out.transpose(1, 2),
+        causal=causal, window=window, backend=backend, out=out.transpose(1, 2), scale=scale,
     )
     return out
 
 
-def decode_attention(q, k, v, valid, *, block_k: int = 512, backend: Optional[str] = None):
+def decode_attention(q, k, v, valid, *, block_k: int = 512, backend: Optional[str] = None,
+                     scale: Optional[float] = None):
     """Model layout: q (B, H, hd) one token, head ``g * rep + r`` serving
-    KV group g; k/v cache (B, T, KV, hd); valid (B, T) bool -> (B, H, hd).
+    KV group g; k/v cache (B, T, KV, hd); valid (B, T) bool -> (B, H, hd),
+    the scores times ``scale`` (default 1/sqrt(hd)).
     DTensors: on each rank's shards (module docstring); ``valid`` may be a
     plain tensor, the same on every rank.  ``block_k`` is the Pallas
     kernel's tile size, taken and not read: the Hopper kernel sizes its
@@ -199,14 +203,14 @@ def decode_attention(q, k, v, valid, *, block_k: int = 512, backend: Optional[st
             valid = valid.full_tensor()
         y = decode_attention(q.to_local(), _local_kv(q, k, 1, 2, "decode_attention"),
                              _local_kv(q, v, 1, 2, "decode_attention"),
-                             valid.narrow(0, b0, bl), backend=backend)
+                             valid.narrow(0, b0, bl), backend=backend, scale=scale)
         return _wrap(y, q)
     B, H, hd = q.shape
     KV = k.shape[2]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _decode_kernel(
         q.unflatten(1, (KV, H // KV)), k.transpose(1, 2), v.transpose(1, 2), valid,
-        backend=backend, out=out.unflatten(1, (KV, H // KV)),
+        backend=backend, out=out.unflatten(1, (KV, H // KV)), scale=scale,
     )
     return out
 

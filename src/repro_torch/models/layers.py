@@ -35,6 +35,15 @@ biases), ``attn/rope``, ``attn/core`` (the attention kernel or its plain
 form; in decode with the ring's validity and, for an int8 cache, its
 dequantization), ``attn/out`` (the output projection), and in decode
 ``cache/write`` (the new token's k and v into the ring).
+
+The ``zamba2`` family's shared block (``configs/zamba2.py``) runs on these
+layers through its configuration: attention reads ``cfg.attn_in`` wide
+inputs (:func:`attn_decl`) at the softmax scale ``cfg.attn_scale``
+(:func:`apply_attention`), the MLP takes the exact-erf GELU
+(``activation="gelu_exact"``), and :func:`apply_mlp` adds a site's
+low-rank adapter on the gate/up product where ``p`` carries one
+(``lora_a``, ``lora_b``; span ``shared/lora``).  Other configurations have
+no such attributes and keep ``d_model`` and ``1/sqrt(head_dim)``.
 """
 from __future__ import annotations
 
@@ -206,19 +215,33 @@ def mlp_decl(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, ParamDec
 
 
 def _act(cfg: ModelConfig, x):
+    if cfg.activation == "silu":
+        return F.silu(x)
+    if cfg.activation == "gelu_exact":
+        return F.gelu(x)
     # jax.nn.gelu defaults to the tanh approximation
-    return F.silu(x) if cfg.activation == "silu" else F.gelu(x, approximate="tanh")
+    return F.gelu(x, approximate="tanh")
 
 
 def apply_mlp(p, x, cfg: ModelConfig):
+    """The MLP; where ``p`` carries a low-rank adapter (``lora_a`` (d, r),
+    ``lora_b`` (r, 2 d_ff): the ``zamba2`` family's per-site adapter), its
+    product is added to the gate (first d_ff columns) and up (the rest)
+    products before the activation."""
     with annotate("mlp"):
         u = x @ p["w_up"]
         if cfg.mlp_bias:
             u = u + p["b_up"]
+        if "lora_a" in p:
+            with annotate("shared/lora"):
+                lo_g, lo_u = ((x @ p["lora_a"]) @ p["lora_b"]).chunk(2, dim=-1)
+            u = u + lo_u
         if cfg.gated_mlp:
             g = x @ p["w_gate"]
             if cfg.mlp_bias:
                 g = g + p["b_gate"]
+            if "lora_a" in p:
+                g = g + lo_g
             h = _act(cfg, g) * u
         else:
             h = _act(cfg, u)
@@ -235,13 +258,15 @@ def apply_mlp(p, x, cfg: ModelConfig):
 
 def attn_decl(cfg: ModelConfig, cross: bool = False) -> Dict[str, ParamDecl]:
     """The attention block's parameters; ``cross`` is inert (the
-    reference's: a cross-attention block declares the same leaves)."""
+    reference's: a cross-attention block declares the same leaves).  q, k
+    and v read ``cfg.attn_in`` wide inputs (``d_model``, but for ``zamba2``)."""
     d, hd = cfg.d_model, cfg.head_dim
+    d_in = cfg.attn_in
     H, KV = cfg.num_heads, cfg.num_kv_heads
     decl = {
-        "w_q": ParamDecl((d, H, hd), ("embed", "heads", "head_dim")),
-        "w_k": ParamDecl((d, KV, hd), ("embed", "kv_heads", "head_dim")),
-        "w_v": ParamDecl((d, KV, hd), ("embed", "kv_heads", "head_dim")),
+        "w_q": ParamDecl((d_in, H, hd), ("embed", "heads", "head_dim")),
+        "w_k": ParamDecl((d_in, KV, hd), ("embed", "kv_heads", "head_dim")),
+        "w_v": ParamDecl((d_in, KV, hd), ("embed", "kv_heads", "head_dim")),
         "w_o": ParamDecl((H, hd, d), ("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias:
@@ -329,7 +354,9 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, causal: bool, window: Optional[i
     ``[lo, hi)`` (causal: up to the chunk's last row; causal with a window:
     from its first row's window), f32 scores and softmax, the weights cast
     to q's dtype before ``P.V``.  Never materializes the (S, T) scores.
-    DTensors run on each rank's shards, as :func:`_sdpa`."""
+    The scores over sqrt(hd), or times ``cfg.attn_scale`` where it is not
+    ``None`` (``zamba2``).  DTensors run on each rank's
+    shards, as :func:`_sdpa`."""
     if isinstance(q, DTensor):
         return kops.on_local_heads(
             lambda a, b, c: _sdpa_chunked(a, b, c, cfg, causal=causal, window=window),
@@ -338,6 +365,7 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, causal: bool, window: Optional[i
     T, KV = k.shape[1], k.shape[2]
     rep = H // KV
     blk = max(min(cfg.attn_block, S), 1)
+    scale = cfg.attn_scale
     outs = []
     for i in range(0, S, blk):
         b = min(blk, S - i)
@@ -345,7 +373,8 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, causal: bool, window: Optional[i
         hi = min(i + b, T) if causal else T
         lo = max(0, i + 1 - (window or T)) if (causal and window) else 0
         kb, vb = k[:, lo:hi], v[:, lo:hi]
-        logits = torch.einsum("bskrh,btkh->bkrst", qb.float(), kb.float()) / math.sqrt(hd)
+        logits = torch.einsum("bskrh,btkh->bkrst", qb.float(), kb.float())
+        logits = logits / math.sqrt(hd) if scale is None else logits * scale
         qi = (i + torch.arange(b, device=q.device))[:, None]
         kj = (lo + torch.arange(hi - lo, device=q.device))[None, :]
         m = torch.ones((b, hi - lo), dtype=torch.bool, device=q.device)
@@ -418,8 +447,12 @@ def apply_attention(
       token's k/v are written into slot ``cache_index % W`` of each row in
       place (the reference's ``dynamic_update_slice`` returns a copy) and
       the same dict is returned.
+
+    The softmax scale is ``cfg.attn_scale`` where it is not ``None``
+    (``zamba2``), else 1/sqrt(head_dim).
     """
     window = window if window is not None else cfg.sliding_window
+    scale = cfg.attn_scale
     with annotate("attn/qkv"):
         q, k, v = _project_qkv(p, x, cfg, kv_input)
     if mode != "cross":
@@ -455,7 +488,7 @@ def apply_attention(
             else:
                 ck, cv = cache["k"], cache["v"]
             valid = ring_valid(cache_index, W, window, ck.device).expand(B, W)
-            y = kops.decode_attention(q[:, 0], ck, cv, valid)[:, None]
+            y = kops.decode_attention(q[:, 0], ck, cv, valid, scale=scale)[:, None]
         new_cache = cache
     elif mode == "cross":
         if cache is not None:  # pre-projected encoder memory
@@ -467,7 +500,7 @@ def apply_attention(
     else:
         with annotate("attn/core"):
             if mode == "causal" and (cfg.attn_impl != "chunked" or _flash_launches(q)):
-                y = kops.flash_attention(q, k, v, causal=True, window=window)
+                y = kops.flash_attention(q, k, v, causal=True, window=window, scale=scale)
             elif cfg.attn_impl == "chunked":
                 y = _sdpa_chunked(q, k, v, cfg, causal=mode == "causal", window=window)
             else:

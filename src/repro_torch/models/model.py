@@ -11,6 +11,12 @@ The port's counterpart of ``repro/models/model.py`` for its six families:
   ssm    — Mamba-2 / SSD stack (mamba2-130m)
   hybrid — Mamba-2 backbone + one weight-*shared* attention block applied
            every ``attn_every`` layers (zamba2-1.2b)
+  zamba2 — Zamba2's published form (zamba2-7b; ``configs/zamba2.py``): a
+           Mamba-2 backbone with grouped gated norms; before each layer of
+           ``shared_sites`` one of ``num_mem_blocks`` shared transformer
+           blocks, in turn, reads concat([h, embedding]), its MLP with the
+           site's adapter, and the site's linear adds its output to that
+           layer's Mamba-2 input (not to the residual)
   encdec — bidirectional encoder over stubbed frame embeddings + causal
            decoder with cross attention (seamless-m4t-medium)
   vlm    — the dense trunk over token embeddings with stubbed vision patch
@@ -27,7 +33,10 @@ API (plain functions on a nested dict of tensors):
 and ``params["dec_layers"]``) is a list with one dict per layer; the
 reference stacks every layer leaf on a leading axis instead
 (:func:`repro_torch.models.carry.params_from_reference` converts).  The
-hybrid family's ``params["shared_attn"]`` is one unstacked block.
+hybrid family's ``params["shared_attn"]`` is one unstacked block; the
+zamba2 family's ``params["shared_blocks"]`` (one dict a shared block) and
+``params["sites"]`` (one dict a site: ``lora_a`` (d, r), ``lora_b``
+(r, 2 d_ff), ``linear`` (d, d)) are lists like the layers.
 
 Unlike the reference, :meth:`Model.prefill` and :meth:`Model.decode_step`
 update the cache's tensors in place (the reference's ``.at[].set`` and
@@ -56,7 +65,12 @@ a layer of a ``layers`` or decoder stack), ``model/unembed`` (the final
 norm, the product, the soft-cap) and ``cache/write`` (a layer's ring
 write, its conv and SSM state copies, the cross cache); the layers' own
 spans (``layers.py``, ``ssm.py``) nest under ``model/layer``, and what a
-layer computes between them (the residual adds) is its own.
+layer computes between them (the residual adds) is its own.  A zamba2
+site's whole application (the concatenation, both norms, attention, the
+MLP with its adapter, the site's linear) is ``shared/block`` (args site,
+block), inside it ``shared/lora`` (``layers.py``) and
+``shared/site_linear``; each application counts ``model.shared_sites``
+(``obs.counters``).
 """
 from __future__ import annotations
 
@@ -69,6 +83,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..core.instance import resolve_device
+from ..obs import counters
 from ..obs.profiler import annotate
 from ..sharding import shard
 from .layers import (
@@ -89,9 +104,11 @@ from .ssm import apply_mamba, init_ssm_state, mamba_decl, mamba_decode_step
 
 __all__ = ["Model", "DecodeCache"]
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm", "zamba2")
 #: the families whose layers are attention blocks run as one stack
 _DENSE_TRUNK = ("dense", "moe", "vlm")
+#: the families whose layers are Mamba-2 blocks
+_MAMBA_TRUNK = ("ssm", "hybrid", "zamba2")
 
 
 @dataclasses.dataclass
@@ -103,8 +120,8 @@ class DecodeCache:
     attn:  {'k','v'} (L_attn, B, W, KV, hd) ring buffers (None if attn-free);
            int8 with f32 {'k_scale','v_scale'} (L_attn, B, W, KV, 1) when
            ``kv_cache_dtype="int8"``
-    conv:  (L_ssm, B, convw-1, ch)      (None unless ssm/hybrid)
-    ssm:   (L_ssm, B, H, N, P)          (None unless ssm/hybrid)
+    conv:  (L_ssm, B, convw-1, ch)      (None unless ssm/hybrid/zamba2)
+    ssm:   (L_ssm, B, H, N, P)          (None unless ssm/hybrid/zamba2)
     cross: {'k','v'} (L_dec, B, T_enc, KV, hd) projected encoder memory,
            written once by prefill (None unless encdec)
     All but the int8 rings and their scales in the activation dtype, as
@@ -168,6 +185,8 @@ class Model:
         if cfg.family not in _FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
+        #: the zamba2 family's sites by layer: {layer: site}
+        self._site = {i: j for j, i in enumerate(cfg.shared_sites)}
 
     # ------------------------------------------------------------------ decl
     def _attn_block_decl(self) -> Dict[str, Any]:
@@ -181,7 +200,7 @@ class Model:
 
     def _block_decl(self, cross: bool = False) -> Dict[str, Any]:
         cfg = self.cfg
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.family in _MAMBA_TRUNK:
             return {"ln": norm_decl(cfg), "mamba": mamba_decl(cfg)}
         if cfg.family == "moe":
             return {"ln1": norm_decl(cfg), "attn": attn_decl(cfg), "ln2": norm_decl(cfg),
@@ -211,13 +230,25 @@ class Model:
             d["layers"] = self._block_decl()
         if cfg.family == "hybrid":
             d["shared_attn"] = self._attn_block_decl()
+        if cfg.family == "zamba2":
+            dm, r, f = cfg.d_model, cfg.adapter_rank, cfg.d_ff
+            d["shared_blocks"] = dict(self._attn_block_decl(), ln1=norm_decl(cfg, cfg.attn_in))
+            d["sites"] = {
+                "lora_a": ParamDecl((dm, r), ("embed", None)),
+                "lora_b": ParamDecl((r, 2 * f), (None, None)),
+                "linear": ParamDecl((dm, dm), ("embed", None)),
+            }
         return d
 
     def stack_sizes(self) -> Dict[str, int]:
-        """Each layer stack of :meth:`decl` and its depth."""
+        """Each layer stack of :meth:`decl` and its depth (for the zamba2
+        family also its shared blocks and its sites)."""
         cfg = self.cfg
         if cfg.family == "encdec":
             return {"enc_layers": cfg.num_enc_layers, "dec_layers": cfg.num_layers}
+        if cfg.family == "zamba2":
+            return {"layers": cfg.num_layers, "shared_blocks": cfg.num_mem_blocks,
+                    "sites": len(cfg.shared_sites)}
         return {"layers": cfg.num_layers}
 
     def _per_layer(self, fn) -> Dict[str, Any]:
@@ -328,6 +359,28 @@ class Model:
         h = h + xa
         return h + apply_mlp(p["mlp"], apply_norm(p["ln2"], h, cfg), cfg), kv, xkv
 
+    def _kept(self, emb):
+        """The embedded tokens where the zamba2 family's sites read them, else
+        ``None`` (so the other families free them after the first layer)."""
+        return emb if self._site else None
+
+    def _shared_block(self, params, site: int, h, emb, positions, *, cache=None, index=None):
+        """(the site's output to add to its layer's Mamba-2 input, its kv):
+        the zamba2 family's shared block of ``site`` over concat([h, emb]),
+        no residual inside, then the site's linear."""
+        cfg = self.cfg
+        blk = cfg.block_of(site)
+        with annotate("shared/block", site=site, block=blk):
+            counters.add("model.shared_sites")
+            p, s = params["shared_blocks"][blk], params["sites"][site]
+            x = apply_norm(p["ln1"], torch.cat([h, emb], dim=-1), cfg)
+            a, kv = apply_attention(p["attn"], x, cfg, positions=positions, cache=cache,
+                                    cache_index=index)
+            mlp = dict(p["mlp"], lora_a=s["lora_a"], lora_b=s["lora_b"])
+            m = apply_mlp(mlp, apply_norm(p["ln2"], a, cfg), cfg)
+            with annotate("shared/site_linear"):
+                return m @ s["linear"], kv
+
     def _encode(self, params, batch) -> torch.Tensor:
         """The encoder over the stubbed frame embeddings (B, T_enc, D):
         bidirectional attention blocks, then ``ln_enc``."""
@@ -354,6 +407,7 @@ class Model:
         tokens = batch["tokens"]
         B, S = tokens.shape
         h = self._embed(params, tokens, batch)
+        emb = self._kept(h)
         positions = batch.get("positions")
         if positions is None:
             positions = make_positions(B, S, device=h.device)
@@ -368,22 +422,26 @@ class Model:
             with annotate("model/layer", i=i):
                 if self.cfg.remat and torch.is_grad_enabled():
                     h, a = torch.utils.checkpoint.checkpoint(
-                        self._layer, params, i, h, positions, use_reentrant=False)
+                        self._layer, params, i, h, positions, emb, use_reentrant=False)
                 else:
-                    h, a = self._layer(params, i, h, positions)
+                    h, a = self._layer(params, i, h, positions, emb)
                 aux = aux + a
         return self._unembed(params, h), {"router_aux": aux}
 
-    def _layer(self, params, i: int, h, positions):
+    def _layer(self, params, i: int, h, positions, emb=None):
         """(h, router aux) of layer i of the teacher-forcing forward (with
-        the hybrid family's shared block before it where it fires)."""
+        the hybrid or zamba2 family's shared block before it where it
+        fires; ``emb`` the embedded tokens, which zamba2's reads)."""
         lp = params["layers"][i]
         if self.cfg.family in _DENSE_TRUNK:
             h, _, aux = self._dense_block(lp, h, positions)
             return h, aux
+        x = h
         if self._attn_site(i):
-            h = self._dense_block(params["shared_attn"], h, positions)[0]
-        h = h + apply_mamba(lp["mamba"], apply_norm(lp["ln"], h, self.cfg), self.cfg)
+            h = x = self._dense_block(params["shared_attn"], h, positions)[0]
+        elif i in self._site:
+            x = h + self._shared_block(params, self._site[i], h, emb, positions)[0]
+        h = h + apply_mamba(lp["mamba"], apply_norm(lp["ln"], x, self.cfg), self.cfg)
         return h, torch.zeros((), device=h.device)
 
     def _attn_site(self, i: int) -> bool:
@@ -398,7 +456,7 @@ class Model:
             return cfg.num_layers
         if cfg.family == "hybrid":
             return -(-cfg.num_layers // cfg.attn_every) if cfg.attn_every else 0
-        return 0
+        return len(self._site)
 
     def cache_window(self, max_len: int) -> int:
         w = self.cfg.sliding_window
@@ -429,7 +487,7 @@ class Model:
             else:
                 attn = {"k": torch.zeros(shape, dtype=dt, device=dev),
                         "v": torch.zeros(shape, dtype=dt, device=dev)}
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.family in _MAMBA_TRUNK:
             c1, s1 = init_ssm_state(cfg, batch, dt, dev)
             conv = c1.expand(cfg.num_layers, *c1.shape).clone()
             ssm = s1.expand(cfg.num_layers, *s1.shape).clone()
@@ -450,6 +508,7 @@ class Model:
         tokens = batch["tokens"]
         B, S = tokens.shape
         h = self._embed(params, tokens, batch)
+        emb = self._kept(h)
         positions = make_positions(B, S, device=h.device)
         if cache.attn is not None:
             W = cache.attn["k"].shape[2]
@@ -494,13 +553,20 @@ class Model:
                     with annotate("cache/write"):
                         fill_ring(i, kv)
                     continue
+                x = h
                 if self._attn_site(i):
                     h, kv, _ = self._dense_block(params["shared_attn"], h, positions)
                     with annotate("cache/write"):
                         fill_ring(site, kv)
                     site += 1
+                    x = h
+                elif i in self._site:
+                    t, kv = self._shared_block(params, self._site[i], h, emb, positions)
+                    with annotate("cache/write"):
+                        fill_ring(self._site[i], kv)
+                    x = h + t
                 y, (cv, st) = apply_mamba(
-                    lp["mamba"], apply_norm(lp["ln"], h, cfg), cfg, return_state=True
+                    lp["mamba"], apply_norm(lp["ln"], x, cfg), cfg, return_state=True
                 )
                 h = h + y
                 with annotate("cache/write"):
@@ -518,6 +584,7 @@ class Model:
         cfg = self.cfg
         idx = cache.index
         h = self._embed(params, tokens)
+        emb = self._kept(h)
         if isinstance(idx, torch.Tensor):
             positions = idx[:, None]
         else:
@@ -543,8 +610,13 @@ class Model:
                     site += 1
                 if cfg.family in _DENSE_TRUNK:
                     continue
+                x = h
+                if i in self._site:
+                    j = self._site[i]
+                    x = h + self._shared_block(params, j, h, emb, positions, cache=ring(j),
+                                               index=idx)[0]
                 y, ncv, nst = mamba_decode_step(
-                    lp["mamba"], apply_norm(lp["ln"], h, cfg), cfg, cache.conv[i], cache.ssm[i]
+                    lp["mamba"], apply_norm(lp["ln"], x, cfg), cfg, cache.conv[i], cache.ssm[i]
                 )
                 h = h + y
                 with annotate("cache/write"):

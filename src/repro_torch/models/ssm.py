@@ -15,6 +15,10 @@ Block layout (mamba2-130m / zamba2 style):
   gate    : y = RMSNormGated(y * silu(z))
   out_proj: d_inner -> d
 
+The gated RMSNorm normalises over all of d_inner, as the reference's; a
+configuration with ``norm_groups`` above 1 (``zamba2``: Zamba2RMSNormGated's
+``group_size = d_inner / ngroups``) normalises each group on its own.
+
 The causal conv with its bias and SiLU goes through ``kops.causal_conv``:
 one Hopper kernel for CUDA tensors on the ``"cuda"`` model backend (on
 each rank's shards for DTensors), else the plain expression
@@ -86,11 +90,17 @@ def _split_proj(z_all, cfg: ModelConfig):
     return torch.split(z_all, [di, di + 2 * G * N, H], dim=-1)
 
 
-def _gated_rmsnorm(y, z, scale, eps):
+def _gated_rmsnorm(y, z, scale, eps, groups: int = 1):
+    """RMSNorm of y * silu(z) over the last axis, or over each of its
+    ``groups`` equal parts, times ``scale``."""
     y = y * F.silu(z)
     y32 = y.float()
-    var = y32.square().mean(-1, keepdim=True)
-    return (y32 * torch.rsqrt(var + eps) * scale).to(y.dtype)
+    if groups == 1:
+        var = y32.square().mean(-1, keepdim=True)
+        return (y32 * torch.rsqrt(var + eps) * scale).to(y.dtype)
+    yg = y32.unflatten(-1, (groups, -1))
+    var = yg.square().mean(-1, keepdim=True)
+    return ((yg * torch.rsqrt(var + eps)).flatten(-2) * scale).to(y.dtype)
 
 
 def _softplus(x):
@@ -127,7 +137,7 @@ def apply_mamba(p, x, cfg: ModelConfig, conv_state=None, ssm_state=None, return_
     y = y + p["D"][None, None, :, None] * xs
     y = y.reshape(B, S, di)
     with annotate("ssm/gated_norm"):
-        y = _gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps)
+        y = _gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps, cfg.norm_groups)
     with annotate("ssm/out_proj"):
         out = y @ p["out_proj"]
     if return_state:
@@ -169,6 +179,6 @@ def mamba_decode_step(p, x, cfg: ModelConfig, conv_state, ssm_state):
     y = torch.einsum("bhn,bhnp->bhp", Ch.float(), new_state)
     y = y.to(x.dtype) + p["D"][None, :, None].to(x.dtype) * xs
     y = y.reshape(B, 1, di)
-    y = _gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps)
+    y = _gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps, cfg.norm_groups)
     out = (y @ p["out_proj"]).to(x.dtype)
     return out, new_conv, new_state.to(ssm_state.dtype)

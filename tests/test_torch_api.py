@@ -195,11 +195,13 @@ SIGNATURE_DIFFERENCES = {
         "and an initial state in, so that prefill and apply_mamba(ssm_state=) run on the "
         "kernel"),
     "kernels.ops.decode_attention": added(
-        "backend", why="the model kernels' route: 'cuda' the Hopper kernel, 'torch' the "
-        "plain version"),
+        "backend", "scale", why="the model kernels' route: 'cuda' the Hopper kernel, 'torch' "
+        "the plain version; scale: the softmax scale (default 1/sqrt(hd)), zamba2's "
+        "(hd/2)^-1/2"),
     "kernels.ops.flash_attention": added(
-        "backend", why="the model kernels' route: 'cuda' the Hopper kernel, 'torch' the "
-        "plain version"),
+        "backend", "scale", why="the model kernels' route: 'cuda' the Hopper kernel, 'torch' "
+        "the plain version; scale: the softmax scale (default 1/sqrt(hd)), zamba2's "
+        "(hd/2)^-1/2"),
     "kernels.ops.ssd": added(
         "return_final_state", "initial_state", "backend",
         why="the final state out and an initial state in, so that prefill and "

@@ -159,6 +159,66 @@ def test_decode_kernel_equals_plain(cuda, B, KV, rep, T, hd, dtype):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "B,H,KV,S",
+    [
+        (1, 4, 4, 130),      # rep 1, ragged S
+        (2, 8, 2, 77),       # rep 4, ragged
+        (1, 8, 8, 256),      # whole tiles
+        (8, 32, 32, 1024),   # zamba2-7b's prefill launch at its shortest prompts
+    ],
+)
+def test_flash_hd224_takes_the_scale(cuda, B, H, KV, S, dtype):
+    """zamba2's shared attention: hd 224 at the scale (hd/2)^-1/2, bf16 on
+    the tensor-core route (three atoms and the tail, one stage) and f32 on
+    the CUDA-core route, one launch each, within the dtype's tolerance of
+    the plain version at that scale and apart from it at 1/sqrt(hd)."""
+    hd, scale = 224, 112 ** -0.5
+    q = _randn((B, S, H, hd), dtype, cuda, 31).transpose(1, 2)  # model-layout views
+    k = _randn((B, S, KV, hd), dtype, cuda, 32).transpose(1, 2)
+    v = _randn((B, S, KV, hd), dtype, cuda, 33).transpose(1, 2)
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert flash_route(dtype, hd) == route
+    before = counters.snapshot()
+    got = flash_attention(q, k, v, causal=True, backend="cuda", scale=scale)
+    want = flash_attention_ref(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert counters.launches("flash_attention", before, route) == 1
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    unscaled = flash_attention_ref(q, k, v, causal=True)
+    assert (unscaled.float() - want.float()).abs().max() > 4 * _tol(dtype)["atol"]
+    model = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                backend="cuda", scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(model, got.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KV,rep,T", [(2, 4, 1, 300), (8, 32, 1, 4001), (1, 2, 4, 70)])
+def test_decode_hd224_takes_the_scale(cuda, B, KV, rep, T, dtype):
+    """Decode at hd 224 and the scale (hd/2)^-1/2, one span and several
+    (zamba2-7b's step over a ring of 4001), equals the plain version at
+    that scale; the model-layout adapter passes the scale on."""
+    hd, scale = 224, 112 ** -0.5
+    q = _randn((B, KV, rep, hd), dtype, cuda, 34)
+    k = _randn((B, KV, T, hd), dtype, cuda, 35)
+    v = _randn((B, KV, T, hd), dtype, cuda, 36)
+    valid = torch.rand((B, T), generator=torch.Generator(device=cuda).manual_seed(37),
+                       device=cuda) < 0.8
+    got = decode_attention(q, k, v, valid, backend="cuda", scale=scale)
+    want = decode_attention_ref(q, k, v, valid, scale=scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    unscaled = decode_attention_ref(q, k, v, valid)
+    assert (unscaled.float() - want.float()).abs().max() > 4 * _tol(dtype)["atol"]
+    model = ops.decode_attention(q.flatten(1, 2), k.transpose(1, 2), v.transpose(1, 2), valid,
+                                 backend="cuda", scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(model, got.flatten(1, 2))
+
+
 @pytest.mark.parametrize("hd", [64, 128, 160])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_model_layout_views_are_read_in_place(cuda, dtype, hd):

@@ -4,8 +4,9 @@
     PYTHONPATH=src python3 tools/flash_routes.py [--arch pixtral-12b ...] [--reps 10]
 
 For each ``--arch`` (default: pixtral-12b at a 2048-token prompt,
-stablelm-12b at 1024, both head_dim 160, and yi-9b at 1024, head_dim 128,
-for comparison), at batch 8 in bf16 and causal, the model-layout q/k/v
+stablelm-12b at 1024, both head_dim 160, zamba2-7b at 2048, head_dim 224
+at its scale (hd/2)^-1/2, and yi-9b at 1024, head_dim 128, for
+comparison), at batch 8 in bf16 and causal, the model-layout q/k/v
 views that the serving path hands the kernel are drawn from a seed.  The
 route the port takes (``flash_route``) is held against the plain version
 ``flash_attention_ref`` at ``chip_smoke.ATTN_TOL``, then timed in turns
@@ -14,7 +15,7 @@ the route and SDPA as device time, one replay of a captured CUDA graph of
 ``--reps`` calls, and as CUDA events around eager calls; the CUDA-core
 route by events.  Beside them the bound (``chip_smoke.attention_bounds``).
 First the card's name and power limit, the ``-Xptxas -v`` lines of the
-tensor-core library and its hd-160 instantiation's SASS counts.  The
+tensor-core library and its hd-160 and hd-224 instantiations' SASS counts.  The
 results also go to ``chiprun_out/flash_routes.json``.
 """
 from __future__ import annotations
@@ -30,7 +31,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 #: (arch, prompt) timed by default
-SHAPES = {"pixtral-12b": 2048, "stablelm-12b": 1024, "yi-9b": 1024}
+SHAPES = {"pixtral-12b": 2048, "stablelm-12b": 1024, "zamba2-7b": 2048, "yi-9b": 1024}
 
 
 def main() -> int:
@@ -63,8 +64,10 @@ def main() -> int:
     for line in builds["flash_attention_wgmma"].log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"ptxas: {line.strip()}")
-    cs.sass_check(builds["flash_attention_wgmma"].path, "tensor-core flash at hd 160",
-                  ("HGMMA", "UTMALDG", "UTMASTG"), function="flash_attention_wgmma_kernelILi160E")
+    for hd in (160, 224):
+        cs.sass_check(builds["flash_attention_wgmma"].path, f"tensor-core flash at hd {hd}",
+                      ("HGMMA", "UTMALDG", "UTMASTG"),
+                      function=f"flash_attention_wgmma_kernelILi{hd}E")
     dev = torch.device("cuda")
     results = {"device": smi, "reps": args.reps, "shapes": {}}
     for arch in args.arch or list(SHAPES):
@@ -75,8 +78,9 @@ def main() -> int:
         k = cs.randn(dev, (B, S, KV, hd), dt, 32).transpose(1, 2)
         v = cs.randn(dev, (B, S, KV, hd), dt, 33).transpose(1, 2)
         route = flash_route(q.dtype, hd)
-        got = flash_attention(q, k, v, backend="cuda")
-        want = flash_attention_ref(q, k, v)
+        scale = getattr(cfg, "attn_scale", None)  # zamba2's (hd/2)^-1/2, else 1/sqrt(hd)
+        got = flash_attention(q, k, v, backend="cuda", scale=scale)
+        want = flash_attention_ref(q, k, v, scale=scale)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         ok = torch.allclose(got.float(), want.float(), **cs.ATTN_TOL[dt])
@@ -85,10 +89,10 @@ def main() -> int:
         sdpa = torch.nn.functional.scaled_dot_product_attention
 
         def kernel():
-            flash_attention(q, k, v, backend="cuda")
+            flash_attention(q, k, v, backend="cuda", scale=scale)
 
         def lib():
-            sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            sdpa(q, k, v, is_causal=True, enable_gqa=True, scale=scale)
 
         t = {"route": route, "max_abs_err": err, "within_tol": ok,
              "bound_ms": bound_ms, "bound_by": bound_by}
